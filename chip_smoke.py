@@ -1,0 +1,391 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check every kernel.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one NVIDIA card (sm_90a) and ``nvcc``; without a card, or without
+the repository's ``src/repro_torch`` beside it, it exits non-zero and prints
+no result.
+
+Data: ``repro_torch.data.make_domains(seed=0)`` at the size of the paper's
+Office-31 A->W setting (p = 2048 ResNet-50 features, n_S = 2817, n_T = 795),
+sigma by the median heuristic, gamma = 1e-2.
+
+Phases (any failed check raises, and the run exits non-zero):
+  1. build every kernel of ``src/repro_torch/kernels/csrc`` (one nvcc each);
+  2. K4: threefry bits equal to the plain int64 version on the card, Omega
+     floats within 8 ULP (gauss and laplace, sigma != 1, seed >= 2^32, e > 0);
+  3. K1 at N in {1000, 4096}, p = 2048, n = 3612: max abs error <= 2e-5;
+     timed there and at a request's width (n = 300);
+  4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}):
+     atol 2e-5 on G_H / max|G_H| and on u against the plain version;
+  5. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
+     1e-2, subspace projector within 1e-3);
+  6. fit A (N = 1000, m = 32, S = 1) and fit B (N = 4096, m = 8, S = 4), each
+     followed by 16 transform requests of 64-512 target columns checked
+     against one transform of the same columns concatenated; launch counts
+     are zeroed just before and read just after each of these two runs;
+  7. the kernels line (times, bounds, plain and library times, launches),
+     the card's name and power limit, and the result line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+P, N_S, N_T, GAMMA, SEED = 2048, 2817, 795, 1e-2, 0
+OMEGA_ULP = 8
+RFF_ATOL = 2e-5  # tests/test_kernels.py:13
+GRAM_ATOL = 2e-5  # tests/test_kernels.py:57, on G_H / max|G_H| and on u
+# H100 SXM datasheet peaks: fp32 outside the tensor cores (an FMA counts 2)
+# and HBM3.  INT32 issues on 64 lanes per SM against fp32's 128, so integer ops
+# run at a quarter of the fp32 FLOP rate.  The float transform of each draw
+# (log1p, sqrt, cos or tan) is not counted: K4's bound is a loose lower figure.
+PEAK_FLOPS = 67e12
+PEAK_INT_OPS = PEAK_FLOPS / 4
+PEAK_BYTES = 3.35e12
+THREEFRY_INT_OPS = 82  # 20 rounds x (add, rotate, xor) + 5 key injections x 4 + 2
+REQUEST_COLS = 300  # K1 timed at a transform request's width as well
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs, CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ulps(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    mag = torch.maximum(a.abs(), b.abs()).float()
+    spacing = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).double()
+    return float(((a - b).abs() / spacing).max())
+
+
+def bound_ms(flops: float, nbytes: float, int_ops: float = 0.0) -> tuple[float, str]:
+    t_ops = (flops / PEAK_FLOPS + int_ops / PEAK_INT_OPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+
+    from repro_torch.core import mmd, rf_tca
+    from repro_torch.core.kernels_math import (
+        assemble_streamed_gram_ensemble, ell_vector, median_sigma,
+    )
+    from repro_torch.data import make_domains
+    from repro_torch.kernels import _build, prng, rff
+    from repro_torch.kernels import rff_gram_stream as gram
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+
+    # ---- 1. build ---------------------------------------------------------
+    secs = _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} libraries in {secs:.1f} s")
+    for name, out in _build.ptxas_log.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+    torch.cuda.synchronize()
+
+    # ---- data -------------------------------------------------------------
+    t0 = time.perf_counter()
+    doms = make_domains(2, N_S, dim=P, seed=SEED)
+    xs = torch.tensor(np.ascontiguousarray(doms[0].x), device=dev)
+    xt = torch.tensor(np.ascontiguousarray(doms[1].x[:, :N_T]), device=dev)
+    x = torch.cat([xs, xt], dim=1).contiguous()
+    ell = ell_vector(N_S, N_T, device=dev)
+    sigma = median_sigma(x)
+    torch.cuda.synchronize()
+    log(f"[data] p={P} n_S={N_S} n_T={N_T} sigma={sigma:.6g} ({time.perf_counter() - t0:.1f} s)")
+
+    report: dict[str, dict] = {}
+
+    # ---- 2. K4 ------------------------------------------------------------
+    worst_ulp, worst_abs = 0.0, 0.0
+    for kind in ("gauss", "laplace"):
+        for s, seed, e in ((1.0, 2**32 + 5, 3), (0.7, 17, 1), (sigma, 0, 0)):
+            b = prng.threefry_bits(seed, 1024, P, row0=7, col0=3, ensemble_index=e, device=dev)
+            bp = prng.threefry_bits_plain(seed, 1024, P, row0=7, col0=3, ensemble_index=e,
+                                          device=dev)
+            if not (torch.equal(b[0], bp[0]) and torch.equal(b[1], bp[1])):
+                raise AssertionError(f"K4 bits differ ({kind}, seed {seed}, e {e})")
+            kw = dict(ensemble_index=e, sigma=s, rf_kernel=kind, device=dev)
+            om = prng.fused_omega(seed, 4096, P, **kw)
+            op = prng.fused_omega_block_plain(seed, 4096, P, **kw)
+            u, a = ulps(torch, om, op), float((om - op).abs().max())
+            worst_ulp, worst_abs = max(worst_ulp, u), max(worst_abs, a)
+            log(f"[K4] {kind} sigma={s:.4g} seed={seed} e={e}: bits equal, {u:.0f} ULP")
+    if worst_ulp > OMEGA_ULP:
+        raise AssertionError(f"K4 Omega {worst_ulp} ULP > {OMEGA_ULP}")
+    torch.cuda.synchronize()
+    om_kw = dict(sigma=sigma, device=dev)
+    k4_ms = cuda_ms(torch, lambda: prng.fused_omega(SEED, 4096, P, **om_kw), 20)
+    k4_plain = cuda_ms(torch, lambda: prng.fused_omega_block_plain(SEED, 4096, P, **om_kw), 5)
+    b_ms, b_by = bound_ms(0.0, 4096 * P * 4, int_ops=4096 * P * THREEFRY_INT_OPS)
+    report["K4"] = dict(
+        name="threefry_omega", route="cuda",
+        source="src/repro_torch/kernels/csrc/prng.cu",
+        headers=["src/repro_torch/kernels/csrc/threefry.cuh"],
+        replaces="src/repro/kernels/prng.py:48", max_abs_err=worst_abs, max_ulp=worst_ulp,
+        tolerance=f"bits equal; {OMEGA_ULP} ULP", ms=k4_ms, plain_ms=k4_plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, shape=f"Omega (4096, {P})",
+    )
+    log(f"[K4] (4096, {P}) kernel {k4_ms:.4f} ms, plain {k4_plain:.4f} ms")
+
+    # ---- 3. K1 ------------------------------------------------------------
+    k1 = {}
+    for nf in (1000, 4096):
+        om = prng.fused_omega(SEED, nf, P, sigma=sigma, device=dev)
+        err = float((rff.rff(x, om) - rff.rff_plain(x, om)).abs().max())
+        if not err <= RFF_ATOL:
+            raise AssertionError(f"K1 N={nf}: max abs err {err} > {RFF_ATOL}")
+        k1[nf] = (om, err)
+        log(f"[K1] N={nf} p={P} n={x.shape[1]}: max abs err {err:.3g}")
+    om4 = k1[4096][0]
+    n = x.shape[1]
+    xr = xt[:, :REQUEST_COLS].contiguous()
+    req = {}
+    for nf, (om, _) in k1.items():
+        rb, _ = bound_ms(2 * nf * P * REQUEST_COLS,
+                         (nf * P + P * REQUEST_COLS + 2 * nf * REQUEST_COLS) * 4)
+        req[str(nf)] = dict(ms=cuda_ms(torch, lambda: rff.rff(xr, om), 20), bound_ms=rb)
+        log(f"[K1] request N={nf} p={P} n={REQUEST_COLS}: kernel {req[str(nf)]['ms']:.4f} ms,"
+            f" bound {rb:.4f} ms")
+    b_ms, b_by = bound_ms(2 * 4096 * P * n, (4096 * P + P * n + 2 * 4096 * n) * 4)
+    report["K1"] = dict(
+        name="rff", route="cuda", source="src/repro_torch/kernels/csrc/rff.cu",
+        headers=["src/repro_torch/kernels/csrc/featurize.cuh"],
+        replaces="src/repro/kernels/rff.py:48", max_abs_err=max(e for _, e in k1.values()),
+        tolerance=f"atol {RFF_ATOL}",
+        ms=cuda_ms(torch, lambda: rff.rff(x, om4), 10),
+        plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x, om4), 10),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(torch, lambda: torch.matmul(om4, x), 10),
+        shape=f"N=4096 p={P} n={n}",
+        request_shape=f"p={P} n={REQUEST_COLS}", request=req,
+    )
+    log(f"[K1] N=4096: kernel {report['K1']['ms']:.3f} ms, plain {report['K1']['plain_ms']:.3f}"
+        f" ms, torch.matmul {report['K1']['library_ms']:.3f} ms")
+    del k1
+    torch.cuda.synchronize()
+
+    # ---- 4. fused Gram ----------------------------------------------------
+    gram_err = {}
+    for nf, draws in ((1000, 1), (1000, 4), (4096, 1), (4096, 4)):
+        kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sigma)
+        block = gram.gram_tile_plan(nf, n=n, ensemble=draws)["block"]
+        g_k, u_k = assemble_streamed_gram_ensemble(
+            *gram.rff_gram_stream_fused(x, ell, **kw), n=n, ensemble=draws)
+        g_p, u_p = assemble_streamed_gram_ensemble(
+            *gram.rff_gram_stream_fused_plain(x, ell, **kw), n=n, ensemble=draws)
+        scale = float(g_p.abs().max())
+        eg = float((g_k - g_p).abs().max()) / scale
+        eu = float((u_k - u_p).abs().max())
+        if not (eg <= GRAM_ATOL and eu <= GRAM_ATOL):
+            raise AssertionError(f"fused Gram N={nf} S={draws}: G_H {eg}, u {eu} > {GRAM_ATOL}")
+        gram_err[(nf, draws)] = max(eg, eu)
+        log(f"[gram] N={nf} S={draws} block={block}: G_H/max {eg:.3g}, u {eu:.3g}")
+        del g_k, g_p
+    torch.cuda.synchronize()
+    for key, nf, draws in (("K5", 1000, 1), ("K6", 4096, 4)):
+        kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sigma)
+        block = gram.gram_tile_plan(nf, n=n, ensemble=draws)["block"]
+        k_ms = cuda_ms(torch, lambda: gram.rff_gram_stream_fused(x, ell, **kw), 3)
+        p_ms = cuda_ms(torch, lambda: gram.rff_gram_stream_fused_plain(x, ell, **kw), 3)
+        oms = [prng.fused_omega(SEED, nf, P, ensemble_index=e, sigma=sigma, device=dev)
+               for e in range(draws)]
+        w = torch.cat([torch.cat([torch.cos(o @ x), torch.sin(o @ x)]) for o in oms], dim=1)
+
+        def library():
+            for o in oms:
+                torch.matmul(o, x)
+            torch.matmul(w, w.T)
+
+        lib_ms = cuda_ms(torch, library, 3)
+        del oms, w
+        flops = 2 * draws * nf * P * n + 2 * draws * n * (nf * nf + nf * (nf + 1))
+        nbytes = (P * n + n + 3 * nf * nf + 4 * nf * draws) * 4
+        b_ms, b_by = bound_ms(flops, nbytes, int_ops=draws * nf * P * THREEFRY_INT_OPS)
+        report[key] = dict(
+            name=f"rff_gram_stream_fused (N={nf}, S={draws})", route="cuda",
+            source="src/repro_torch/kernels/csrc/rff_gram_stream_fused.cu",
+            headers=["src/repro_torch/kernels/csrc/featurize.cuh",
+                     "src/repro_torch/kernels/csrc/threefry.cuh"],
+            replaces=("src/repro/kernels/rff_gram_stream.py:524" if key == "K5"
+                      else "src/repro/kernels/rff_gram_stream.py:587"),
+            max_abs_err=max(v for (f, _), v in gram_err.items() if f == nf),
+            tolerance=f"atol {GRAM_ATOL} on G_H/max|G_H| and u", ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            shape=f"N={nf} S={draws} p={P} n={n} block={block}",
+        )
+        log(f"[gram] {key} N={nf} S={draws}: kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms, "
+            f"torch.matmul {lib_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
+    torch.cuda.synchronize()
+
+    # ---- 5. small fit: card vs the CPU plain path --------------------------
+    small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
+                 ensemble=2)
+    xs_s, xt_s = xs[:, :300].cpu(), xt[:, :200].cpu()
+    st_c = rf_tca.rf_tca_fit(xs_s, xt_s, device="cpu", **small)
+    st_g = rf_tca.rf_tca_fit(xs_s, xt_s, device=dev, **small)
+    ev_err = float(((st_g.eigvals.cpu() - st_c.eigvals).abs() / st_c.eigvals.abs()).max())
+
+    def proj(w):
+        q, _ = torch.linalg.qr(w.double().cpu())
+        return q @ q.T
+
+    sub = float(torch.linalg.matrix_norm(proj(st_g.w_rf) - proj(st_c.w_rf), ord=2))
+    if not (ev_err <= 1e-2 and sub <= 1e-3):
+        raise AssertionError(f"small fit: eigvals rel {ev_err}, subspace {sub}")
+    log(f"[small] card vs CPU plain: eigvals rel err {ev_err:.3g}, subspace {sub:.3g}")
+    torch.cuda.synchronize()
+
+    # ---- 6. main path: fit + requests -------------------------------------
+    rng = np.random.default_rng(SEED)
+    counters = (prng.LAUNCHES, rff.LAUNCHES, gram.LAUNCHES)
+    runs = {}
+    for tag, nf, m, draws in (("A", 1000, 32, 1), ("B", 4096, 8, 4)):
+        sizes = rng.integers(64, 513, size=16)
+        cols = [torch.tensor(rng.choice(N_T, size=int(s), replace=False), device=dev)
+                for s in sizes]
+        reqs = [xt[:, c].contiguous() for c in cols]
+        for c in counters:
+            for k in c:
+                c[k] = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, stats = rf_tca.rf_tca_fit_with_stats(
+            xs, xt, n_features=nf, m=m, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
+            ensemble=draws, device=dev,
+        )
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        outs, lat = [], []
+        for r in reqs:
+            t1 = time.perf_counter()
+            outs.append(rf_tca.rf_tca_transform(state, r))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        launches = {k: dict(c) for k, c in zip(("prng", "rff", "gram"), counters)}
+        peak = torch.cuda.max_memory_allocated()
+        # checks of what came out
+        vals = state.eigvals
+        if not (torch.isfinite(state.w_rf).all() and torch.isfinite(vals).all()):
+            raise AssertionError(f"fit {tag}: non-finite state")
+        if tuple(state.w_rf.shape) != (2 * nf, m) or not bool((vals[:-1] >= vals[1:]).all()):
+            raise AssertionError(f"fit {tag}: bad shape or eigenvalue order")
+        whole = rf_tca.rf_tca_transform(state, torch.cat(reqs, dim=1))
+        scale = float(whole.abs().max())
+        req_err = float((torch.cat(outs, dim=1) - whole).abs().max()) / scale
+        if not (torch.isfinite(whole).all() and req_err <= 1e-5):
+            raise AssertionError(f"fit {tag}: requests differ from the whole by {req_err}")
+        # RF-MMD of draw 0's features: unaligned ||msg_S + msg_T||^2, and
+        # aligned ||W_RF^T (msg_S + msg_T)||^2 (paper eq. 11)
+        om0 = rf_tca.fused_transform_omega(state, P)
+        msg_s = mmd.message(rff.rff(xs, om0), 1.0)
+        msg_t = mmd.message(rff.rff(xt, om0), -1.0)
+        before = float(mmd.mmd_projected(torch.eye(2 * nf, device=dev), msg_s, msg_t))
+        after = float(mmd.mmd_projected(state.w_rf, msg_s, msg_t))
+        if not (np.isfinite(before) and np.isfinite(after)):
+            raise AssertionError(f"fit {tag}: RF-MMD {before} -> {after}")
+        # scale-free: discrepancy over spread, from the fit's own (G_H, u)
+        g_h, u, w = stats["gram"], stats["u"], state.w_rf
+        ratio_before = float(n * (u @ u) / torch.trace(g_h))
+        ratio_after = float(n * ((w.T @ u) ** 2).sum() / torch.trace(w.T @ g_h @ w))
+        del g_h, u, w
+        if draws == 1:  # the fused Gram's moment u is draw 0's Sigma ell, as K1 gives it
+            u_err = float((stats["u"] - (msg_s + msg_t)).abs().max())
+            if not u_err <= GRAM_ATOL:
+                raise AssertionError(f"fit {tag}: u differs from K1's messages by {u_err}")
+        # where the fit's time goes: the statistics pass and the solve, apart
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g_h, u = rf_tca.fused_streaming_gram(x, ell, n_features=nf, seed=SEED, ensemble=draws,
+                                             sigma=sigma)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rf_tca.solve_w_rf_gram(g_h, u, GAMMA, m)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        del g_h, u
+        runs[tag] = dict(
+            n_features=nf, m=m, ensemble=draws, fit_s=fit_s, stats_pass_s=t2 - t1,
+            solve_s=t3 - t2,
+            request_ms_p50=float(np.percentile(lat, 50)),
+            request_ms_p99=float(np.percentile(lat, 99)),
+            request_cols=int(sizes.sum()), request_rel_err=req_err,
+            rf_mmd_unaligned=before, rf_mmd_aligned=after,
+            mmd_over_spread_unaligned=ratio_before, mmd_over_spread_aligned=ratio_after,
+            peak_bytes=int(peak),
+            top_eigvals=[float(v) for v in vals[:4]], launches=launches,
+        )
+        log(f"[fit {tag}] N={nf} m={m} S={draws}: fit {fit_s:.3f} s (stats pass "
+            f"{t2 - t1:.3f} s, solve {t3 - t2:.3f} s), requests p50 "
+            f"{runs[tag]['request_ms_p50']:.3f} ms p99 {runs[tag]['request_ms_p99']:.3f} ms, "
+            f"RF-MMD {before:.4g} unaligned, {after:.4g} aligned (eq. 11); MMD/spread "
+            f"{ratio_before:.4g} -> {ratio_after:.4g}; peak {peak / 2**30:.2f} GiB, "
+            f"launches {launches}")
+        for part, cnt in (("fused_omega", launches["prng"]["fused_omega"]),
+                          ("rff", launches["rff"]["rff"]),
+                          *((k, v) for k, v in launches["gram"].items())):
+            if cnt <= 0:
+                raise AssertionError(f"fit {tag}: kernel {part} was not launched")
+        del state, stats, outs, whole
+        torch.cuda.synchronize()
+
+    la, lb = runs["A"]["launches"], runs["B"]["launches"]
+    report["K4"]["launches"] = la["prng"]["fused_omega"] + lb["prng"]["fused_omega"]
+    report["K1"]["launches"] = la["rff"]["rff"] + lb["rff"]["rff"]
+    report["K5"]["launches"] = sum(la["gram"].values())
+    report["K5"]["parts"] = la["gram"]
+    report["K6"]["launches"] = sum(lb["gram"].values())
+    report["K6"]["parts"] = lb["gram"]
+    kernels = [dict(id=k, **report[k]) for k in ("K4", "K1", "K5", "K6")]
+    print(json.dumps({"runs": runs}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

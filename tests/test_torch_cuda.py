@@ -1,0 +1,106 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a card (a CUDA kernel
+has no CPU mode).  The file imports neither jax nor the reference package, so
+it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: Omega within 8 ULP and bits equal (K4); 2e-5 absolute on the
+feature map (K1); atol 2e-5 on G_H / max|G_H| and on u (K5/K6); the fit's
+eigenvalues to rtol 1e-2 and its subspace to 1e-3.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import rf_tca as trf  # noqa: E402
+from repro_torch.core.kernels_math import ell_vector  # noqa: E402
+from repro_torch.kernels import ops, prng, ref, rff  # noqa: E402
+from repro_torch.kernels import rff_gram_stream as gram  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    mag = torch.maximum(a.abs(), b.abs()).float()
+    spacing = (torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag).double()
+    return float(((a - b).abs() / spacing).max())
+
+
+def test_prng_kernel_matches_plain(card):
+    kw = dict(row0=3, col0=2**32 - 100, ensemble_index=2, device=card)
+    bits = prng.threefry_bits(2**33 + 5, 256, 300, **kw)
+    plain = prng.threefry_bits_plain(2**33 + 5, 256, 300, **kw)
+    assert torch.equal(bits[0], plain[0]) and torch.equal(bits[1], plain[1])
+    for kind in ("gauss", "laplace"):
+        for sigma in (1.0, 0.7):
+            out = prng.fused_omega_block(9, 256, 300, sigma=sigma, rf_kernel=kind, **kw)
+            exp = prng.fused_omega_block_plain(9, 256, 300, sigma=sigma, rf_kernel=kind, **kw)
+            assert _ulps(out, exp) <= 8
+
+
+@pytest.mark.parametrize("nf,p,n", [(96, 40, 300), (1000, 2048, 700)])
+def test_rff_kernel_matches_plain(card, nf, p, n):
+    rng = np.random.default_rng(0)
+    x = torch.tensor((rng.normal(size=(p, n)) / np.sqrt(p)).astype(np.float32), device=card)
+    om = torch.tensor(rng.normal(size=(nf, p)).astype(np.float32), device=card)
+    out = rff.rff(x, om)
+    assert (out - rff.rff_plain(x, om)).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("nf,ensemble,sigma,kind", [
+    (96, 1, 1.0, "gauss"), (300, 3, 0.8, "gauss"), (200, 2, 4.0, "laplace"),
+])
+def test_fused_gram_kernel_matches_plain(card, nf, ensemble, sigma, kind):
+    rng = np.random.default_rng(nf)
+    x = torch.tensor(rng.normal(size=(40, 700)).astype(np.float32), device=card)
+    ell = ell_vector(350, 350, device=card)
+    kw = dict(n_features=nf, seed=5, ensemble=ensemble)
+    g_k, u_k = ops.rff_gram_stream_fused(x, ell, sigma_rf=sigma, rf_kernel=kind, **kw)
+    g_p, u_p = ref.rff_gram_stream_fused_ref(x, ell, sigma=sigma, rf_kernel=kind, **kw)
+    scale = g_p.abs().max()
+    assert ((g_k - g_p).abs().max() / scale).item() <= 2e-5
+    assert (u_k - u_p).abs().max().item() <= 2e-5
+
+
+def test_fused_gram_kernel_accumulates_over_chunks(card, monkeypatch):
+    """A workspace of one featurize tile splits n = 700 into three chunks."""
+    monkeypatch.setattr(gram, "WORKSPACE_BYTES", 1)
+    plan = gram.gram_tile_plan(200, n=700, ensemble=2)
+    assert plan["chunks"] == 3 and plan["block"] == gram.FEATURIZE_COLS
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.normal(size=(40, 700)).astype(np.float32), device=card)
+    ell = ell_vector(400, 300, device=card)
+    kw = dict(n_features=200, seed=7, ensemble=2)
+    before = gram.LAUNCHES["accumulate"]
+    g_k, u_k = ops.rff_gram_stream_fused(x, ell, sigma_rf=2.0, **kw)
+    assert gram.LAUNCHES["accumulate"] - before == plan["chunks"]
+    g_p, u_p = ref.rff_gram_stream_fused_ref(x, ell, sigma=2.0, **kw)
+    assert ((g_k - g_p).abs().max() / g_p.abs().max()).item() <= 2e-5
+    assert (u_k - u_p).abs().max().item() <= 2e-5
+
+
+def test_fit_and_transform_on_card_match_cpu(card):
+    rng = np.random.default_rng(6)
+    xs = rng.normal(size=(12, 160)).astype(np.float32)
+    xt = (rng.normal(size=(12, 120)) + 0.5).astype(np.float32)
+    kw = dict(n_features=96, m=8, gamma=1e-2, sigma=3.0, w_rf="fused:2", ensemble=2)
+    cpu = trf.rf_tca_fit(xs, xt, device="cpu", **kw)
+    gpu = trf.rf_tca_fit(xs, xt, device=card, **kw)
+    np.testing.assert_allclose(gpu.eigvals.cpu().numpy(), cpu.eigvals.numpy(), rtol=1e-2)
+    q_c, _ = torch.linalg.qr(cpu.w_rf.double())
+    q_g, _ = torch.linalg.qr(gpu.w_rf.double().cpu())
+    assert torch.linalg.matrix_norm(q_c @ q_c.T - q_g @ q_g.T, ord=2).item() <= 1e-3
+    f_c = trf.rf_tca_transform(cpu, xt)
+    f_g = trf.rf_tca_transform(cpu._replace(w_rf=cpu.w_rf.to(card)), xt).cpu()
+    assert ((f_g - f_c).abs().max() / f_c.abs().max()).item() <= 1e-4

@@ -1,0 +1,110 @@
+"""Guards of the PyTorch port: what it imports, where it runs, what it leaves out."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import rf_tca as trf  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.kernels import prng  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = _port_files()
+    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+    for f in files:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_has_no_fallback_from_kernel_to_plain():
+    """No ``try`` in the kernel modules: a CUDA launch succeeds or raises."""
+    for f in sorted((ROOT / "src" / "repro_torch" / "kernels").glob("*.py")):
+        tries = [n for n in ast.walk(ast.parse(f.read_text())) if isinstance(n, ast.Try)]
+        assert not tries, f"{f.name} has a try block"
+
+
+def _data():
+    rng = np.random.default_rng(0)
+    return rng.normal(size=(6, 40)).astype(np.float32), rng.normal(size=(6, 30)).astype(
+        np.float32
+    )
+
+
+def test_fit_without_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    xs, xt = _data()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trf.rf_tca_fit(xs, xt, n_features=16, m=2, w_rf="fused:0")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_omega_draws_without_device_raise_without_card():
+    """The seed-defined draws are entry points too: no device means the card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    for draw in (lambda: prng.fused_omega(0, 8, 4),
+                 lambda: prng.fused_omega_block(0, 8, 4),
+                 lambda: prng.threefry_bits(0, 8, 4),
+                 lambda: prng.fused_omega_block_plain(0, 8, 4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            draw()
+    assert prng.fused_omega(0, 8, 4, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("kw", [
+    dict(w_rf=None),
+    dict(w_rf=None, mode="dense"),
+    dict(w_rf="fused:1", solver="lobpcg"),
+    dict(w_rf=None, mode="dense", solver="cholesky"),
+])
+def test_paths_outside_the_slice_raise(kw):
+    xs, xt = _data()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        trf.rf_tca_fit(xs, xt, n_features=16, m=2, device="cpu", **kw)
+
+
+def test_solvers_outside_the_slice_raise():
+    g = torch.eye(8)
+    u = torch.ones(8)
+    for solver in ("lobpcg", "cholesky"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            trf.solve_w_rf_gram(g, u, 1e-2, 2, solver=solver)
+    with pytest.raises(ValueError):
+        trf.solve_w_rf_gram(g, u, 1e-2, 2, solver="qr")
+
+
+@pytest.mark.parametrize("kw,err", [
+    (dict(w_rf="fused:1", mode="tiled"), ValueError),
+    (dict(w_rf="fused:1", solver="cholesky"), ValueError),
+    (dict(w_rf="seed:1"), ValueError),
+    (dict(w_rf=None, ensemble=2), ValueError),
+])
+def test_fit_argument_errors_match_reference(kw, err):
+    xs, xt = _data()
+    with pytest.raises(err):
+        trf.rf_tca_fit(xs, xt, n_features=16, m=2, device="cpu", **kw)
+    with pytest.raises(ValueError, match="fused"):
+        trf.rf_tca_fit_with_stats(xs, xt, n_features=16, m=2, device="cpu")
