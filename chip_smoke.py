@@ -18,14 +18,30 @@ Phases (any failed check raises, and the run exits non-zero):
      timed there and at a request's width (n = 300);
   4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}):
      atol 2e-5 on G_H / max|G_H| and on u against the plain version;
-  5. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
+  5. operand Gram (K2/K3) at N in {1000, 4096} with Omega from the port's
+     ``draw_omega``: atol 2e-5 on G_H / max|G_H| and on u; seed-fused
+     featurize (K7) at N = 4096: atol 2e-5; centered Gram (K8) at
+     2N in {2000, 8192} on K1's Sigma: atol 1e-5 on G / max|G|;
+  6. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
      1e-2, subspace projector within 1e-3);
-  6. fit A (N = 1000, m = 32, S = 1) and fit B (N = 4096, m = 8, S = 4), each
-     followed by 16 transform requests of 64-512 target columns checked
-     against one transform of the same columns concatenated; launch counts
-     are zeroed just before and read just after each of these two runs;
-  7. the kernels line (times, bounds, plain and library times, launches),
-     the card's name and power limit, and the result line.
+  7. the main path through the public entry points, each run followed by 16
+     transform requests of 64-512 target columns checked against one
+     transform of the same columns concatenated; launch counts are zeroed
+     just before and read just after each run:
+       A  seed-fused, N = 1000, m = 32, S = 1 (K5, K4, K1; K7 for the client
+          messages Sigma ell);
+       B  seed-fused, N = 4096, m = 8, S = 4 (K6, K4, K1, K7);
+       C  w_rf=None, stream, N = 1000, m = 32, eigh (K2, K1);
+       D  w_rf=None, stream, N = 4096, m = 8, lobpcg (K3, K1);
+       E  dense, N = 1000, m = 32, eigh then cholesky (K1 + K8);
+     cross-checks: C and E share Omega and agree (eigenvalues rtol 1e-3); E's
+     two solvers agree (rtol 1e-4, subspace cosines above 1 - 1e-4); on D's
+     own (G_H, u), the fit's LOBPCG (the reference's stopping rule, a
+     residual of eps 10 2N, ~1 % at 2N = 8192) agrees with eigh to within
+     that residual, and LOBPCG at lobpcg_tol=1e-9 to rtol 1e-4 with
+     cosines above 1 - 1e-3;
+  8. the runs line, the kernels line (times, bounds, plain and library
+     times, launches), the card's name and power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -42,6 +58,10 @@ P, N_S, N_T, GAMMA, SEED = 2048, 2817, 795, 1e-2, 0
 OMEGA_ULP = 8
 RFF_ATOL = 2e-5  # tests/test_kernels.py:13
 GRAM_ATOL = 2e-5  # tests/test_kernels.py:57, on G_H / max|G_H| and on u
+CENTERED_ATOL = 1e-5  # tests/test_kernels.py:41, on G / max|G|
+# tests/test_streaming_solver.py:102-105, :52-56, :66-70
+MODES_RTOL, CHOL_RTOL, CHOL_COS, LOBPCG_RTOL, LOBPCG_COS = 1e-3, 1e-4, 1e-4, 1e-4, 1e-3
+LOBPCG_TIGHT_TOL = 1e-9  # residual under 1e-9 * 10 * 2N (|Ax| + theta): ~8e-5 at 2N = 8192
 # H100 SXM datasheet peaks: fp32 outside the tensor cores (an FMA counts 2)
 # and HBM3.  INT32 issues on 64 lanes per SM against fp32's 128, so integer ops
 # run at a quarter of the fp32 FLOP rate.  The float transform of each draw
@@ -98,10 +118,12 @@ def main() -> int:
 
     from repro_torch.core import mmd, rf_tca
     from repro_torch.core.kernels_math import (
-        assemble_streamed_gram_ensemble, ell_vector, median_sigma,
+        assemble_streamed_gram, assemble_streamed_gram_ensemble, ell_vector, median_sigma,
     )
+    from repro_torch.core.rff import draw_omega
     from repro_torch.data import make_domains
-    from repro_torch.kernels import _build, prng, rff
+    from repro_torch.kernels import _build, ops, prng, rff
+    from repro_torch.kernels import centered_gram as centered
     from repro_torch.kernels import rff_gram_stream as gram
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -258,7 +280,103 @@ def main() -> int:
             f"torch.matmul {lib_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
     torch.cuda.synchronize()
 
-    # ---- 5. small fit: card vs the CPU plain path --------------------------
+    # ---- 5. operand Gram (K2/K3), seed-fused featurize (K7), centered Gram (K8)
+    for key, nf in (("K2", 1000), ("K3", 4096)):
+        om = draw_omega(SEED, nf, P, sigma=sigma, device=dev)
+        g_k, u_k = ops.rff_gram_stream(x, om, ell)
+        five = gram.rff_gram_stream_plain(x, om, ell)
+        g_p, u_p = assemble_streamed_gram(five[0], five[1], five[2], five[3][:, 0],
+                                          five[4][:, 0], five[3][:, 1], five[4][:, 1], n=n)
+        eg = float((g_k - g_p).abs().max() / g_p.abs().max())
+        eu = float((u_k - u_p).abs().max())
+        if not (eg <= GRAM_ATOL and eu <= GRAM_ATOL):
+            raise AssertionError(f"{key} N={nf}: G_H {eg}, u {eu} > {GRAM_ATOL}")
+        del g_k, g_p, five
+        block = gram.gram_tile_plan(nf, n=n)["block"]
+        k_ms = cuda_ms(torch, lambda: gram.rff_gram_stream(x, om, ell), 3)
+        p_ms = cuda_ms(torch, lambda: gram.rff_gram_stream_plain(x, om, ell), 3)
+        z = om @ x
+        w = torch.cat([torch.cos(z), torch.sin(z)])
+        del z
+        lib_ms = cuda_ms(torch, lambda: (torch.matmul(om, x), torch.matmul(w, w.T)), 3)
+        del w
+        flops = 2 * nf * P * n + 2 * n * (nf * nf + nf * (nf + 1))
+        nbytes = (nf * P + P * n + n + 3 * nf * nf + 4 * nf) * 4
+        b_ms, b_by = bound_ms(flops, nbytes)
+        report[key] = dict(
+            name=f"rff_gram_stream (Omega operand, N={nf})", route="cuda",
+            source="src/repro_torch/kernels/csrc/rff_gram_stream_fused.cu",
+            headers=["src/repro_torch/kernels/csrc/featurize.cuh",
+                     "src/repro_torch/kernels/csrc/gram_tile.cuh"],
+            replaces=("src/repro/kernels/rff_gram_stream.py:244" if key == "K2"
+                      else "src/repro/kernels/rff_gram_stream.py:180"),
+            max_abs_err=max(eg, eu), tolerance=f"atol {GRAM_ATOL} on G_H/max|G_H| and u",
+            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            shape=f"N={nf} p={P} n={n} block={block}",
+        )
+        log(f"[{key}] N={nf}: G_H/max {eg:.3g}, u {eu:.3g}; kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        del om
+    torch.cuda.synchronize()
+
+    nf = 4096
+    k7_kw = dict(n_features=nf, seed=SEED, ensemble_index=1, sigma=sigma)
+    k7_err = float((rff.rff_fused(x, **k7_kw) - rff.rff_fused_plain(x, **k7_kw)).abs().max())
+    if not k7_err <= RFF_ATOL:
+        raise AssertionError(f"K7 N={nf}: max abs err {k7_err} > {RFF_ATOL}")
+    om = prng.fused_omega(SEED, nf, P, ensemble_index=1, sigma=sigma, device=dev)
+    b_ms, b_by = bound_ms(2 * nf * P * n, (P * n + 2 * nf * n) * 4,
+                          int_ops=nf * P * THREEFRY_INT_OPS)
+    report["K7"] = dict(
+        name="rff_fused", route="cuda", source="src/repro_torch/kernels/csrc/rff.cu",
+        headers=["src/repro_torch/kernels/csrc/featurize.cuh",
+                 "src/repro_torch/kernels/csrc/threefry.cuh"],
+        replaces="src/repro/kernels/rff.py:117", max_abs_err=k7_err,
+        tolerance=f"atol {RFF_ATOL}", ms=cuda_ms(torch, lambda: rff.rff_fused(x, **k7_kw), 10),
+        plain_ms=cuda_ms(torch, lambda: rff.rff_fused_plain(x, **k7_kw), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=cuda_ms(torch, lambda: torch.matmul(om, x), 10),
+        shape=f"N={nf} p={P} n={n} ensemble_index=1",
+    )
+    log(f"[K7] N={nf}: max abs err {k7_err:.3g}; kernel {report['K7']['ms']:.3f} ms, plain "
+        f"{report['K7']['plain_ms']:.3f} ms, torch.matmul {report['K7']['library_ms']:.3f} ms,"
+        f" bound {b_ms:.3f} ms ({b_by})")
+    del om
+
+    k8 = {}
+    for nf in (1000, 4096):
+        sig = rff.rff(x, draw_omega(SEED, nf, P, sigma=sigma, device=dev))
+        rows = 2 * nf
+        g_k = centered.centered_gram(sig)
+        g_p = centered.centered_gram_plain(sig)
+        err = float((g_k - g_p).abs().max() / g_p.abs().max())
+        if not err <= CENTERED_ATOL:
+            raise AssertionError(f"K8 2N={rows}: G/max {err} > {CENTERED_ATOL}")
+        del g_k, g_p
+        c = sig - sig.mean(dim=1, keepdim=True)
+        b_ms, b_by = bound_ms(rows * (rows + 1) * n, (rows * n + rows * rows) * 4)
+        k8[rows] = dict(
+            max_abs_err=err, ms=cuda_ms(torch, lambda: centered.centered_gram(sig), 5),
+            plain_ms=cuda_ms(torch, lambda: centered.centered_gram_plain(sig), 5),
+            library_ms=cuda_ms(torch, lambda: torch.matmul(c, c.T), 5),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        del sig, c
+        log(f"[K8] 2N={rows} n={n}: G/max {err:.3g}; kernel {k8[rows]['ms']:.3f} ms, plain "
+            f"{k8[rows]['plain_ms']:.3f} ms, torch.matmul {k8[rows]['library_ms']:.3f} ms, "
+            f"bound {b_ms:.3f} ms ({b_by})")
+    report["K8"] = dict(
+        name="centered_gram", route="cuda", source="src/repro_torch/kernels/csrc/centered_gram.cu",
+        headers=["src/repro_torch/kernels/csrc/gram_tile.cuh"],
+        replaces="src/repro/kernels/centered_gram.py:38",
+        tolerance=f"atol {CENTERED_ATOL} on G/max|G|", shape=f"2N=8192 n={n}",
+        **{k: v for k, v in k8[8192].items()},
+        max_abs_err_all=max(v["max_abs_err"] for v in k8.values()),
+        small=dict(shape=f"2N=2000 n={n}", **k8[2000]),
+    )
+    torch.cuda.synchronize()
+
+    # ---- 6. small fit: card vs the CPU plain path --------------------------
     small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
                  ensemble=2)
     xs_s, xt_s = xs[:, :300].cpu(), xt[:, :200].cpu()
@@ -276,35 +394,71 @@ def main() -> int:
     log(f"[small] card vs CPU plain: eigvals rel err {ev_err:.3g}, subspace {sub:.3g}")
     torch.cuda.synchronize()
 
-    # ---- 6. main path: fit + requests -------------------------------------
+    # ---- 7. main path: fits + requests through the public entry points ---
     rng = np.random.default_rng(SEED)
-    counters = (prng.LAUNCHES, rff.LAUNCHES, gram.LAUNCHES)
-    runs = {}
-    for tag, nf, m, draws in (("A", 1000, 32, 1), ("B", 4096, 8, 4)):
+    counters = {"prng": prng.LAUNCHES, "rff": rff.LAUNCHES, "gram": gram.LAUNCHES,
+                "operand_gram": gram.OPERAND_LAUNCHES, "centered_gram": centered.LAUNCHES}
+    fit_kw = dict(gamma=GAMMA, sigma=sigma, seed=SEED, device=dev)
+    runs, states = {}, {}
+    plan = (
+        # tag, N, m, S, mode, solver, kernels that must launch
+        ("A", 1000, 32, 1, "fused", "eigh",
+         ("prng.fused_omega", "rff.rff", "rff.rff_fused", "gram.*")),
+        ("B", 4096, 8, 4, "fused", "eigh",
+         ("prng.fused_omega", "rff.rff", "rff.rff_fused", "gram.*")),
+        ("C", 1000, 32, 1, "stream", "eigh", ("rff.rff", "operand_gram.*")),
+        ("D", 4096, 8, 1, "stream", "lobpcg", ("rff.rff", "operand_gram.*")),
+        ("E", 1000, 32, 1, "dense", "eigh", ("rff.rff", "centered_gram.*")),
+    )
+    for tag, nf, m, draws, mode, solver, needed in plan:
         sizes = rng.integers(64, 513, size=16)
         cols = [torch.tensor(rng.choice(N_T, size=int(s), replace=False), device=dev)
                 for s in sizes]
         reqs = [xt[:, c].contiguous() for c in cols]
-        for c in counters:
+        for c in counters.values():
             for k in c:
                 c[k] = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, stats = rf_tca.rf_tca_fit_with_stats(
-            xs, xt, n_features=nf, m=m, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
-            ensemble=draws, device=dev,
-        )
+        extra = {}
+        if mode == "fused":
+            state, _ = rf_tca.rf_tca_fit_with_stats(
+                xs, xt, n_features=nf, m=m, w_rf=f"fused:{SEED}", ensemble=draws, **fit_kw)
+        else:
+            state = rf_tca.rf_tca_fit(xs, xt, n_features=nf, m=m, mode=mode, solver=solver,
+                                      **fit_kw)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+        if mode == "dense":  # E's second solver on the same data and seed
+            t1 = time.perf_counter()
+            states["E_cholesky"] = rf_tca.rf_tca_fit(xs, xt, n_features=nf, m=m, mode=mode,
+                                                     solver="cholesky", **fit_kw)
+            torch.cuda.synchronize()
+            extra["fit_cholesky_s"] = time.perf_counter() - t1
         outs, lat = [], []
         for r in reqs:
             t1 = time.perf_counter()
             outs.append(rf_tca.rf_tca_transform(state, r))
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t1) * 1e3)
-        launches = {k: dict(c) for k, c in zip(("prng", "rff", "gram"), counters)}
+        # the client messages Sigma ell (paper eq. 2): a seed-fused client
+        # holds only the seed, so its featurize is K7; otherwise K1 on Omega
+        if mode == "fused":
+            sig_s = ops.rff_fused(xs, n_features=nf, seed=SEED, sigma_rf=sigma)
+            sig_t = ops.rff_fused(xt, n_features=nf, seed=SEED, sigma_rf=sigma)
+        else:
+            sig_s, sig_t = rff.rff(xs, state.omega), rff.rff(xt, state.omega)
+        msg_s, msg_t = mmd.message(sig_s, 1.0), mmd.message(sig_t, -1.0)
+        del sig_s, sig_t
+        torch.cuda.synchronize()
+        launches = {k: dict(c) for k, c in counters.items()}
         peak = torch.cuda.max_memory_allocated()
+        for name in needed:
+            group, kern = name.split(".")
+            for k, cnt in launches[group].items():
+                if kern in ("*", k) and cnt <= 0:
+                    raise AssertionError(f"fit {tag}: kernel {group}.{k} was not launched")
         # checks of what came out
         vals = state.eigvals
         if not (torch.isfinite(state.w_rf).all() and torch.isfinite(vals).all()):
@@ -312,73 +466,127 @@ def main() -> int:
         if tuple(state.w_rf.shape) != (2 * nf, m) or not bool((vals[:-1] >= vals[1:]).all()):
             raise AssertionError(f"fit {tag}: bad shape or eigenvalue order")
         whole = rf_tca.rf_tca_transform(state, torch.cat(reqs, dim=1))
-        scale = float(whole.abs().max())
-        req_err = float((torch.cat(outs, dim=1) - whole).abs().max()) / scale
+        req_err = float((torch.cat(outs, dim=1) - whole).abs().max() / whole.abs().max())
         if not (torch.isfinite(whole).all() and req_err <= 1e-5):
             raise AssertionError(f"fit {tag}: requests differ from the whole by {req_err}")
-        # RF-MMD of draw 0's features: unaligned ||msg_S + msg_T||^2, and
-        # aligned ||W_RF^T (msg_S + msg_T)||^2 (paper eq. 11)
-        om0 = rf_tca.fused_transform_omega(state, P)
-        msg_s = mmd.message(rff.rff(xs, om0), 1.0)
-        msg_t = mmd.message(rff.rff(xt, om0), -1.0)
+        # RF-MMD from the messages: unaligned ||msg_S + msg_T||^2, and aligned
+        # ||W_RF^T (msg_S + msg_T)||^2 (paper eq. 11)
         before = float(mmd.mmd_projected(torch.eye(2 * nf, device=dev), msg_s, msg_t))
         after = float(mmd.mmd_projected(state.w_rf, msg_s, msg_t))
         if not (np.isfinite(before) and np.isfinite(after)):
             raise AssertionError(f"fit {tag}: RF-MMD {before} -> {after}")
-        # scale-free: discrepancy over spread, from the fit's own (G_H, u)
-        g_h, u, w = stats["gram"], stats["u"], state.w_rf
-        ratio_before = float(n * (u @ u) / torch.trace(g_h))
-        ratio_after = float(n * ((w.T @ u) ** 2).sum() / torch.trace(w.T @ g_h @ w))
-        del g_h, u, w
-        if draws == 1:  # the fused Gram's moment u is draw 0's Sigma ell, as K1 gives it
-            u_err = float((stats["u"] - (msg_s + msg_t)).abs().max())
-            if not u_err <= GRAM_ATOL:
-                raise AssertionError(f"fit {tag}: u differs from K1's messages by {u_err}")
         # where the fit's time goes: the statistics pass and the solve, apart
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        g_h, u = rf_tca.fused_streaming_gram(x, ell, n_features=nf, seed=SEED, ensemble=draws,
-                                             sigma=sigma)
+        if mode == "fused":
+            g_h, u = rf_tca.fused_streaming_gram(x, ell, n_features=nf, seed=SEED,
+                                                 ensemble=draws, sigma=sigma)
+        elif mode == "stream":
+            g_h, u = rf_tca.streaming_gram(x, ell, state.omega)
+        else:
+            g_h, u = rf_tca._dense_gram(rff.rff(x, state.omega), ell)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        rf_tca.solve_w_rf_gram(g_h, u, GAMMA, m)
+        rf_tca.solve_w_rf_gram(g_h, u, GAMMA, m, solver=solver, seed=SEED)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        del g_h, u
+        if draws == 1:  # the fit's moment u is Sigma ell, as the client messages give it
+            u_err = float((u - (msg_s + msg_t)).abs().max())
+            if not u_err <= GRAM_ATOL:
+                raise AssertionError(f"fit {tag}: u differs from the messages by {u_err}")
+        # scale-free alignment: discrepancy over spread, from the fit's (G_H, u)
+        w = state.w_rf
+        ratio_before = float(n * (u @ u) / torch.trace(g_h))
+        ratio_after = float(n * ((w.T @ u) ** 2).sum() / torch.trace(w.T @ g_h @ w))
+        if tag == "D":
+            d_stats = (g_h, u)
+        del g_h, u, w
         runs[tag] = dict(
-            n_features=nf, m=m, ensemble=draws, fit_s=fit_s, stats_pass_s=t2 - t1,
-            solve_s=t3 - t2,
+            n_features=nf, m=m, ensemble=draws, mode=mode, solver=solver, fit_s=fit_s,
+            stats_pass_s=t2 - t1, solve_s=t3 - t2, **extra,
             request_ms_p50=float(np.percentile(lat, 50)),
             request_ms_p99=float(np.percentile(lat, 99)),
             request_cols=int(sizes.sum()), request_rel_err=req_err,
             rf_mmd_unaligned=before, rf_mmd_aligned=after,
             mmd_over_spread_unaligned=ratio_before, mmd_over_spread_aligned=ratio_after,
-            peak_bytes=int(peak),
-            top_eigvals=[float(v) for v in vals[:4]], launches=launches,
+            peak_bytes=int(peak), top_eigvals=[float(v) for v in vals[:4]], launches=launches,
         )
-        log(f"[fit {tag}] N={nf} m={m} S={draws}: fit {fit_s:.3f} s (stats pass "
-            f"{t2 - t1:.3f} s, solve {t3 - t2:.3f} s), requests p50 "
+        log(f"[fit {tag}] {mode}/{solver} N={nf} m={m} S={draws}: fit {fit_s:.3f} s (stats "
+            f"pass {t2 - t1:.3f} s, solve {t3 - t2:.3f} s), requests p50 "
             f"{runs[tag]['request_ms_p50']:.3f} ms p99 {runs[tag]['request_ms_p99']:.3f} ms, "
             f"RF-MMD {before:.4g} unaligned, {after:.4g} aligned (eq. 11); MMD/spread "
             f"{ratio_before:.4g} -> {ratio_after:.4g}; peak {peak / 2**30:.2f} GiB, "
             f"launches {launches}")
-        for part, cnt in (("fused_omega", launches["prng"]["fused_omega"]),
-                          ("rff", launches["rff"]["rff"]),
-                          *((k, v) for k, v in launches["gram"].items())):
-            if cnt <= 0:
-                raise AssertionError(f"fit {tag}: kernel {part} was not launched")
-        del state, stats, outs, whole
+        states[tag] = state
+        del outs, whole, msg_s, msg_t
         torch.cuda.synchronize()
 
-    la, lb = runs["A"]["launches"], runs["B"]["launches"]
-    report["K4"]["launches"] = la["prng"]["fused_omega"] + lb["prng"]["fused_omega"]
-    report["K1"]["launches"] = la["rff"]["rff"] + lb["rff"]["rff"]
-    report["K5"]["launches"] = sum(la["gram"].values())
-    report["K5"]["parts"] = la["gram"]
-    report["K6"]["launches"] = sum(lb["gram"].values())
-    report["K6"]["parts"] = lb["gram"]
-    kernels = [dict(id=k, **report[k]) for k in ("K4", "K1", "K5", "K6")]
-    print(json.dumps({"runs": runs}), flush=True)
+    # ---- cross-checks between the runs ---------------------------------------
+    def cosines(wa, wb):
+        qa = torch.linalg.qr(wa.double()).Q
+        qb = torch.linalg.qr(wb.double()).Q
+        return torch.linalg.svdvals(qa.T @ qb)
+
+    def rel(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
+    cross = {}
+    st_c, st_e, st_ch = states["C"], states["E"], states["E_cholesky"]
+    if not torch.equal(st_c.omega, st_e.omega):
+        raise AssertionError("fits C and E drew different Omega from one seed")
+    cross["C_vs_E_eigvals_rel"] = rel(st_c.eigvals, st_e.eigvals)
+    cross["E_cholesky_vs_eigh_eigvals_rel"] = rel(st_ch.eigvals, st_e.eigvals)
+    cross["E_cholesky_vs_eigh_min_cos"] = float(cosines(st_ch.w_rf, st_e.w_rf).min())
+    # D: the fit's LOBPCG stops by the reference's rule, a residual under
+    # eps 10 2N (|Ax| + theta), about 1 % of |Ax| at 2N = 8192; its eigenvalues
+    # are held to that residual.  The same (G_H, u) solved with
+    # lobpcg_tol=LOBPCG_TIGHT_TOL is held to the reference's bounds.
+    g_h, u = d_stats
+    w9, v9 = rf_tca.solve_w_rf_gram(g_h, u, GAMMA, 9, solver="eigh")
+    w_e, v_e = w9[:, :8], v9[:8]
+    w_l, v_l = rf_tca.solve_w_rf_gram(g_h, u, GAMMA, 8, solver="lobpcg", seed=SEED)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    w_t, v_t = rf_tca.solve_w_rf_gram(g_h, u, GAMMA, 8, solver="lobpcg", seed=SEED,
+                                      lobpcg_tol=LOBPCG_TIGHT_TOL, lobpcg_iters=300)
+    torch.cuda.synchronize()
+    cross["D_lobpcg_tight_solve_s"] = time.perf_counter() - t1
+    cross["D_eigh_lambda8_lambda9"] = [float(v9[7]), float(v9[8])]
+    cross["D_lobpcg_vs_eigh_eigvals_rel"] = rel(v_l, v_e)
+    cross["D_lobpcg_vs_eigh_cos"] = [float(v) for v in cosines(w_l, w_e)]
+    cross["D_lobpcg_tight_vs_eigh_eigvals_rel"] = rel(v_t, v_e)
+    cross["D_lobpcg_tight_vs_eigh_min_cos"] = float(cosines(w_t, w_e).min())
+    rule = 2 * float(torch.finfo(torch.float32).eps) * 10 * g_h.shape[0]
+    del g_h, u, w9, d_stats
+    log(f"[cross] {cross}")
+    for name, value, limit in (
+        ("C vs E eigenvalues", cross["C_vs_E_eigvals_rel"], MODES_RTOL),
+        ("E cholesky vs eigh eigenvalues", cross["E_cholesky_vs_eigh_eigvals_rel"], CHOL_RTOL),
+        ("E cholesky vs eigh subspace", 1 - cross["E_cholesky_vs_eigh_min_cos"], CHOL_COS),
+        ("D lobpcg (reference stopping rule) vs eigh eigenvalues",
+         cross["D_lobpcg_vs_eigh_eigvals_rel"], rule),
+        ("D lobpcg (tight tol) vs eigh eigenvalues",
+         cross["D_lobpcg_tight_vs_eigh_eigvals_rel"], LOBPCG_RTOL),
+        ("D lobpcg (tight tol) vs eigh subspace",
+         1 - cross["D_lobpcg_tight_vs_eigh_min_cos"], LOBPCG_COS),
+    ):
+        if not value <= limit:
+            raise AssertionError(f"{name}: {value} > {limit}")
+
+    la = {t: runs[t]["launches"] for t in runs}
+    report["K4"]["launches"] = sum(la[t]["prng"]["fused_omega"] for t in la)
+    report["K1"]["launches"] = sum(la[t]["rff"]["rff"] for t in la)
+    report["K7"]["launches"] = sum(la[t]["rff"]["rff_fused"] for t in la)
+    for key, tag, group in (("K5", "A", "gram"), ("K6", "B", "gram"),
+                            ("K2", "C", "operand_gram"), ("K3", "D", "operand_gram")):
+        report[key]["launches"] = sum(la[tag][group].values())
+        report[key]["parts"] = la[tag][group]
+    report["K8"]["launches"] = la["E"]["centered_gram"]["centered_gram"]
+    kernels = [dict(id=k, **report[k]) for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['id']} was not launched on the main path")
+    print(json.dumps({"runs": runs, "cross": cross}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,8 +33,8 @@ def state_from_reference(omega, w_rf, eigvals, fused, *, device=None) -> RFTCASt
 
 def stats_from_reference(stats: dict, *, device=None) -> dict:
     """The retained statistics of ``rf_tca_fit_with_stats`` (``gram`` = G_H,
-    ``u``, and the solve's ``gamma``, ``m``, ``solver``) on the port's device,
-    ready for ``repro_torch.core.rf_tca.rf_tca_resolve``."""
+    ``u``, and the solve's ``gamma``, ``m``, ``solver``, ``seed``) on the
+    port's device, ready for ``repro_torch.core.rf_tca.rf_tca_resolve``."""
     dev = resolve_device(device)
     return {
         "gram": as_f32(np.asarray(stats["gram"]), dev),
@@ -42,4 +42,5 @@ def stats_from_reference(stats: dict, *, device=None) -> dict:
         "gamma": float(stats["gamma"]),
         "m": int(stats["m"]),
         "solver": str(stats["solver"]),
+        "seed": int(stats["seed"]),
     }

@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels (``csrc/``) and their plain PyTorch versions.
 
 - prng:            threefry-2x32 seed-fused Omega draws (K4)
-- rff:             fused RFF feature map, FFMA product + cos/sin epilogue (K1)
-- rff_gram_stream: seed-fused streamed Gram/moment accumulation (K5, K6)
+- rff:             RFF feature map, FFMA product + cos/sin epilogue, Omega an
+                   operand (K1) or drawn in the kernel (K7)
+- rff_gram_stream: streamed Gram/moment accumulation, Omega an operand (K2, K3)
+                   or drawn in the kernel (K5, K6)
+- centered_gram:   Sigma H Sigma^T from a materialized Sigma (K8)
 - ops:             the public wrappers; ref: the dense oracles
 
 Kernels are built by ``_build`` with ``nvcc`` at first use on the card.

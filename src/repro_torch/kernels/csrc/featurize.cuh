@@ -1,10 +1,12 @@
 // Featurize: [cos(Omega X); sin(Omega X)] * scale, an fp32 FFMA product over
 // p with the cos/sin epilogue fused, written by hand (no cuBLAS).
 //
-// Shared by K1 (rff.cu, Omega from an operand) and the seed-fused Gram
-// (rff_gram_stream_fused.cu, Omega drawn in the kernel): the Omega source is
-// the template parameter `Gen`, any functor `float operator()(row, col)`
-// with a `draw(e)` that selects ensemble draw e (blockIdx.y).
+// Shared by K1 and K7 (rff.cu: Omega from an operand, or drawn in the
+// kernel) and the streamed Gram (rff_gram_stream_fused.cu: K2/K3 with Omega
+// from an operand, K5/K6 with Omega drawn): the Omega source is the template
+// parameter `Gen`, any functor `float operator()(row, col)` with a `draw(e)`
+// that selects ensemble draw e (blockIdx.y).  `Gen` is called only for
+// row < nf and col < p, so an operand is never read past its edges.
 //
 // Tile: BM = 32 feature rows x BN = 256 sample columns per block of 256
 // threads, each thread 4 rows x 8 columns (two groups of 4 columns 128 apart,

@@ -17,3 +17,22 @@ extern "C" int rt_rff(const void* omega, const void* x, int nf, int p, int n,
                                   inv_sqrt_n, o, o + int64_t(nf) * n, n, 0,
                                   static_cast<cudaStream_t>(stream)));
 }
+
+// K7 on the card: K1 with Omega drawn in the kernel, no operand.
+//
+// Replaces src/repro/kernels/rff.py:117 (rff_fused_pallas,
+// _rff_fused_kernel).  The featurize tile with FusedOmega as its source:
+// element (row, col) is threefry(seed, ensemble_index, row, col) (K4,
+// threefry.cuh), drawn once per 32 x 16 Omega tile and reused by the tile's
+// 256 sample columns.  The scale is 1/sqrt(N) of the true N.  Bound: fp32
+// operations, 2 N p n FLOP, plus ~82 integer operations per draw for
+// (N p) * ceil(n / 256) draws, against (p n + 2 N n) * 4 bytes.
+extern "C" int rt_rff_fused(uint32_t k0, uint32_t ensemble_index, float inv_sigma, int kind,
+                            const void* x, int nf, int p, int n, float inv_sqrt_n, void* out,
+                            void* stream) {
+  const rt::FusedOmega gen{k0, ensemble_index, inv_sigma, kind};
+  float* o = static_cast<float*>(out);
+  return int(rt::launch_featurize(gen, 1, static_cast<const float*>(x), n, 0, nf, p, n, n,
+                                  inv_sqrt_n, o, o + int64_t(nf) * n, n, 0,
+                                  static_cast<cudaStream_t>(stream)));
+}

@@ -1,40 +1,42 @@
-// K5 + K6 on the card: the seed-fused streamed Gram, one design for all N.
+// K2/K3 and K5/K6 on the card: the streamed Gram, one design for all N.
 //
-// Replaces src/repro/kernels/rff_gram_stream.py:524 (untiled,
-// rff_gram_stream_fused_pallas) and :587 (tiled,
-// rff_gram_stream_fused_tiled_pallas).  The TPU split between the two came
-// from VMEM holding three N^2 accumulators; here the accumulators live in
-// device memory and one design serves every N.  The five-output contract is
-// the reference's:
+// Replaces src/repro/kernels/rff_gram_stream.py:244 (rff_gram_stream_pallas,
+// K2) and :180 (rff_gram_stream_tiled_pallas, K3), which read Omega from an
+// operand, and :524 (rff_gram_stream_fused_pallas, K5) and :587
+// (rff_gram_stream_fused_tiled_pallas, K6), which draw it in the kernel.  The
+// TPU's untiled/tiled split came from VMEM holding three N^2 accumulators;
+// here the accumulators live in device memory and one design serves every N.
+// The five-output contract is the reference's:
 //   G_cc = C C^T, G_cs = C S^T, G_ss = S S^T          (nf, nf), pooled over draws
 //   M_c[:, 2e] = C_e ell, M_c[:, 2e+1] = C_e 1 (and M_s) (nf, 2S), per draw
-// with C, S = cos, sin of Omega_e X scaled by 1/sqrt(N S), padded sample
-// columns masked to 0.
+// with C, S = cos, sin of Omega_e X scaled by 1/sqrt(N S) (the true N; S = 1
+// for the operand path), padded sample columns masked to 0.
 //
 // Per chunk of bc sample columns the host launches, in order:
-//   1. featurize<FusedOmega> (featurize.cuh): draws Omega_e in the kernel
-//      (threefry, K4) and writes the (nf, S bc) cos and sin slabs of the
-//      chunk into a workspace reused by every chunk;
+//   1. featurize (featurize.cuh): rt_fused_featurize draws Omega_e in the
+//      kernel (FusedOmega, threefry K4); rt_operand_featurize reads it from
+//      the (N, p) operand (OperandOmega, loads past p or N masked).  Either
+//      writes the chunk's (nf, S bc) cos and sin slabs into a workspace
+//      reused by every chunk;
 //   2. gram_moments: the 2S moment columns of the chunk, one warp per
 //      (row, draw, cos|sin), added into M_c and M_s;
 //   3. gram_accumulate: the three (nf, nf) products over k = S bc, added into
-//      G_cc, G_cs, G_ss.  128 x 128 output tile per block of 256 threads,
-//      each 8 x 8; G_cc and G_ss are symmetric, so only tiles with
-//      row tile <= column tile are computed (the wrapper mirrors them).
-// Peak memory: O(N^2 + N bc S).  Omega is drawn once per (row tile, p chunk,
-// 256-column tile of a chunk).
+//      G_cc, G_cs, G_ss, on the shared 128 x 128 tile of gram_tile.cuh;
+//      G_cc and G_ss are symmetric, so only tiles with row tile <= column
+//      tile are computed (the wrapper mirrors them).
+// Peak memory: O(N^2 + N bc S).  A fused Omega is drawn once per (row tile,
+// p chunk, 256-column tile of a chunk); an operand Omega is read as often.
 // Bound: fp32 operations of the Gram products (~4 S n nf^2 FLOP with the
 // symmetry) ahead of the featurize product (2 S nf p n) and the draws.
 #include "featurize.cuh"
+#include "gram_tile.cuh"
 #include "threefry.cuh"
 
 namespace {
 
-constexpr int GT = 128;  // output tile edge
-constexpr int GK = 8;    // k step
-constexpr int GTHREADS = 256;
-
-__global__ void __launch_bounds__(GTHREADS)
+// Upper tiles of G_cc and G_ss (they are symmetric; the wrapper mirrors
+// them) and every tile of G_cs, all three over the chunk's k = S bc columns.
+__global__ void __launch_bounds__(rt::GTHREADS)
 gram_accumulate_kernel(const float* __restrict__ wc, const float* __restrict__ ws, int nf,
                        int K, float* __restrict__ gcc, float* __restrict__ gcs,
                        float* __restrict__ gss) {
@@ -44,53 +46,7 @@ gram_accumulate_kernel(const float* __restrict__ wc, const float* __restrict__ w
   const float* A = which == 2 ? ws : wc;
   const float* B = which == 0 ? wc : ws;
   float* out = which == 0 ? gcc : (which == 1 ? gcs : gss);
-
-  __shared__ __align__(16) float As[GK][GT + 4];
-  __shared__ __align__(16) float Bs[GK][GT + 4];
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int lrow = tid / 2, lk = (tid % 2) * 4;
-  const int ar = bi * GT + lrow, br = bj * GT + lrow;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int k0 = 0; k0 < K; k0 += GK) {
-    const float4 va = ar < nf ? *reinterpret_cast<const float4*>(A + int64_t(ar) * K + k0 + lk) : zero;
-    const float4 vb = br < nf ? *reinterpret_cast<const float4*>(B + int64_t(br) * K + k0 + lk) : zero;
-    As[lk + 0][lrow] = va.x; As[lk + 1][lrow] = va.y; As[lk + 2][lrow] = va.z; As[lk + 3][lrow] = va.w;
-    Bs[lk + 0][lrow] = vb.x; Bs[lk + 1][lrow] = vb.y; Bs[lk + 2][lrow] = vb.z; Bs[lk + 3][lrow] = vb.w;
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = bi * GT + (i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4));
-    if (r >= nf) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = bj * GT + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
-      if (c < nf) out[int64_t(r) * nf + c] += acc[i][j];
-    }
-  }
+  rt::gram_tile<false>(A, B, K, nf, K, nullptr, bi, bj, out, nf);
 }
 
 // One warp per (row r, draw e, cos|sin): the chunk's ell-moment and column
@@ -137,6 +93,16 @@ extern "C" int rt_fused_featurize(uint32_t k0, float inv_sigma, int kind, const 
                                   static_cast<cudaStream_t>(stream)));
 }
 
+extern "C" int rt_operand_featurize(const void* omega, int64_t ld_omega, const void* x,
+                                    int64_t ldx, int x_col0, int nf, int p, int n_valid,
+                                    int bc, float scale, void* wc, void* ws, void* stream) {
+  const rt::OperandOmega gen{static_cast<const float*>(omega), ld_omega};
+  return int(rt::launch_featurize(gen, 1, static_cast<const float*>(x), ldx, x_col0, nf, p,
+                                  n_valid, bc, scale, static_cast<float*>(wc),
+                                  static_cast<float*>(ws), bc, bc,
+                                  static_cast<cudaStream_t>(stream)));
+}
+
 extern "C" int rt_gram_moments(const void* wc, const void* ws, int nf, int draws, int bc,
                                const void* ell, int n_valid, void* mc, void* ms,
                                void* stream) {
@@ -151,8 +117,8 @@ extern "C" int rt_gram_moments(const void* wc, const void* ws, int nf, int draws
 
 extern "C" int rt_gram_accumulate(const void* wc, const void* ws, int nf, int K, void* gcc,
                                   void* gcs, void* gss, void* stream) {
-  const int t = (nf + GT - 1) / GT;
-  gram_accumulate_kernel<<<dim3(t, t, 3), GTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int t = (nf + rt::GT - 1) / rt::GT;
+  gram_accumulate_kernel<<<dim3(t, t, 3), rt::GTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(wc), static_cast<const float*>(ws), nf, K,
       static_cast<float*>(gcc), static_cast<float*>(gcs), static_cast<float*>(gss));
   return int(cudaGetLastError());

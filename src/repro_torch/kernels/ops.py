@@ -1,10 +1,11 @@
 """Public wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for this slice's kernels.  Each wrapper
+Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8).  Each wrapper
 launches its CUDA kernel on CUDA tensors and runs the plain version on CPU
 tensors.  The CUDA kernels mask their ragged edges themselves (rows past N,
 columns past n, k past p), so no operand is padded here; the reference's
-``_pad_to`` has no counterpart, and the reference's ``gram_tile_plan`` (a
+``_pad_to`` (and the mean padding of ``centered_gram``) has no counterpart,
+and the reference's ``gram_tile_plan`` (a
 TPU VMEM tiling) becomes the card's chunk plan beside the kernel wrapper,
 ``rff_gram_stream.gram_tile_plan``.
 """
@@ -12,7 +13,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.kernels_math import assemble_streamed_gram_ensemble
+from repro_torch.core.kernels_math import (
+    assemble_streamed_gram,
+    assemble_streamed_gram_ensemble,
+)
+from repro_torch.kernels import centered_gram as _centered
 from repro_torch.kernels import rff as _rff
 from repro_torch.kernels import rff_gram_stream as _gram
 
@@ -20,6 +25,33 @@ from repro_torch.kernels import rff_gram_stream as _gram
 def rff(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """Sigma (2N, n) from X (p, n) and Omega (N, p)."""
     return _rff.rff(x, omega)
+
+
+def centered_gram(sigma: torch.Tensor) -> torch.Tensor:
+    """Sigma H Sigma^T (fp32) from Sigma (2N, n)."""
+    return _centered.centered_gram(sigma)
+
+
+def rff_gram_stream(x: torch.Tensor, omega: torch.Tensor,
+                    ell: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(G_H (2N, 2N) fp32, u = Sigma ell (2N,) fp32) from X (p, n), Omega (N, p).
+
+    Streams sample chunks through the featurize and accumulate kernels, so the
+    (2N, n) RFF matrix Sigma is never materialized (peak memory O(N^2 + N b)).
+    """
+    gcc, gcs, gss, mc, ms = _gram.rff_gram_stream(x, omega, ell)
+    # the kernels fold 1/sqrt(N) into cos/sin already: fold_n stays None
+    return assemble_streamed_gram(
+        gcc, gcs, gss, mc[:, 0], ms[:, 0], mc[:, 1], ms[:, 1], n=x.shape[1]
+    )
+
+
+def rff_fused(x: torch.Tensor, *, n_features: int, seed: int, ensemble_index: int = 0,
+              sigma_rf: float = 1.0, rf_kernel: str = "gauss") -> torch.Tensor:
+    """Seed-fused Sigma (2N, n) from X (p, n): no Omega operand; the weight
+    rows are drawn inside the kernel from ``threefry(seed, e, row, col)``."""
+    return _rff.rff_fused(x, n_features=n_features, seed=seed, ensemble_index=ensemble_index,
+                          sigma=sigma_rf, rf_kernel=rf_kernel)
 
 
 def rff_gram_stream_fused(x: torch.Tensor, ell: torch.Tensor, *, n_features: int, seed: int,

@@ -1,9 +1,12 @@
-"""Random-Fourier-feature map (K1): Sigma = [cos(Omega X); sin(Omega X)] / sqrt(N).
+"""Random-Fourier-feature map: Sigma = [cos(Omega X); sin(Omega X)] / sqrt(N).
 
-Port of ``repro.kernels.rff.rff_pallas``.  On a CUDA tensor :func:`rff`
-launches ``csrc/rff.cu`` (an fp32 FFMA product over p with the cos/sin
-epilogue fused, written by hand); on a CPU tensor it runs :func:`rff_plain`.
-``LAUNCHES`` counts the kernel launches.
+Port of ``repro.kernels.rff``: ``rff_pallas`` (K1, Omega an operand) and
+``rff_fused_pallas`` (K7, Omega drawn inside the kernel from the threefry
+stream of ``kernels.prng``).  On CUDA tensors :func:`rff` and
+:func:`rff_fused` launch ``csrc/rff.cu`` (an fp32 FFMA product over p with
+the cos/sin epilogue fused, written by hand); on CPU tensors they run
+:func:`rff_plain` and :func:`rff_fused_plain`.  ``LAUNCHES`` counts the
+kernel launches.
 """
 from __future__ import annotations
 
@@ -11,8 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.prng import _KINDS, _MASK, _inv_sigma, fused_omega_block_plain
 
-LAUNCHES = {"rff": 0}
+LAUNCHES = {"rff": 0, "rff_fused": 0}
 
 
 def inv_sqrt(n: int) -> float:
@@ -55,4 +59,41 @@ def rff(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
                 _build.stream_ptr())
     _build.check(err, "rff")
     LAUNCHES["rff"] += 1
+    return out
+
+
+def rff_fused_plain(x: torch.Tensor, *, n_features: int, seed: int, ensemble_index: int = 0,
+                    sigma: float = 1.0, rf_kernel: str = "gauss") -> torch.Tensor:
+    """Plain version of :func:`rff_fused`: Omega materialized by the plain
+    threefry draw, then :func:`rff_plain`."""
+    om = fused_omega_block_plain(seed, n_features, x.shape[0], ensemble_index=ensemble_index,
+                                 sigma=sigma, rf_kernel=rf_kernel, device=x.device)
+    return rff_plain(x, om)
+
+
+def rff_fused(x: torch.Tensor, *, n_features: int, seed: int, ensemble_index: int = 0,
+              sigma: float = 1.0, rf_kernel: str = "gauss") -> torch.Tensor:
+    """Seed-fused Sigma (2N, n) from X (p, n): no Omega operand; draw
+    ``ensemble_index`` of the stream keyed by ``seed`` is drawn in the kernel."""
+    if rf_kernel not in _KINDS:
+        raise ValueError(f"unknown rf kernel {rf_kernel!r}")
+    if x.device.type == "cpu":
+        return rff_fused_plain(x, n_features=n_features, seed=seed,
+                               ensemble_index=ensemble_index, sigma=sigma, rf_kernel=rf_kernel)
+    if not x.is_cuda:
+        raise ValueError(f"rff_fused: x on {x.device}")
+    _check(x, "x", 2)
+    p, n = x.shape
+    out = torch.empty((2 * n_features, n), dtype=torch.float32, device=x.device)
+    if n == 0 or n_features == 0:
+        return out
+    f = _build.fn("rff", "rt_rff_fused", [_build.U32, _build.U32, _build.F32, _build.I32,
+                                          _build.VP] + [_build.I32] * 3
+                  + [_build.F32, _build.VP, _build.VP])
+    with torch.cuda.device(x.device):
+        err = f(seed & _MASK, ensemble_index & _MASK, _inv_sigma(sigma), _KINDS[rf_kernel],
+                x.data_ptr(), n_features, p, n, inv_sqrt(n_features), out.data_ptr(),
+                _build.stream_ptr())
+    _build.check(err, "rff_fused")
+    LAUNCHES["rff_fused"] += 1
     return out

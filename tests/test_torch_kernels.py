@@ -2,8 +2,9 @@
 
 The reference side runs its Pallas kernels in interpret mode and its XLA
 twins, as its own tests do.  Tolerances are the reference's: 2e-5 on the
-feature map (tests/test_kernels.py:13) and atol 2e-5 on G_H / max|G_H| and on
-u (tests/test_kernels.py:57).  The CUDA kernels themselves are held against
+feature map (K1, K7; tests/test_kernels.py:13), atol 2e-5 on G_H / max|G_H|
+and on u (K2/K3, K5/K6; tests/test_kernels.py:57) and 1e-5 on G / max|G|
+(K8; tests/test_kernels.py:41).  The CUDA kernels themselves are held against
 these plain versions in ``test_torch_cuda.py``.
 """
 import importlib
@@ -20,8 +21,11 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.prng import fused_omega as j_fused_omega  # noqa: E402
 from repro_torch.core import kernels_math as tkm  # noqa: E402
+from repro_torch.core import rf_tca as trf  # noqa: E402
 from repro_torch.core import rff as trff  # noqa: E402
+from repro_torch.kernels import centered_gram as tcentered  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import rff as tkrff  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.prng import fused_omega_block_plain  # noqa: E402
 from repro_torch.kernels import rff_gram_stream as tgram  # noqa: E402
@@ -214,3 +218,114 @@ def test_gram_tile_plan():
         assert plan["workspace_bytes"] <= max(tgram.WORKSPACE_BYTES, 2 * nf * s * 4 * 256)
         # balanced: the padding of the last chunk is under one featurize tile
         assert plan["chunks"] * plan["block"] - n < tgram.FEATURIZE_COLS * plan["chunks"]
+
+
+# ---- K2/K3: the streamed Gram with Omega an operand -------------------------
+
+
+def _operand_case(p, n, nf, seed):
+    x, ell = _case(p, n, seed)
+    om = np.random.default_rng(seed + 1).normal(size=(nf, p)).astype(np.float32)
+    return x, om, ell
+
+
+@pytest.mark.parametrize("p,n,nf", [
+    (16, 64, 32), (7, 300, 130), (33, 170, 77), (16, 129, 64), (5, 97, 33),
+])
+def test_operand_gram_matches_reference(p, n, nf):
+    """Port (plain five outputs, ops assembly) vs the reference's untiled
+    kernel (interpret mode) and its dense oracle; p = 5 and 7 are not
+    multiples of the featurize k step, N = 77, 130 not of a tile."""
+    x, om, ell = _operand_case(p, n, nf, seed=p + n + nf)
+    xj, omj, ellj = jnp.asarray(x), jnp.asarray(om), jnp.asarray(ell)
+    g_t, u_t = tops.rff_gram_stream(*map(torch.from_numpy, (x, om, ell)))
+    assert tuple(g_t.shape) == (2 * nf, 2 * nf) and tuple(u_t.shape) == (2 * nf,)
+    for g_j, u_j in (jops.rff_gram_stream(xj, omj, ellj, block=64, tile=0),
+                     jref.rff_gram_stream_ref(xj, omj, ellj)):
+        _assert_gram_close(g_j, u_j, g_t, u_t)
+
+
+@pytest.mark.parametrize("p,n,nf,tile", [(16, 64, 32, 128), (7, 300, 130, 128),
+                                         (16, 129, 300, 256), (5, 97, 33, 128)])
+def test_operand_gram_matches_tiled_reference(p, n, nf, tile):
+    """Against the reference's (i, j)-tiled kernel (K3) at a forced tile."""
+    x, om, ell = _operand_case(p, n, nf, seed=p * n + nf)
+    g_j, u_j = jops.rff_gram_stream(jnp.asarray(x), jnp.asarray(om), jnp.asarray(ell),
+                                    block=64, tile=tile)
+    g_t, u_t = tops.rff_gram_stream(*map(torch.from_numpy, (x, om, ell)))
+    _assert_gram_close(g_j, u_j, g_t, u_t)
+
+
+def test_operand_gram_five_outputs_contract():
+    """Moments are (N, 2): [ell-moment, column sum], scaled by 1/sqrt(N)."""
+    x, om, ell = _operand_case(6, 45, 20, seed=9)
+    xt, omt, et = map(torch.from_numpy, (x, om, ell))
+    gcc, gcs, gss, mc, ms = tgram.rff_gram_stream_plain(xt, omt, et)
+    assert tuple(gcc.shape) == (20, 20) and tuple(mc.shape) == tuple(ms.shape) == (20, 2)
+    s = torch.sin(omt @ xt) * tgram.feature_scale(20, 1)
+    np.testing.assert_allclose(ms[:, 0].numpy(), (s @ et).numpy(), atol=1e-6)
+    np.testing.assert_allclose(ms[:, 1].numpy(), s.sum(1).numpy(), atol=1e-6)
+    np.testing.assert_allclose(gss.numpy(), (s @ s.T).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("tile", [None, 128])
+def test_streaming_gram_matches_reference(tile):
+    """``rf_tca.streaming_gram`` vs the reference's (XLA scan, untiled and
+    tiled), atol 3e-5 (tests/test_streaming_solver.py:38)."""
+    x, om, ell = _operand_case(8, 160, 48 if tile is None else 200, seed=3)
+    g_j, u_j = _jrf().streaming_gram(jnp.asarray(x), jnp.asarray(ell), jnp.asarray(om),
+                                     block=37, tile=tile)
+    g_t, u_t = trf.streaming_gram(*map(torch.from_numpy, (x, ell, om)))
+    np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=3e-5)
+    np.testing.assert_allclose(u_t.numpy(), np.asarray(u_j), atol=3e-5)
+
+
+# ---- K8: the centered Gram --------------------------------------------------
+
+
+@pytest.mark.parametrize("two_n,n", [(64, 128), (96, 210), (128, 64), (32, 500), (40, 130),
+                                     (130, 257)])
+def test_centered_gram_matches_reference(two_n, n):
+    """Port vs the reference's kernel (interpret mode, mean-padded samples) and
+    its oracle, fp32, G / max|G| to atol 1e-5 (tests/test_kernels.py:41)."""
+    sig = np.random.default_rng(two_n * n).normal(size=(two_n, n)).astype(np.float32)
+    g_t = tops.centered_gram(torch.from_numpy(sig)).numpy()
+    assert g_t.shape == (two_n, two_n)
+    for g_j in (jops.centered_gram(jnp.asarray(sig), block=32),
+                jops.centered_gram(jnp.asarray(sig)),
+                jref.centered_gram_ref(jnp.asarray(sig))):
+        g_j = np.asarray(g_j)
+        scale = float(np.abs(g_j).max())
+        np.testing.assert_allclose(g_t / scale, g_j / scale, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(
+        g_t, tcentered.centered_gram_plain(torch.from_numpy(sig)).numpy())
+
+
+def test_dense_gram_matches_reference():
+    x, om, ell = _operand_case(9, 120, 40, seed=5)
+    sig = np.array(jref.rff_ref(jnp.asarray(x), jnp.asarray(om)))
+    g_j, u_j = _jrf()._dense_gram(jnp.asarray(sig), jnp.asarray(ell), use_kernel=True)
+    g_t, u_t = trf._dense_gram(torch.from_numpy(sig), torch.from_numpy(ell))
+    _assert_gram_close(g_j, u_j, g_t, u_t)
+    np.testing.assert_array_equal(g_t.numpy(), g_t.numpy().T)
+
+
+# ---- K7: the seed-fused featurize -------------------------------------------
+
+
+@pytest.mark.parametrize("p,n,nf", [(16, 64, 32), (7, 130, 96)])
+@pytest.mark.parametrize("ensemble_index", [0, 1])
+def test_rff_fused_matches_reference(p, n, nf, ensemble_index):
+    """Port vs the reference's seed-fused featurize kernel (interpret mode) and
+    ``rff_ref`` on its materialized draw, atol/rtol 2e-5
+    (tests/test_kernels.py:274)."""
+    x = np.random.default_rng(p * n).normal(size=(p, n)).astype(np.float32)
+    kw = dict(n_features=nf, seed=2, ensemble_index=ensemble_index, sigma_rf=0.9)
+    sig_t = tops.rff_fused(torch.from_numpy(x), **kw).numpy()
+    assert sig_t.shape == (2 * nf, n)
+    om = j_fused_omega(2, nf, p, ensemble_index=ensemble_index, sigma=0.9)
+    for sig_j in (jops.rff_fused(jnp.asarray(x), **kw), jref.rff_ref(jnp.asarray(x), om)):
+        np.testing.assert_allclose(sig_t, np.asarray(sig_j), atol=ATOL, rtol=ATOL)
+    om_t = fused_omega_block_plain(2, nf, p, ensemble_index=ensemble_index, sigma=0.9,
+                                   device="cpu")
+    np.testing.assert_array_equal(sig_t, tkrff.rff_plain(torch.from_numpy(x), om_t).numpy())

@@ -190,3 +190,37 @@ def test_mmd_matches_reference():
     for a, b in pairs:
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-6)
     assert float(tkm.intrinsic_dim(t["k"])) > 1.0
+
+
+def test_entry_points_take_the_reference_keywords():
+    """``seed``, ``lobpcg_iters`` and ``lobpcg_tol`` are the reference's
+    keywords of ``rf_tca_fit``, ``rf_tca_fit_with_stats``, ``rf_tca_resolve``
+    and ``solve_w_rf_gram``; the stats carry ``seed``."""
+    xs, _, xt, _, sigma = _domains(seed=6, n=80)
+    kw = dict(n_features=48, m=4, gamma=1e-2, sigma=sigma, device="cpu")
+    for extra in (dict(w_rf="fused:2"), dict(), dict(mode="dense")):
+        state = trf.rf_tca_fit(xs, xt, seed=11, **kw, **extra)
+        assert tuple(state.w_rf.shape) == (96, 4)
+    state, stats = trf.rf_tca_fit_with_stats(xs, xt, seed=11, w_rf="fused:2", **kw)
+    assert stats["seed"] == 11
+    again = trf.rf_tca_resolve(stats["gram"], stats["u"], gamma=stats["gamma"], m=stats["m"],
+                               solver="lobpcg", seed=stats["seed"], fused_spec=state.fused)
+    np.testing.assert_allclose(again.eigvals.numpy(), state.eigvals.numpy(), rtol=1e-4)
+    w, vals = trf.solve_w_rf_gram(stats["gram"], stats["u"], 1e-2, 4, solver="lobpcg",
+                                  lobpcg_iters=200, lobpcg_tol=1e-6, seed=5)
+    np.testing.assert_allclose(vals.numpy(), state.eigvals.numpy(), rtol=1e-4)
+
+
+def test_stats_seed_round_trips_through_convert():
+    xs, _, xt, _, sigma = _domains(seed=7, n=80)
+    kw = dict(n_features=48, m=4, gamma=1e-2, sigma=sigma, w_rf="fused:4", seed=13,
+              solver="lobpcg")
+    j_state, j_stats = _jrf().rf_tca_fit_with_stats(jnp.asarray(xs), jnp.asarray(xt), **kw)
+    stats = convert.stats_from_reference(j_stats, device="cpu")
+    assert stats["seed"] == j_stats["seed"] == 13 and stats["solver"] == "lobpcg"
+    _, t_stats = trf.rf_tca_fit_with_stats(xs, xt, device="cpu", **kw)
+    assert t_stats["seed"] == 13
+    t_new = trf.rf_tca_resolve(stats["gram"], stats["u"], gamma=stats["gamma"], m=stats["m"],
+                               solver=stats["solver"], seed=stats["seed"],
+                               fused_spec=j_state.fused)
+    _assert_same_solution(j_state, t_new)
