@@ -40,7 +40,23 @@ Phases (any failed check raises, and the run exits non-zero):
      residual of eps 10 2N, ~1 % at 2N = 8192) agrees with eigh to within
      that residual, and LOBPCG at lobpcg_tol=1e-9 to rtol 1e-4 with
      cosines above 1 - 1e-3;
-  8. the runs line, the kernels line (times, bounds, plain and library
+  8. K10 (the wire codecs' fake-quant): bit for bit against its plain version
+     at (rows, D) in {(1, 1024), (4, 1024), (65, 32768), (4, 160), (7, 13)}
+     for qint8 and qint4; timed at (5, 1024) and (65, 32768);
+  9. FedRF-TCA training (paper Alg. 5) through ``FedRFTCATrainer(...).train()``
+     and ``.evaluate()`` at the width of ``src/repro/configs/fedrf_paper.py``
+     (p = 16, extractor (64, 32), N = 512, m = 32, 5 classes, lambda 2,
+     lr 5e-3, T_C = 50) on ``make_domains(5, 400, shift=1.2, seed=3)``,
+     drop setting III, 50 warm-up rounds then 100 rounds, launch counts zeroed
+     just before and read just after each run:
+       F    batched engine, wire transport, qint8 (K10 in every round), K = 4;
+       G    F on the serial engine: its byte and message logs must equal F's;
+       H    batched and serial, identity float32, every client in every round:
+            parameters within 1e-4 (tests/test_round_engine.py:77);
+       F64  F with K = 64 sources (``make_domains(65, 400, ...)``);
+       S    a short check against a reference: 5 + 5 rounds with the seed-fused
+            Omega (K4), the card's parameters within 1e-4 of the CPU's;
+ 10. the runs line, the kernels line (times, bounds, plain and library
      times, launches), the card's name and power limit, and the result line.
 """
 from __future__ import annotations
@@ -71,6 +87,9 @@ PEAK_INT_OPS = PEAK_FLOPS / 4
 PEAK_BYTES = 3.35e12
 THREEFRY_INT_OPS = 82  # 20 rounds x (add, rotate, xor) + 5 key injections x 4 + 2
 REQUEST_COLS = 300  # K1 timed at a transform request's width as well
+K10_CHECK = ((1, 1024), (4, 1024), (65, 32768), (4, 160), (7, 13))
+K10_TIMED = ((5, 1024), (65, 32768))  # K + 1 moment rows; K + 1 W_RF rows at K = 64
+FED_WARMUP, FED_ROUNDS, FED_LEAF_TOL = 50, 100, 1e-4
 
 
 def log(*a) -> None:
@@ -573,7 +592,153 @@ def main() -> int:
         if not value <= limit:
             raise AssertionError(f"{name}: {value} > {limit}")
 
-    la = {t: runs[t]["launches"] for t in runs}
+    # ---- 8. K10 ----------------------------------------------------------
+    from repro_torch.kernels import quantize
+
+    k10_err = 0.0
+    for rows, d in K10_CHECK:
+        for bits in (8, 4):
+            g = torch.Generator(device=dev).manual_seed(rows * d + bits)
+            xq = torch.randn((rows, d), generator=g, device=dev) * 3.0
+            xq[0, : min(d, 5)] = 0.0
+            uq = torch.rand((rows, d), generator=g, device=dev)
+            qmax = quantize.qmax_of(bits)
+            sc = quantize.quant_scale(xq, qmax)
+            out = quantize.fake_quant(xq, uq, sc, qmax=qmax)
+            plain = quantize.fake_quant_plain(xq, uq, sc, qmax=qmax)
+            if not torch.equal(out, plain):
+                raise AssertionError(f"K10 ({rows}, {d}) qint{bits}: kernel differs from plain "
+                                     f"by {float((out - plain).abs().max())}")
+            k10_err = max(k10_err, float((out - plain).abs().max()))
+    log(f"[K10] {len(K10_CHECK)} shapes x qint8/qint4: bit for bit, max abs err {k10_err}")
+    k10 = {}
+    for rows, d in K10_TIMED:
+        g = torch.Generator(device=dev).manual_seed(rows + d)
+        xq = torch.randn((rows, d), generator=g, device=dev)
+        uq = torch.rand((rows, d), generator=g, device=dev)
+        sc = quantize.quant_scale(xq, 127)
+        b_ms, b_by = bound_ms(6 * rows * d, 12 * rows * d + 4 * rows)
+        k10[(rows, d)] = dict(
+            ms=cuda_ms(torch, lambda: quantize.fake_quant(xq, uq, sc, qmax=127), 200),
+            plain_ms=cuda_ms(torch, lambda: quantize.fake_quant_plain(xq, uq, sc, qmax=127), 200),
+            bound_ms=b_ms, bound_by=b_by,
+        )
+        log(f"[K10] ({rows}, {d}) qint8: kernel {k10[(rows, d)]['ms']:.4f} ms, plain "
+            f"{k10[(rows, d)]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    big, small_k10 = k10[K10_TIMED[1]], k10[K10_TIMED[0]]
+    report["K10"] = dict(
+        name="fake_quant", route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
+        replaces="src/repro/kernels/quantize.py:37", max_abs_err=k10_err,
+        tolerance="bit for bit", shape=f"{K10_TIMED[1]} fp32, qint8", library_ms=None, **big,
+        small=dict(shape=f"{K10_TIMED[0]} fp32, qint8", **small_k10),
+    )
+    counters["quantize"] = quantize.LAUNCHES
+    torch.cuda.synchronize()
+
+    # ---- 9. FedRF-TCA training through the trainer's entry points ----------
+    from repro_torch.comm.netsim import TraceScenario
+    from repro_torch.federated import ClientConfig, FedRFTCATrainer, ProtocolConfig, RoundPlan
+    from repro_torch.utils.tree import tree_leaves
+
+    fed_cfg = ClientConfig(input_dim=16, n_classes=5, extractor_widths=(64, 32), n_rff=512, m=32,
+                           lambda_mmd=2.0)
+    fed_kw = dict(n_rounds=FED_ROUNDS, t_c=50, warmup_rounds=FED_WARMUP, lr=5e-3,
+                  drop_setting="III", seed=SEED)
+    doms5 = make_domains(5, 400, shift=1.2, seed=3)
+
+    def params_of(tr):
+        return tree_leaves(tr.tgt_params) + [
+            leaf for i in range(tr.k) for leaf in tree_leaves(tr._src_param(i))]
+
+    def train_run(tag, sources, target, cfg=fed_cfg, device=dev, **kw):
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        base = 0
+        if device == dev:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        t0 = time.perf_counter()
+        tr = FedRFTCATrainer(sources, target, cfg, ProtocolConfig(**{**fed_kw, **kw}),
+                             device=device)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        acc_warm = tr.evaluate()
+        lat = []
+        step = tr.round
+
+        def timed_round(t):
+            t1 = time.perf_counter()
+            out = step(t)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        tr.round = timed_round  # train() calls self.round(t) once per round
+        tr.train()
+        acc = tr.evaluate()
+        torch.cuda.synchronize()
+        launches = {k: dict(c) for k, c in counters.items()}
+        if not all(bool(torch.isfinite(x).all()) for x in params_of(tr)):
+            raise AssertionError(f"run {tag}: non-finite parameters")
+        if not (0.0 <= acc_warm <= 1.0 and 0.0 <= acc <= 1.0):
+            raise AssertionError(f"run {tag}: accuracy {acc_warm} -> {acc}")
+        row = dict(
+            engine=tr.proto.engine, transport=tr.proto.transport, codec=tr.resolved_codec,
+            k=tr.k, warmup_rounds=tr.proto.warmup_rounds, rounds=len(lat), warmup_s=warm_s,
+            round_ms_p50=float(np.percentile(lat, 50)), round_ms_p99=float(np.percentile(lat, 99)),
+            acc_after_warmup=acc_warm, acc_end=acc, bytes_by_kind=dict(tr.comm.bytes_by_kind),
+            messages_by_kind=dict(tr.comm.messages_by_kind),
+            k10_launches=launches["quantize"]["fake_quant"],
+            peak_bytes=(int(torch.cuda.max_memory_allocated()) - base) if device == dev else None,
+            launches=launches,
+        )
+        log(f"[run {tag}] {row['engine']}/{row['transport']}/{row['codec']} K={tr.k}: warm-up "
+            f"{warm_s:.3f} s, round p50 {row['round_ms_p50']:.3f} ms p99 "
+            f"{row['round_ms_p99']:.3f} ms, target acc {acc_warm:.4f} -> {acc:.4f}, bytes "
+            f"{row['bytes_by_kind']}, K10 launches {row['k10_launches']}, peak "
+            f"{(row['peak_bytes'] or 0) / 2**20:.1f} MiB above the run's start")
+        return tr, row
+
+    wire_kw = dict(transport="wire", codec="qint8")
+    tr_f, runs["F"] = train_run("F", doms5[:4], doms5[4], engine="batched", **wire_kw)
+    if runs["F"]["k10_launches"] <= 0:
+        raise AssertionError("run F: K10 was not launched")
+    tr_g, runs["G"] = train_run("G", doms5[:4], doms5[4], engine="serial", **wire_kw)
+    for key in ("bytes_by_kind", "messages_by_kind"):
+        if runs["G"][key] != runs["F"][key]:
+            raise AssertionError(f"run G: {key} {runs['G'][key]} != F's {runs['F'][key]}")
+    cross["F_vs_G_byte_log_equal"] = True
+    full = TraceScenario([RoundPlan([0, 1, 2, 3], [0, 1, 2, 3], [0, 1, 2, 3])], cycle=True)
+    tr_hb, runs["H_batched"] = train_run("H batched", doms5[:4], doms5[4], engine="batched",
+                                         scenario=full)
+    tr_hs, runs["H_serial"] = train_run("H serial", doms5[:4], doms5[4], engine="serial",
+                                        scenario=full)
+    h_err = max(float((a - b).abs().max()) for a, b in zip(params_of(tr_hb), params_of(tr_hs)))
+    cross["H_batched_vs_serial_max_leaf_err"] = h_err
+    if not h_err <= FED_LEAF_TOL:
+        raise AssertionError(f"run H: batched and serial differ by {h_err} > {FED_LEAF_TOL}")
+    del tr_f, tr_g, tr_hb, tr_hs
+    doms65 = make_domains(65, 400, shift=1.2, seed=3)
+    _, runs["F64"] = train_run("F64", doms65[:64], doms65[64], engine="batched", **wire_kw)
+    if runs["F64"]["k10_launches"] <= 0:
+        raise AssertionError("run F64: K10 was not launched")
+    del doms65
+    fused_cfg = ClientConfig(input_dim=16, n_classes=5, extractor_widths=(64, 32), n_rff=512, m=32,
+                             lambda_mmd=2.0, rff_impl="fused")
+    short = dict(cfg=fused_cfg, engine="batched", warmup_rounds=5, n_rounds=5, t_c=2)
+    tr_sc, runs["S_card"] = train_run("S card", doms5[:4], doms5[4], **short)
+    tr_sp, runs["S_cpu"] = train_run("S cpu", doms5[:4], doms5[4], device="cpu", **short)
+    s_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(params_of(tr_sc),
+                                                                 params_of(tr_sp)))
+    cross["S_card_vs_cpu_max_leaf_err"] = s_err
+    if not s_err <= FED_LEAF_TOL:
+        raise AssertionError(f"run S: card and CPU differ by {s_err} > {FED_LEAF_TOL}")
+    del tr_sc, tr_sp
+    log(f"[cross] H batched vs serial {h_err:.3g}, S card vs CPU {s_err:.3g}")
+
+    la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     report["K4"]["launches"] = sum(la[t]["prng"]["fused_omega"] for t in la)
     report["K1"]["launches"] = sum(la[t]["rff"]["rff"] for t in la)
     report["K7"]["launches"] = sum(la[t]["rff"]["rff_fused"] for t in la)
@@ -582,7 +747,12 @@ def main() -> int:
         report[key]["launches"] = sum(la[tag][group].values())
         report[key]["parts"] = la[tag][group]
     report["K8"]["launches"] = la["E"]["centered_gram"]["centered_gram"]
-    kernels = [dict(id=k, **report[k]) for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")]
+    report["K10"]["launches"] = sum(runs[t]["k10_launches"] for t in ("F", "G", "H_batched",
+                                                                     "H_serial", "F64"))
+    report["K10"]["launches_by_run"] = {t: runs[t]["k10_launches"] for t in (
+        "F", "G", "H_batched", "H_serial", "F64")}
+    kernels = [dict(id=k, **report[k])
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10")]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['id']} was not launched on the main path")

@@ -1,12 +1,15 @@
-"""Carry a reference ``RFTCAState`` (and its fit statistics) into the port.
+"""Carry reference states into the port: an ``RFTCAState`` (and its fit
+statistics), and the FedRF-TCA client parameters of a trainer.
 
-The reference's state fields arrive as numpy arrays (or ``None`` and plain
+The reference's fields arrive as numpy arrays (or ``None`` and plain
 tuples); nothing of the reference package is imported here.  With these, a
-state fitted by ``repro`` transforms and re-solves in ``repro_torch``.
+state fitted by ``repro`` transforms and re-solves in ``repro_torch``, and a
+trainer starts from the reference's initial parameters.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.rf_tca import RFTCAState
 from repro_torch.device import as_f32, resolve_device
@@ -44,3 +47,41 @@ def stats_from_reference(stats: dict, *, device=None) -> dict:
         "solver": str(stats["solver"]),
         "seed": int(stats["seed"]),
     }
+
+
+def params_from_reference(tree, *, device=None) -> dict:
+    """The port's FedRF-TCA parameter tree from the reference's
+    (``extractor[i].{w,b}``, ``w_rf``, ``classifier.{w,b}``, numpy leaves)."""
+    dev = resolve_device(device)
+    return {
+        "extractor": [{"w": as_f32(np.asarray(layer["w"]), dev),
+                       "b": as_f32(np.asarray(layer["b"]), dev)} for layer in tree["extractor"]],
+        "w_rf": as_f32(np.asarray(tree["w_rf"]), dev),
+        "classifier": {"w": as_f32(np.asarray(tree["classifier"]["w"]), dev),
+                       "b": as_f32(np.asarray(tree["classifier"]["b"]), dev)},
+    }
+
+
+def load_reference_params(trainer, tree) -> None:
+    """Start ``trainer`` (a ``federated.FedRFTCATrainer`` built with
+    ``warmup_rounds=0``) from the reference's shared initial parameters:
+    every client, the target and the W_RF init take them, and every Adam
+    state is reset.  A frozen-W (seed-replay) trainer is refused: its W_RF is
+    the port's own seed-derived draw."""
+    from repro_torch.utils.tree import stack_trees, tree_map
+
+    if trainer.proto.warmup_rounds:
+        raise ValueError("load_reference_params needs a trainer built with warmup_rounds=0")
+    if trainer._frozen_w:
+        raise ValueError("a seed_replay trainer keeps the W_RF of its own seed")
+    params = params_from_reference(tree, device=trainer.device)
+    clients = [tree_map(torch.clone, params) for _ in range(trainer.k)]
+    trainer.tgt_params = tree_map(torch.clone, params)
+    trainer.tgt_opt = trainer.opt.init(trainer.tgt_params)
+    trainer._w_init = params["w_rf"]
+    if trainer._engine is not None:
+        trainer._src_stack = stack_trees(clients)
+        trainer._src_opt_stack = stack_trees([trainer.opt.init(p) for p in clients])
+    else:
+        trainer.src_params = clients
+        trainer.src_opt = [trainer.opt.init(p) for p in clients]

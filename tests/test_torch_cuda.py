@@ -9,7 +9,8 @@ it runs on a machine that has only PyTorch:
 Tolerances: Omega within 8 ULP and bits equal (K4); 2e-5 absolute on the
 feature map (K1, K7); atol 2e-5 on G_H / max|G_H| and on u (K2/K3, K5/K6);
 atol 1e-5 on G / max|G| (K8); the fit's eigenvalues to rtol 1e-2 and its
-subspace to 1e-3.
+subspace to 1e-3; K10 bit for bit; the trainer's parameters, card against
+CPU, to 1e-4.
 """
 import numpy as np
 import pytest
@@ -18,8 +19,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import rf_tca as trf  # noqa: E402
 from repro_torch.core.kernels_math import ell_vector  # noqa: E402
-from repro_torch.kernels import centered_gram, ops, prng, ref, rff  # noqa: E402
+from repro_torch.data import make_domains  # noqa: E402
+from repro_torch.federated import ClientConfig, FedRFTCATrainer, ProtocolConfig  # noqa: E402
+from repro_torch.kernels import centered_gram, ops, prng, quantize, ref, rff  # noqa: E402
 from repro_torch.kernels import rff_gram_stream as gram  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +192,63 @@ def test_omega_fit_on_card_matches_cpu(card, monkeypatch, mode, solver):
         assert torch.linalg.svdvals(q_c.T @ q_g).min().item() > 1 - 1e-3  # test_streaming_solver:70
     else:
         assert torch.linalg.matrix_norm(q_c @ q_c.T - q_g @ q_g.T, ord=2).item() <= 1e-3
+
+
+@pytest.mark.parametrize("rows,d", [(1, 1024), (4, 1024), (65, 32768), (4, 160), (7, 13),
+                                    (3, 1), (2, 4097)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fake_quant_kernel_matches_plain(card, rows, d, bits):
+    """K10: bit for bit, vector (d % 4 == 0) and scalar rows, zero rows included."""
+    g = torch.Generator(device=card).manual_seed(rows * d + bits)
+    x = torch.randn((rows, d), generator=g, device=card) * 3.0
+    x[0, : min(d, 5)] = 0.0
+    if rows > 2:
+        x[2] = 0.0  # an all-zero payload quantizes through scale 1
+    u = torch.rand((rows, d), generator=g, device=card)
+    qmax = quantize.qmax_of(bits)
+    scale = quantize.quant_scale(x, qmax)
+    before = quantize.LAUNCHES["fake_quant"]
+    out = quantize.fake_quant(x, u, scale, qmax=qmax)
+    torch.cuda.synchronize()
+    assert quantize.LAUNCHES["fake_quant"] == before + 1
+    assert torch.equal(out, quantize.fake_quant_plain(x, u, scale, qmax=qmax))
+    assert torch.equal(out.cpu(), quantize.fake_quant_plain(x.cpu(), u.cpu(), scale.cpu(),
+                                                            qmax=qmax))
+
+
+def test_fake_quant_kernel_keeps_nan_and_raises_on_mixed_devices(card):
+    x = torch.tensor([[1.0, float("nan"), -2.0, 0.5]], device=card)
+    u = torch.full_like(x, 0.25)
+    scale = torch.tensor([0.5], device=card)
+    out = quantize.fake_quant(x, u, scale, qmax=7)
+    assert torch.equal(out.isnan(), quantize.fake_quant_plain(x, u, scale, qmax=7).isnan())
+    with pytest.raises(ValueError):
+        quantize.fake_quant(x, u.cpu(), scale, qmax=7)
+
+
+@pytest.mark.parametrize("engine", ["batched", "serial"])
+def test_trainer_on_card_matches_cpu(card, engine):
+    """The trainer's main path on the card: with qint8 over the wire the
+    batched engine launches K10; parameters agree with the CPU run to 1e-4
+    (the channel's uniforms come from each device's generator, so a lossy
+    codec is compared through its byte log and accuracy range only)."""
+    doms = make_domains(4, 120, shift=0.5, seed=1, dim=8, n_classes=3)
+    cfg = ClientConfig(input_dim=8, n_classes=3, n_rff=32, m=8, extractor_widths=(16, 8),
+                       rff_impl="fused")
+    kw = dict(engine=engine, n_rounds=4, t_c=2, warmup_rounds=2, batch_size=32, seed=0)
+    runs = {}
+    for dev in ("cpu", card):
+        tr = FedRFTCATrainer(doms[:3], doms[3], cfg, ProtocolConfig(**kw), device=dev)
+        tr.train()
+        runs[str(dev)] = tr
+    a, b = runs["cpu"], runs[str(card)]
+    for x, y in zip(tree_leaves(a.tgt_params), tree_leaves(b.tgt_params)):
+        assert (x - y.cpu()).abs().max().item() < 1e-4
+    before = quantize.LAUNCHES["fake_quant"]
+    tr = FedRFTCATrainer(doms[:3], doms[3], cfg, ProtocolConfig(
+        transport="wire", codec="qint8", **kw), device=card)
+    tr.train()
+    torch.cuda.synchronize()
+    launched = quantize.LAUNCHES["fake_quant"] - before
+    assert (launched > 0) == (engine == "batched")
+    assert 0.0 <= tr.evaluate() <= 1.0

@@ -126,3 +126,84 @@ def test_fit_argument_errors_match_reference(kw, err):
         trf.rf_tca_fit(xs, xt, n_features=16, m=2, device="cpu", **kw)
     with pytest.raises(ValueError, match="fused"):
         trf.rf_tca_fit_with_stats(xs, xt, n_features=16, m=2, device="cpu")
+
+
+SLICE3_MODULES = (
+    "utils/tree.py", "optim/optimizers.py", "obs/registry.py", "obs/records.py",
+    "robust/rules.py", "federated/network.py", "federated/model.py",
+    "federated/aggregation.py", "kernels/quantize.py", "comm/codecs.py", "comm/wire.py",
+    "comm/transport.py", "comm/netsim.py", "comm/autocodec.py", "checkpoint/ckpt.py",
+    "federated/engine.py", "federated/protocol.py",
+)
+
+
+def test_training_slice_modules_are_in_the_import_guard():
+    """The FedRF-TCA slice's modules exist and fall under the jax/repro guard
+    of ``test_port_imports_neither_jax_nor_reference`` (which scans them all)."""
+    files = set(_port_files())
+    for rel in SLICE3_MODULES:
+        path = ROOT / "src" / "repro_torch" / rel
+        assert path in files, rel
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}, rel
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "quantize.cu").exists()
+
+
+def _fed():
+    from repro_torch.data import make_domains
+    from repro_torch.federated import ClientConfig
+
+    doms = make_domains(3, 40, dim=6, n_classes=2, seed=0)
+    cfg = ClientConfig(input_dim=6, n_classes=2, n_rff=8, m=2, extractor_widths=(4,))
+    return doms[:2], doms[2], cfg
+
+
+def test_trainer_without_device_raises_without_card():
+    from repro_torch.federated import FedRFTCATrainer, ProtocolConfig, init_params, make_omega
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    sources, target, cfg = _fed()
+    for call in (lambda: FedRFTCATrainer(sources, target, cfg, ProtocolConfig(warmup_rounds=0)),
+                 lambda: make_omega(cfg), lambda: init_params(cfg, 0)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    tr = FedRFTCATrainer(sources, target, cfg, ProtocolConfig(warmup_rounds=0, n_rounds=1),
+                         device="cpu")
+    assert tr.omega.device.type == "cpu" and tr._w_init.device.type == "cpu"
+
+
+@pytest.mark.parametrize("field,value,step", [
+    ("topology", object(), "step 9"),
+    ("client_chunk", 2, "step 9"),
+    ("faults", object(), "step 7"),
+    ("probe", True, "step 10"),
+    ("rule", "trimmed_mean:0.2", "step 7"),
+    ("rule", "geomedian", "step 7"),
+])
+def test_paths_left_out_of_the_training_slice_raise(field, value, step):
+    from repro_torch.federated import FedRFTCATrainer, ProtocolConfig
+
+    sources, target, cfg = _fed()
+    proto = ProtocolConfig(warmup_rounds=0, **{field: value})
+    with pytest.raises(NotImplementedError, match=step):
+        FedRFTCATrainer(sources, target, cfg, proto, device="cpu")
+
+
+def test_engine_seams_left_out_raise():
+    from repro_torch.federated import BatchedRoundEngine, ClientConfig, aggregation
+    from repro_torch.optim import adam
+    from repro_torch.robust import get_rule
+
+    cfg = ClientConfig(input_dim=6, n_classes=2, n_rff=8, m=2, extractor_widths=(4,))
+    omega = torch.zeros((8, 4))
+    for kw, step in ((dict(topology=object()), "step 9"), (dict(client_chunk=4), "step 9"),
+                     (dict(faults=object()), "step 7"), (dict(probe=True), "step 10")):
+        with pytest.raises(NotImplementedError, match=step):
+            BatchedRoundEngine(cfg, adam(1e-2), omega, **kw)
+    with pytest.raises(NotImplementedError, match="step 8"):
+        BatchedRoundEngine(cfg, adam(1e-2), omega).flush()
+    # the K9 seam waits for the fleet slice
+    assert not hasattr(aggregation, "edge_weighted_sums")
+    assert get_rule("mean").is_mean
+    with pytest.raises(ValueError):
+        get_rule("median")
