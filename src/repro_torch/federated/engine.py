@@ -18,9 +18,9 @@ steps each client from a Python loop; this engine runs the same round body
 The wire enters as the lossy codecs of ``comm`` (``channel``): each codec's
 ``roundtrip`` distorts a whole stack of payloads at once.  For the
 quantizing codecs that is ONE launch of the K10 kernel per payload kind
-(the K source moments; the K + 1 W_RF uplinks; each classifier leaf), with
-one absmax scale per row, where the reference vmaps its per-tensor round
-trip over the client axis.  Every uniform of the channel is drawn by
+(the K source moments; the K + 1 W_RF uplinks; each classifier leaf on
+T_C rounds), with one absmax scale per row, where the reference vmaps its
+per-tensor round trip over the client axis.  Every uniform of the channel is drawn by
 :meth:`BatchedRoundEngine.channel_uniforms`, one function, so a test can put
 the reference's own ``jax.random`` uniforms in its place.
 
@@ -186,8 +186,12 @@ class BatchedRoundEngine:
         return src_p, tgt_p
 
     def _merge_classifier(self, src_p, tgt_p, sel, wsel, do_clf, chan_key, floor):
-        """Weighted classifier merge on T_C rounds (Alg. 4)."""
-        have_c = do_clf & (torch.sum(sel) > 0)
+        """Weighted classifier merge on T_C rounds (Alg. 4).  ``do_clf`` is a
+        host bool: on other rounds nothing is sent, so nothing goes through
+        the channel (the reference computes and discards it under ``jit``)."""
+        if not do_clf:
+            return src_p, tgt_p
+        have_c = torch.sum(sel) > 0
         clf_up = src_p["classifier"]
         if self.channel.get("classifier") is not None:
             leaves = [self._channel("classifier", leaf, chan_key, (3, i))
@@ -213,7 +217,8 @@ class BatchedRoundEngine:
         """One communication round.  ``batch``: ``xs`` (L, K, p, b), ``ys``
         (L, K, b), ``x_msg`` (K, p, mb), ``xt_steps`` (L, p, b), ``xt_msg``
         (p, mb), optional ``bmask`` (K, b) and ``msg_mask`` (K, mb).
-        ``masks``: ``mmd``, ``w``, ``c`` (K,) 0/1 and ``do_clf`` (0-d bool).
+        ``masks``: ``mmd``, ``w``, ``c`` (K,) 0/1 and ``do_clf`` (bool:
+        t % T_C == 0 this round).
         ``chan_key`` (the round index) keys the channel's uniforms."""
         if chan_key is None:
             if self.channel:

@@ -373,7 +373,7 @@ class FedRFTCATrainer:
             "mmd": self._mask_of(plan.msg_clients if self.proto.exchange_messages else []),
             "w": self._mask_of(plan.w_clients),
             "c": self._mask_of(plan.c_clients),
-            "do_clf": torch.tensor(t % self.proto.t_c == 0, device=self.device),
+            "do_clf": t % self.proto.t_c == 0,
         }
         self._src_stack, self._src_opt_stack, self.tgt_params, self.tgt_opt = self._engine.round(
             self._src_stack, self._src_opt_stack, self.tgt_params, self.tgt_opt,

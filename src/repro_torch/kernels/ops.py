@@ -1,7 +1,6 @@
 """Public wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8) and the wire
-codecs' fake-quant (K10).  Each wrapper
+Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8).  Each wrapper
 launches its CUDA kernel on CUDA tensors and runs the plain version on CPU
 tensors.  The CUDA kernels mask their ragged edges themselves (rows past N,
 columns past n, k past p), so no operand is padded here; the reference's
@@ -19,7 +18,6 @@ from repro_torch.core.kernels_math import (
     assemble_streamed_gram_ensemble,
 )
 from repro_torch.kernels import centered_gram as _centered
-from repro_torch.kernels import quantize as _quant
 from repro_torch.kernels import rff as _rff
 from repro_torch.kernels import rff_gram_stream as _gram
 
@@ -72,11 +70,3 @@ def rff_gram_stream_fused(x: torch.Tensor, ell: torch.Tensor, *, n_features: int
     return assemble_streamed_gram_ensemble(
         gcc, gcs, gss, mc, ms, n=x.shape[1], ensemble=ensemble
     )
-
-
-def fake_quant(x: torch.Tensor, u: torch.Tensor, *, bits: int = 8) -> torch.Tensor:
-    """Stochastic quantize -> dequantize of any-shape ``x`` with uniforms
-    ``u`` (same shape, in [0, 1)) and one per-tensor absmax scale: the
-    wire-codec round trip of one payload as one K10 launch.  The reference
-    pads to a (rows, 128) layout; the card's kernel masks its tail itself."""
-    return _quant.fake_quant_rows(x[None], u[None], bits=bits)[0]

@@ -1,6 +1,6 @@
 """Dense plain-PyTorch oracles for the port's kernels.
 
-Port of the RF-TCA and fake-quant oracles of ``repro.kernels.ref``.  They materialize what
+Port of the RF-TCA oracles of ``repro.kernels.ref``.  They materialize what
 the kernels never do (Omega, Sigma) and are the ground truth of the tests.
 """
 from __future__ import annotations
@@ -48,14 +48,3 @@ def rff_gram_stream_fused_ref(x: torch.Tensor, ell: torch.Tensor, *, n_features:
         g_h = g_e if g_h is None else g_h + g_e
         u = u_e if u is None else u + u_e
     return g_h / ensemble, u / ensemble
-
-
-def fake_quant_ref(x: torch.Tensor, u: torch.Tensor, *, bits: int) -> torch.Tensor:
-    """Stochastic-round quantize -> dequantize with one per-tensor absmax
-    scale (the reference's ``fake_quant_ref``)."""
-    qmax = (1 << (bits - 1)) - 1
-    xf = x.to(torch.float32)
-    absmax = torch.max(torch.abs(xf))
-    scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
-    q = torch.clamp(torch.floor(xf / scale + u.to(torch.float32)), -qmax, qmax)
-    return (q * scale).to(x.dtype)

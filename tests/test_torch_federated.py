@@ -383,3 +383,27 @@ def test_every_codec_trains_over_the_wire(tiny, engine, codec):
         assert tr.comm.bytes_by_kind[kind] == n * size
     assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(tr.tgt_params))
     assert 0.0 <= tr.evaluate() <= 1.0
+
+
+def test_classifier_crosses_the_channel_on_t_c_rounds_only(tiny):
+    """The batched engine sends the classifier leaves through the lossy
+    channel on T_C rounds only; the other kinds every round."""
+    sources, target, _, tcfg = tiny
+    proto = TProto(engine="batched", transport="wire", codec="qint8", n_rounds=4, t_c=2,
+                   warmup_rounds=1, batch_size=24, seed=0)
+    tr = TTrainer(sources, target, tcfg, proto, device="cpu")
+    draws = []
+    draw = tr._engine.channel_uniforms
+
+    def recording(chan_key, path, n_rows, shape):
+        draws.append((chan_key, path[0]))
+        return draw(chan_key, path, n_rows, shape)
+
+    tr._engine.channel_uniforms = recording
+    tr.train()
+    rounds = sorted({t for t, _ in draws})
+    assert len(rounds) == 4
+    for kind in (0, 1, 2):
+        assert sorted(t for t, k in draws if k == kind) == rounds
+    clf = sorted({t for t, k in draws if k == 3})
+    assert clf == [t for t in rounds if t % 2 == 0] and clf
