@@ -41,12 +41,19 @@ Phases (any failed check raises, and the run exits non-zero):
      that residual, and LOBPCG at lobpcg_tol=1e-9 to rtol 1e-4 with
      cosines above 1 - 1e-3;
   8. K10 (the wire codecs' fake-quant): bit for bit against its plain version
-     at the ``K10_CHECK`` shapes (every launch shape of runs F and F64, and
-     ragged ones) for qint8 and qint4; timed on the card (queued behind a
+     at the ``K10_CHECK`` shapes (every launch shape of runs F, F64 and FL,
+     and ragged ones) for qint8 and qint4; timed on the card (queued behind a
      device-side sleep, so the host's dispatch is not timed; the calls cycle
      through copies of the inputs that overflow the L2 cache) at (5, 1024)
      and (65, 32768);
-  9. FedRF-TCA training (paper Alg. 5) through ``FedRFTCATrainer(...).train()``
+  9. K9 (the fleet's weighted segment reduce): within 1e-5 x max(1, max|plain|)
+     of its plain version at the ``K9_CHECK`` shapes (every launch shape of
+     FL, FT and FS, and tests/test_fleet.py:85's ragged ones), zero weights
+     exact, and NaN/Inf inputs giving the plain version's non-finite
+     positions; timed like K10 at (1024, 32769) and (1024, 1025) into 64
+     edges, beside its plain version and torch.matmul of the weighted
+     membership;
+ 10. FedRF-TCA training (paper Alg. 5) through ``FedRFTCATrainer(...).train()``
      and ``.evaluate()`` at the width of ``src/repro/configs/fedrf_paper.py``
      (p = 16, extractor (64, 32), N = 512, m = 32, 5 classes, lambda 2,
      lr 5e-3, T_C = 50) on ``make_domains(5, 400, shift=1.2, seed=3)``,
@@ -54,14 +61,34 @@ Phases (any failed check raises, and the run exits non-zero):
      just before and read just after each run:
        F    batched engine, wire transport, qint8 (K10 in every round), K = 4;
             the first launch of each shape is kept and held against the plain
-            version after the run, bit for bit (F64 too);
+            version after the run, bit for bit (F64 and FL too; K9's first
+            launches likewise in FT, FL and FS);
        G    F on the serial engine: its byte and message logs must equal F's;
        H    batched and serial, identity float32, every client in every round:
             parameters within 1e-4 (tests/test_round_engine.py:77);
+       FT   H batched with ``Topology.singleton(4)`` and ``client_chunk=2``
+            (every merge through K9): parameters within 1e-4 of H batched,
+            its tier-1 byte and message logs equal to H's;
+       R    H's setting, 10 + 50 rounds, NaN corruption of half the moment
+            and W_RF uplinks, under each rule: the mean ends non-finite
+            (tests/test_robust.py:281), the four robust rules finite;
        F64  F with K = 64 sources (``make_domains(65, 400, ...)``);
+       FL   the fleet at scale (benchmarks/bench_fleet.py:113-124): K = 1024
+            sources (``make_domains(1025, 400, ...)``), ``Topology.uniform(
+            1024, 64)``, ``client_chunk=128``, qint8 on both tiers, 10 + 50
+            rounds (round 50 merges the classifiers); server ingress below the
+            flat K-uplink figure;
        S    a short check against a reference: 5 + 5 rounds with the seed-fused
             Omega (K4), the card's parameters within 1e-4 of the CPU's;
- 10. the runs line, the kernels line (times, bounds, plain and library
+       FS   S with ``Topology.of_groups([[0, 1], [2, 3]])``, ``client_chunk=2``,
+            the trimmed mean and a Byzantine client boosting its uplinks 100x.
+            At E = 2 the rule cannot trim the attacker's edge, so the leaves
+            grow to tens and rounding differences grow with them: after the
+            same warm-up (within 1e-4), each round runs on the card and the
+            CPU from the CPU's state and must agree within 1e-4 x
+            max(1, max|leaf|); the free runs' divergence is reported beside
+            the CPU's own under a 1e-6 perturbation of its start;
+ 11. the runs line, the kernels line (times, bounds, plain and library
      times, launches), the card's name and power limit, and the result line.
 """
 from __future__ import annotations
@@ -93,13 +120,25 @@ PEAK_INT_OPS = PEAK_FLOPS / 4
 PEAK_BYTES = 3.35e12
 THREEFRY_INT_OPS = 82  # 20 rounds x (add, rotate, xor) + 5 key injections x 4 + 2
 REQUEST_COLS = 300  # K1 timed at a transform request's width as well
-# F's launch shapes at K = 4 and F64's at K = 64 (downlink, moments, W_RF,
-# classifier w and b), and ragged ones
+# F's launch shapes at K = 4, F64's at K = 64 and FL's at K = 1024 with its
+# 64 edge uplinks (downlink, moments, W_RF, classifier w and b), and ragged ones
 K10_CHECK = ((1, 1024), (4, 1024), (5, 32768), (4, 160), (4, 5), (64, 1024), (65, 32768),
-             (64, 160), (64, 5), (7, 13))
+             (64, 160), (64, 5), (1024, 1024), (1025, 32768), (1024, 160), (1024, 5),
+             (64, 32768), (7, 13))
 K10_TIMED = ((5, 1024), (65, 32768))  # K + 1 moment rows; K + 1 W_RF rows at K = 64
 L2_FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MiB L2
 FED_WARMUP, FED_ROUNDS, FED_LEAF_TOL = 50, 100, 1e-4
+# K9: every launch shape of FL (K = 1024 into 64 edges) and FS / FT (K = 4
+# into 2 and 4 edges): moments 2N + 1, W_RF 2N m + 1, classifier w and b
+# (+ 1: the hierarchy's ones column), and tests/test_fleet.py:85's ragged ones
+# FL: the fleet at the scale of benchmarks/bench_fleet.py:113-124
+FL_K, FL_EDGES, FL_CHUNK, FL_WARMUP, FL_ROUNDS = 1024, 64, 128, 10, 50
+K9_CHECK = tuple((k, d, e) for k, e in ((FL_K, FL_EDGES), (4, 2), (4, 4))
+                 for d in (1025, 32769, 161, 6)) + ((8, 16, 3), (130, 70, 5), (1, 5, 1))
+K9_TIMED = ((FL_K, 32769, FL_EDGES), (FL_K, 1025, FL_EDGES))  # FL's W_RF and moment merges
+K9_RTOL = 1e-5  # on |kernel - plain| / max(1, max|plain|)
+R_WARMUP, R_ROUNDS = 10, 50
+ROBUST_RULES = ("mean", "finite_mean", "trimmed_mean", "geomedian", "norm_clip")
 # torch.cuda._sleep spins cycles: 5e9 a second outlasts the host by 2.5x at
 # the H100's highest clock (1.98 GHz)
 SLEEP_CYCLES_PER_S = 5e9
@@ -674,10 +713,92 @@ def main() -> int:
     counters["quantize"] = quantize.LAUNCHES
     torch.cuda.synchronize()
 
-    # ---- 9. FedRF-TCA training through the trainer's entry points ----------
+    # ---- 9. K9 -------------------------------------------------------------
+    from repro_torch.fleet import Topology
+    from repro_torch.kernels import segment_reduce as seg_k
+
+    def k9_inputs(k, d, e, seed, *, uniform_edges):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        v = torch.randn((k, d), generator=g, device=dev)
+        if uniform_edges:  # the fleet's contiguous blocks
+            seg = torch.as_tensor(Topology.uniform(k, e).segment_ids, device=dev)
+        else:
+            seg = torch.randint(0, e, (k,), generator=g, device=dev, dtype=torch.int32)
+        w = (torch.rand((k,), generator=g, device=dev) < 0.8).float()  # participation masks
+        return v, seg, w
+
+    def k9_check(v, seg, w, e, out, what):
+        plain = seg_k.segment_reduce_plain(v, seg, w, e)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(out), test(plain)):
+                raise AssertionError(f"K9 {what}: non-finite positions differ from plain")
+        ok = torch.isfinite(plain)
+        if not ok.any():
+            return 0.0
+        err = float((out[ok] - plain[ok]).abs().max())
+        tol = K9_RTOL * max(1.0, float(plain[ok].abs().max()))
+        if not err <= tol:
+            raise AssertionError(f"K9 {what}: kernel differs from plain by {err} > {tol}")
+        return err
+
+    k9_err = 0.0
+    for k, d, e in K9_CHECK:
+        v, seg, w = k9_inputs(k, d, e, k + d + e, uniform_edges=e < k and k == FL_K)
+        k9_err = max(k9_err, k9_check(v, seg, w, e, seg_k.segment_reduce(v, seg, w, e),
+                                      f"({k}, {d}) -> {e}"))
+        zero = seg_k.segment_reduce(v, seg, torch.zeros_like(w), e)
+        if not float(zero.abs().max()) == 0.0:
+            raise AssertionError(f"K9 ({k}, {d}) -> {e}: zero weights gave nonzero sums")
+    # the non-finite contract: a NaN or Inf in column d of one edge makes column
+    # d NaN in every other edge, as the dense weighted-membership product does
+    nf_v = torch.tensor([[1, 2, 3], [float("nan"), 5, 6], [7, 8, float("inf")], [1, 2, 3]],
+                        device=dev)
+    nf_seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    nf_w = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    k9_check(nf_v, nf_seg, nf_w, 2, seg_k.segment_reduce(nf_v, nf_seg, nf_w, 2), "NaN/Inf")
+    v, seg, w = k9_inputs(FL_K, 1025, FL_EDGES, 5, uniform_edges=True)
+    v[3, 5], v[FL_K - 3, 5] = float("nan"), float("inf")  # two edges, one column
+    v[FL_K // 2, 900], v[FL_K - 1, 40] = -float("inf"), float("nan")
+    k9_check(v, seg, w, FL_EDGES, seg_k.segment_reduce(v, seg, w, FL_EDGES), "NaN/Inf at FL")
+    log(f"[K9] {len(K9_CHECK)} shapes within {K9_RTOL} x max(1, max|plain|), zero weights "
+        f"exact, non-finite positions equal; max abs err {k9_err:.3g}")
+    k9 = {}
+    for k, d, e in K9_TIMED:
+        nbytes = (k * d + 2 * k + e * d) * 4
+        copies = [k9_inputs(k, d, e, i, uniform_edges=True)
+                  for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
+        wms = [(seg_k.segment_reduce_plain(torch.eye(k, device=dev), s, w, e), v)
+               for v, s, w in copies]
+        turn, turn_lib = itertools.cycle(copies), itertools.cycle(wms)
+        b_ms, b_by = bound_ms(2 * k * d, nbytes)
+        kt = timed(torch, lambda: seg_k.segment_reduce(*next(turn), e), 50)
+        pt = timed(torch, lambda: seg_k.segment_reduce_plain(*next(turn), e), 20)
+        lt = timed(torch, lambda: torch.matmul(*next(turn_lib)), 20)
+        del copies, wms, turn, turn_lib
+        k9[(k, d, e)] = dict(ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"],
+                             plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=b_ms, bound_by=b_by)
+        log(f"[K9] ({k}, {d}) -> {e}: kernel {kt['ms']:.5f} ms (host {kt['host_ms']:.5f} ms a "
+            f"call, queued {kt['queued']}), plain {pt['ms']:.5f} ms, torch.matmul "
+            f"{lt['ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
+    big_k9, small_k9 = k9[K9_TIMED[0]], k9[K9_TIMED[1]]
+    report["K9"] = dict(
+        name="segment_reduce", route="cuda",
+        source="src/repro_torch/kernels/csrc/segment_reduce.cu",
+        replaces="src/repro/kernels/segment_reduce.py:49", max_abs_err=k9_err,
+        tolerance=f"{K9_RTOL} x max(1, max|plain|); equal non-finite positions",
+        shape=f"({K9_TIMED[0][0]}, {K9_TIMED[0][1]}) fp32 into {K9_TIMED[0][2]} edges", **big_k9,
+        small=dict(shape=f"({K9_TIMED[1][0]}, {K9_TIMED[1][1]}) into {K9_TIMED[1][2]}",
+                   **small_k9),
+    )
+    counters["segment_reduce"] = seg_k.LAUNCHES
+    torch.cuda.synchronize()
+
+    # ---- 10. FedRF-TCA training through the trainer's entry points ---------
+    from repro_torch.comm import wire
     from repro_torch.comm.netsim import TraceScenario
     from repro_torch.federated import ClientConfig, FedRFTCATrainer, ProtocolConfig, RoundPlan
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.robust import FaultConfig
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     fed_cfg = ClientConfig(input_dim=16, n_classes=5, extractor_widths=(64, 32), n_rff=512, m=32,
                            lambda_mmd=2.0)
@@ -717,11 +838,38 @@ def main() -> int:
         k10_seen.clear()
         return calls
 
+    # the same for the first K9 call of each (K, D, E) on the main path
+    k9_seen = {}
+    k9_launch = seg_k.segment_reduce
+
+    def recording_segment_reduce(values, seg_ids, weights, n_segments):
+        out = k9_launch(values, seg_ids, weights, n_segments)
+        key = (tuple(values.shape), n_segments)
+        if values.is_cuda and key not in k9_seen:
+            k9_seen[key] = tuple(pinned(t.contiguous()) for t in (values, seg_ids, weights, out))
+        return out
+
+    def check_main_path_k9(tag):
+        torch.cuda.synchronize()
+        if not k9_seen:
+            raise AssertionError(f"run {tag}: no K9 call was recorded")
+        err = 0.0
+        for ((k, d), e), host in sorted(k9_seen.items()):
+            v, sg, w, out = (t.to(dev) for t in host)
+            err = max(err, k9_check(v, sg, w, e, out, f"run {tag} ({k}, {d}) -> {e}"))
+        calls = [f"{k}x{d} -> {e}" for (k, d), e in sorted(k9_seen)]
+        log(f"[K9] run {tag}: its {len(calls)} launch shapes agree with plain (max abs err "
+            f"{err:.3g}): {calls}")
+        k9_seen.clear()
+        return calls
+
     def params_of(tr):
         return tree_leaves(tr.tgt_params) + [
             leaf for i in range(tr.k) for leaf in tree_leaves(tr._src_param(i))]
 
-    def train_run(tag, sources, target, cfg=fed_cfg, device=dev, **kw):
+    def train_run(tag, sources, target, cfg=fed_cfg, device=dev, finite=True, **kw):
+        """One trainer run; ``finite`` says whether its parameters must end
+        finite (True) or must not (False: the mean rule under NaN faults)."""
         for c in counters.values():
             for k in c:
                 c[k] = 0
@@ -738,6 +886,18 @@ def main() -> int:
         acc_warm = tr.evaluate()
         lat = []
         step = tr.round
+        # two-tier runs: what the server would have ingested with K uplinks
+        flat_ingress = {"moments": 0, "w_rf": 0, "classifier": 0}
+        if tr.topology is not None:
+            ingress = tr.account_ingress
+
+            def counting_ingress(kind, members):
+                members = list(members)
+                flat_ingress[kind] += len(members) * wire.serialized_size(
+                    kind, tr._specs[kind], tr.transport.codecs[kind])
+                ingress(kind, members)
+
+            tr.account_ingress = counting_ingress
 
         def timed_round(t):
             t1 = time.perf_counter()
@@ -747,33 +907,60 @@ def main() -> int:
             return out
 
         tr.round = timed_round  # train() calls self.round(t) once per round
+        # the host's share of a round: drawing the K clients' numpy batches
+        # and copying them to the device (batched engine only)
+        batch_ms = []
+        draw = tr._round_batch
+
+        def timed_batch():
+            t1 = time.perf_counter()
+            out = draw()
+            batch_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        tr._round_batch = timed_batch
         tr.train()
         acc = tr.evaluate()
         torch.cuda.synchronize()
         launches = {k: dict(c) for k, c in counters.items()}
-        if not all(bool(torch.isfinite(x).all()) for x in params_of(tr)):
-            raise AssertionError(f"run {tag}: non-finite parameters")
+        is_finite = all(bool(torch.isfinite(x).all()) for x in params_of(tr))
+        if is_finite != finite:
+            raise AssertionError(f"run {tag}: parameters {'not ' * finite}all finite")
         if not (0.0 <= acc_warm <= 1.0 and 0.0 <= acc <= 1.0):
             raise AssertionError(f"run {tag}: accuracy {acc_warm} -> {acc}")
         row = dict(
             engine=tr.proto.engine, transport=tr.proto.transport, codec=tr.resolved_codec,
             k=tr.k, warmup_rounds=tr.proto.warmup_rounds, rounds=len(lat), warmup_s=warm_s,
             round_ms_p50=float(np.percentile(lat, 50)), round_ms_p99=float(np.percentile(lat, 99)),
-            acc_after_warmup=acc_warm, acc_end=acc, bytes_by_kind=dict(tr.comm.bytes_by_kind),
+            acc_after_warmup=acc_warm, acc_end=acc, params_finite=is_finite,
+            bytes_by_kind=dict(tr.comm.bytes_by_kind),
             messages_by_kind=dict(tr.comm.messages_by_kind),
             k10_launches=launches["quantize"]["fake_quant"],
+            k9_launches=launches["segment_reduce"]["segment_reduce"],
             peak_bytes=(int(torch.cuda.max_memory_allocated()) - base) if device == dev else None,
-            launches=launches,
+            rule=tr.rule.name, client_chunk=tr.proto.client_chunk, launches=launches,
+            batch_draw_ms_p50=float(np.percentile(batch_ms, 50)) if batch_ms else None,
         )
-        log(f"[run {tag}] {row['engine']}/{row['transport']}/{row['codec']} K={tr.k}: warm-up "
-            f"{warm_s:.3f} s, round p50 {row['round_ms_p50']:.3f} ms p99 "
-            f"{row['round_ms_p99']:.3f} ms, target acc {acc_warm:.4f} -> {acc:.4f}, bytes "
-            f"{row['bytes_by_kind']}, K10 launches {row['k10_launches']}, peak "
-            f"{(row['peak_bytes'] or 0) / 2**20:.1f} MiB above the run's start")
+        if tr.topology is not None:
+            row.update(edges=tr.topology.n_edges, edge_codec=tr.proto.edge_codec,
+                       ingress_bytes=dict(tr.ingress_bytes), flat_ingress_bytes=flat_ingress,
+                       edge_bytes_by_kind=dict(tr.edge_transport.log.bytes_by_kind),
+                       edge_messages_by_kind=dict(tr.edge_transport.log.messages_by_kind))
+        log(f"[run {tag}] {row['engine']}/{row['transport']}/{row['codec']} K={tr.k} "
+            f"rule {row['rule']}: warm-up {warm_s:.3f} s, round p50 {row['round_ms_p50']:.3f} "
+            f"ms p99 {row['round_ms_p99']:.3f} ms, target acc {acc_warm:.4f} -> {acc:.4f}, bytes "
+            f"{row['bytes_by_kind']}, K10 launches {row['k10_launches']}, K9 launches "
+            f"{row['k9_launches']}, peak {(row['peak_bytes'] or 0) / 2**20:.1f} MiB above the "
+            f"run's start, batch draw p50 {row['batch_draw_ms_p50']} ms")
+        if tr.topology is not None:
+            log(f"[run {tag}] E={row['edges']} chunk {row['client_chunk']}: server ingress "
+                f"{row['ingress_bytes']} against {flat_ingress} with K uplinks; edge log "
+                f"{row['edge_bytes_by_kind']}")
         return tr, row
 
     wire_kw = dict(transport="wire", codec="qint8")
     quantize.fake_quant = recording_fake_quant
+    seg_k.segment_reduce = recording_segment_reduce
     tr_f, runs["F"] = train_run("F", doms5[:4], doms5[4], engine="batched", **wire_kw)
     if runs["F"]["k10_launches"] <= 0:
         raise AssertionError("run F: K10 was not launched")
@@ -794,14 +981,49 @@ def main() -> int:
     cross["H_batched_vs_serial_max_leaf_err"] = h_err
     if not h_err <= FED_LEAF_TOL:
         raise AssertionError(f"run H: batched and serial differ by {h_err} > {FED_LEAF_TOL}")
-    del tr_f, tr_g, tr_hb, tr_hs
+    # FT: H batched through the two-tier merges with E = K and the chunked map
+    tr_ft, runs["FT"] = train_run("FT", doms5[:4], doms5[4], engine="batched", scenario=full,
+                                  topology=Topology.singleton(4), client_chunk=2)
+    ft_err = max(float((a - b).abs().max()) for a, b in zip(params_of(tr_ft), params_of(tr_hb)))
+    cross["FT_vs_H_batched_max_leaf_err"] = ft_err
+    if not ft_err <= FED_LEAF_TOL:
+        raise AssertionError(f"run FT: differs from H batched by {ft_err} > {FED_LEAF_TOL}")
+    for key in ("bytes_by_kind", "messages_by_kind"):
+        if runs["FT"][key] != runs["H_batched"][key]:
+            raise AssertionError(f"run FT: {key} {runs['FT'][key]} != H's")
+    if runs["FT"]["k9_launches"] <= 0:
+        raise AssertionError("run FT: K9 was not launched")
+    cross["FT_k9_launch_shapes"] = check_main_path_k9("FT")
+    del tr_f, tr_g, tr_hb, tr_hs, tr_ft
+    # R: every rule under NaN payload faults; the mean must end non-finite
+    nan_faults = FaultConfig(corrupt_moments=0.5, corrupt_w_rf=0.5, corruption="nan")
+    for rule in ROBUST_RULES:
+        _, runs[f"R_{rule}"] = train_run(
+            f"R {rule}", doms5[:4], doms5[4], engine="batched", scenario=full,
+            warmup_rounds=R_WARMUP, n_rounds=R_ROUNDS, rule=rule, faults=nan_faults,
+            finite=rule != "mean")
+    cross["R_acc_end"] = {r: runs[f"R_{r}"]["acc_end"] for r in ROBUST_RULES}
     doms65 = make_domains(65, 400, shift=1.2, seed=3)
     _, runs["F64"] = train_run("F64", doms65[:64], doms65[64], engine="batched", **wire_kw)
     if runs["F64"]["k10_launches"] <= 0:
         raise AssertionError("run F64: K10 was not launched")
     cross["F64_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("F64")
-    quantize.fake_quant = k10_launch
     del doms65
+    # FL: the fleet at scale, K = 1024 sources over 64 edges, qint8 on both tiers
+    doms_fl = make_domains(FL_K + 1, 400, shift=1.2, seed=3)
+    tr_fl, runs["FL"] = train_run(
+        "FL", doms_fl[:FL_K], doms_fl[FL_K], engine="batched", warmup_rounds=FL_WARMUP,
+        n_rounds=FL_ROUNDS, topology=Topology.uniform(FL_K, FL_EDGES), client_chunk=FL_CHUNK,
+        edge_codec="qint8", **wire_kw)
+    fl = runs["FL"]
+    if fl["k9_launches"] <= 0 or fl["k10_launches"] <= 0:
+        raise AssertionError(f"run FL: K9 {fl['k9_launches']}, K10 {fl['k10_launches']} launches")
+    if not sum(fl["ingress_bytes"].values()) < sum(fl["flat_ingress_bytes"].values()):
+        raise AssertionError(f"run FL: ingress {fl['ingress_bytes']} not below the flat "
+                             f"{fl['flat_ingress_bytes']}")
+    cross["FL_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("FL")
+    cross["FL_k9_launch_shapes"] = check_main_path_k9("FL")
+    del tr_fl, doms_fl
     fused_cfg = ClientConfig(input_dim=16, n_classes=5, extractor_widths=(64, 32), n_rff=512, m=32,
                              lambda_mmd=2.0, rff_impl="fused")
     short = dict(cfg=fused_cfg, engine="batched", warmup_rounds=5, n_rounds=5, t_c=2)
@@ -813,7 +1035,67 @@ def main() -> int:
     if not s_err <= FED_LEAF_TOL:
         raise AssertionError(f"run S: card and CPU differ by {s_err} > {FED_LEAF_TOL}")
     del tr_sc, tr_sp
-    log(f"[cross] H batched vs serial {h_err:.3g}, S card vs CPU {s_err:.3g}")
+    # FS: the fleet and robust branches on the card against the CPU
+    fs = dict(short, topology=Topology.of_groups([[0, 1], [2, 3]]), client_chunk=2,
+              rule="trimmed_mean",
+              faults=FaultConfig(byzantine=(0,), byzantine_mode="scale", byzantine_scale=100.0))
+    tr_fc, runs["FS_card"] = train_run("FS card", doms5[:4], doms5[4], **fs)
+    tr_fp, runs["FS_cpu"] = train_run("FS cpu", doms5[:4], doms5[4], device="cpu", **fs)
+    # At E = 2 the trimmed mean cannot trim the attacker's edge away: W_RF and
+    # the classifier grow ~35x and ~100x (the reference does the same), and
+    # so does any rounding difference (a 1e-6 perturbation of the CPU's own
+    # start grows ~34x more than in S).  So the gate is round by round: both
+    # trainers start each round from the CPU's state, and every leaf agrees
+    # to FED_LEAF_TOL of max(1, max|leaf|).  The free runs' divergence is
+    # reported beside the CPU's own under that perturbation.
+    pairs = list(zip(params_of(tr_fc), params_of(tr_fp)))
+    cross["FS_free_card_vs_cpu_max_leaf_err"] = max(float((a.cpu() - b).abs().max())
+                                                    for a, b in pairs)
+    cross["FS_max_abs_param"] = max(float(b.abs().max()) for _, b in pairs)
+    fs_kw = {**fed_kw, **{k: v for k, v in fs.items() if k != "cfg"}}
+    tr_pp = FedRFTCATrainer(doms5[:4], doms5[4], fused_cfg,
+                            ProtocolConfig(**{**fs_kw, "warmup_rounds": 0}), device="cpu")
+    g = torch.Generator().manual_seed(SEED)
+    tr_pp._src_stack = tree_map(lambda t: t * (1 + 1e-6 * torch.randn(t.shape, generator=g)),
+                                tr_pp._src_stack)
+    tr_pp._warmup(fs_kw["warmup_rounds"])
+    tr_pp.train()
+    cross["FS_cpu_self_divergence_1e-6_start"] = max(
+        float((a - b).abs().max()) for a, b in zip(params_of(tr_pp), params_of(tr_fp)))
+    del tr_fc, tr_fp, tr_pp
+    # round by round: the card starts every round from the CPU's state
+    tr_c = FedRFTCATrainer(doms5[:4], doms5[4], fused_cfg, ProtocolConfig(**fs_kw), device=dev)
+    tr_p = FedRFTCATrainer(doms5[:4], doms5[4], fused_cfg, ProtocolConfig(**fs_kw),
+                           device="cpu")
+    warm_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(params_of(tr_c),
+                                                                    params_of(tr_p)))
+    if not warm_err <= FED_LEAF_TOL:
+        raise AssertionError(f"run FS: warm-up on the card and CPU differ by {warm_err}")
+    worst = 0.0
+    for t in range(1, fs_kw["n_rounds"] + 1):
+        tr_c._src_stack, tr_c._src_opt_stack, tr_c.tgt_params, tr_c.tgt_opt = (
+            tree_map(lambda x: x.to(dev), st)
+            for st in (tr_p._src_stack, tr_p._src_opt_stack, tr_p.tgt_params, tr_p.tgt_opt))
+        tr_c.round(t)
+        tr_p.round(t)
+        worst = max(worst, max(float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+                               for a, b in zip(params_of(tr_c), params_of(tr_p))))
+    torch.cuda.synchronize()
+    del tr_c, tr_p
+    cross["FS_warmup_card_vs_cpu_max_leaf_err"] = warm_err
+    cross["FS_lockstep_max_leaf_err_over_max1_leaf"] = worst
+    if not worst <= FED_LEAF_TOL:
+        raise AssertionError(f"run FS: a round on the card and on the CPU from one state differ "
+                             f"by {worst} of max(1, max|leaf|) > {FED_LEAF_TOL}")
+    if runs["FS_card"]["k9_launches"] <= 0:
+        raise AssertionError("run FS: K9 was not launched")
+    cross["FS_k9_launch_shapes"] = check_main_path_k9("FS card")
+    quantize.fake_quant = k10_launch
+    seg_k.segment_reduce = k9_launch
+    log(f"[cross] H batched vs serial {h_err:.3g}, FT vs H batched {ft_err:.3g}, S card vs CPU "
+        f"{s_err:.3g}, FS round by round {cross['FS_lockstep_max_leaf_err_over_max1_leaf']:.3g} "
+        f"(free runs {cross['FS_free_card_vs_cpu_max_leaf_err']:.3g}, the CPU against itself "
+        f"{cross['FS_cpu_self_divergence_1e-6_start']:.3g})")
 
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     report["K4"]["launches"] = sum(la[t]["prng"]["fused_omega"] for t in la)
@@ -824,12 +1106,12 @@ def main() -> int:
         report[key]["launches"] = sum(la[tag][group].values())
         report[key]["parts"] = la[tag][group]
     report["K8"]["launches"] = la["E"]["centered_gram"]["centered_gram"]
-    report["K10"]["launches"] = sum(runs[t]["k10_launches"] for t in ("F", "G", "H_batched",
-                                                                     "H_serial", "F64"))
-    report["K10"]["launches_by_run"] = {t: runs[t]["k10_launches"] for t in (
-        "F", "G", "H_batched", "H_serial", "F64")}
+    trained = [t for t in runs if "k10_launches" in runs[t]]
+    for key, field in (("K10", "k10_launches"), ("K9", "k9_launches")):
+        report[key]["launches_by_run"] = {t: runs[t][field] for t in trained if runs[t][field]}
+        report[key]["launches"] = sum(report[key]["launches_by_run"].values())
     kernels = [dict(id=k, **report[k])
-               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K10")]
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['id']} was not launched on the main path")

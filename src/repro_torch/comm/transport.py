@@ -235,11 +235,10 @@ class WireTransport(Transport):
     """Serialize -> bytes -> deserialize on every transfer; counts len(bytes).
 
     With a ``fault_injector`` (an object with ``corrupt(kind, data)`` and
-    ``max_retries``; the reference's ``robust.ByteFaultInjector`` is ROADMAP
-    queue 1 step 7)
-    installed, each frame may be corrupted in flight: the CRC32 envelope
-    check rejects it (typed :class:`~repro_torch.comm.wire.WireDecodeError` —
-    never a crash), the reject is accounted, and the frame is retransmitted
+    ``max_retries``, such as ``robust.ByteFaultInjector``) installed, each
+    frame may be corrupted in flight: the CRC32 envelope check rejects it
+    (typed :class:`~repro_torch.comm.wire.WireDecodeError` — never a crash),
+    the reject is accounted, and the frame is retransmitted
     up to the injector's ``max_retries``; on give-up :meth:`transfer`
     returns ``None`` and the payload is accounted as a drop, which the
     serial round treats exactly like a lost message.

@@ -4,14 +4,26 @@
 Port of ``repro.federated.aggregation``: the FedAvg merges of the serial
 plane (over lists of parameter trees), ``hard_vote`` and
 ``staleness_weights`` (numpy, copied).  The batched engine merges through
-``robust.rules.MeanRule`` instead.  ``edge_weighted_sums``, the
-two-tier fleet merge that reaches the K9 segment-reduce kernel, belongs to
-the fleet slice (ROADMAP queue 1 step 9) and is not ported yet.
+the ``robust.rules`` seam (re-exported here, as the reference does).
+:func:`edge_weighted_sums` is the grouped-sum primitive of the two-tier
+fleet merges (``fleet.hierarchy``): the K9 segment-reduce kernel on the
+card, its plain version on the CPU.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from repro_torch.kernels import segment_reduce as _segment
+from repro_torch.robust.rules import (  # noqa: F401  (re-export seam)
+    AggregationRule,
+    FiniteMeanRule,
+    GeoMedianRule,
+    MeanRule,
+    NormClipRule,
+    TrimmedMeanRule,
+    get_rule,
+)
 from repro_torch.utils.tree import tree_mean, tree_weighted_mean
 
 STALENESS_MODES = ("constant", "polynomial", "auto")
@@ -55,6 +67,18 @@ def staleness_weights(
             n = np.ones_like(s) if n_samples is None else np.asarray(n_samples, np.float64)
             w = w * (n / n.mean())
     return w.astype(np.float32)
+
+
+def edge_weighted_sums(values: torch.Tensor, seg_ids: torch.Tensor, weights: torch.Tensor,
+                       n_edges: int) -> torch.Tensor:
+    """Grouped weighted sums ``out[e] = sum_{k: seg[k]=e} w_k * values[k]``:
+    values (K, D), seg_ids (K,) ints, weights (K,) -> (n_edges, D) fp32.
+
+    On CUDA tensors one launch of the K9 kernel; on CPU tensors its plain
+    version, the reference's dense weighted-membership contraction (the
+    reference makes the same split between the TPU and elsewhere).  Tensors
+    on different devices raise."""
+    return _segment.segment_reduce(values, seg_ids, weights, n_edges)
 
 
 def fedavg_w_rf(source_params: list, target_params, participating: list[int]):

@@ -24,21 +24,34 @@ per-tensor round trip over the client axis.  Every uniform of the channel is dra
 :meth:`BatchedRoundEngine.channel_uniforms`, one function, so a test can put
 the reference's own ``jax.random`` uniforms in its place.
 
+Fleet scale (``fleet``): with a ``topology`` every merge routes through the
+two-tier edge -> server split of ``fleet.hierarchy`` (grouped partial sums
+and masses, one K9 launch per merge on the card; the tier-2 ``edge_channel``
+codecs on the edge uplinks, their uniforms under paths (4,), (5,) and
+(6, i)), and ``client_chunk`` runs the per-client ``vmap`` ``chunk`` rows at
+a time (``fleet.sharding.chunked_vmap``).  Robustness (``robust``): the
+``rule`` owns every weighted merge, and a ``faults`` plan corrupts the
+stacked uplinks after the channel (its draws under paths (7,), (8,), (9,)).
+
 Not ported yet, each raising ``NotImplementedError``: the asynchronous
-flush (``fedsim``, ROADMAP queue 1 step 8), the two-tier topology merges
-and ``client_chunk`` (``fleet``, K9; step 9), in-graph faults (``robust``,
-step 7) and the health probes (``obs``, step 10).
+flush (``fedsim``, ROADMAP queue 1 step 8) and the health probes (``obs``,
+step 10).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import grad_and_value
 
 from repro_torch.federated.model import ClientConfig, client_message, source_loss, target_loss
+from repro_torch.fleet import hierarchy
+from repro_torch.fleet.sharding import chunked_vmap
 from repro_torch.optim import apply_updates
 from repro_torch.robust.rules import MeanRule
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like, tree_where
+
+
+_MASS_EPS = 1e-12
 
 
 def _not_ported(what: str, step: str) -> NotImplementedError:
@@ -73,6 +86,7 @@ class BatchedRoundEngine:
         channel: dict | None = None,
         channel_seed: int = 0,
         topology=None,
+        edge_channel: dict | None = None,
         client_chunk: int | None = None,
         rule=None,
         faults=None,
@@ -82,13 +96,12 @@ class BatchedRoundEngine:
         zeroed and W-aggregation skipped), the invariant behind the
         seed-replay codec.  ``channel`` maps payload kinds to lossy codecs
         (``comm.Transport.channel_fns``); ``channel_seed`` keys the default
-        uniforms of :meth:`channel_uniforms`."""
-        if topology is not None:
-            raise _not_ported("the two-tier fleet topology (K9 segment reduce)", "step 9, fleet/")
-        if client_chunk is not None:
-            raise _not_ported("client_chunk (chunked vmap)", "step 9, fleet/")
-        if faults is not None:
-            raise _not_ported("in-graph fault injection", "step 7, robust/")
+        uniforms of :meth:`channel_uniforms`.  ``topology`` (a
+        ``fleet.Topology``) switches every merge to the two-tier split, with
+        ``edge_channel`` the tier-2 codecs; ``client_chunk`` bounds the
+        per-client ``vmap``; ``rule`` (default ``MeanRule``) owns every
+        weighted merge; ``faults`` (a ``robust.FaultPlan`` or None) corrupts
+        the stacked uplinks after the channel."""
         if probe:
             raise _not_ported("in-graph health probes", "step 10, obs/")
         self.cfg, self.opt, self.omega = cfg, opt, omega
@@ -100,6 +113,15 @@ class BatchedRoundEngine:
         self.freeze_w_rf = freeze_w_rf
         self.channel = channel or {}
         self.channel_seed = channel_seed
+        self.topology = topology
+        self.edge_channel = edge_channel or {}
+        self.client_chunk = client_chunk
+        self.faults = faults
+        if topology is not None:
+            self._seg_ids = torch.as_tensor(topology.segment_ids, device=self.device)
+            self._n_edges = topology.n_edges
+        else:
+            self._seg_ids, self._n_edges = None, 0
 
     # -- building blocks ----------------------------------------------------
 
@@ -117,7 +139,8 @@ class BatchedRoundEngine:
                 lambda pp: source_loss(pp, omega, x, y, tgt_msg, cfg, mmd_gate=gate,
                                        sample_mask=sm), p, o)
 
-        mapped = vmap(one_client, in_dims=(0, 0, 0, 0, 0, 0 if bmask is not None else None))
+        mapped = chunked_vmap(one_client, (0, 0, 0, 0, 0, 0 if bmask is not None else None),
+                              chunk=self.client_chunk)
         for x, y in zip(xs, ys):
             src_p, src_o = mapped(src_p, src_o, x, y, mmd_mask, bmask)
         return src_p, src_o
@@ -130,7 +153,9 @@ class BatchedRoundEngine:
         ``path`` names the draw as the reference's key chain does, from the
         round key ``fold_in(chan_base, t)``: (0,) the target downlink,
         (1,) the K moment uplinks, (2,) the K + 1 W_RF uplinks (the target's
-        last), (3, i) classifier leaf i (JAX leaf order: ``b``, then ``w``).
+        last), (3, i) classifier leaf i (JAX leaf order: ``b``, then ``w``);
+        the tier-2 edge uplinks: (4,) moments, (5,) W_RF, (6, i) classifier
+        leaf i.
         The port draws each from a ``torch.Generator`` seeded from
         (channel_seed, chan_key, path), so a round's draws do not depend on
         what ran before it."""
@@ -140,9 +165,11 @@ class BatchedRoundEngine:
         full = tuple(shape) if n_rows is None else (n_rows, *shape)
         return torch.rand(full, generator=gen, device=self.device)
 
-    def _channel(self, kind: str, x_rows: torch.Tensor, chan_key, path, *, single=False):
-        """The ``kind`` codec's round trip of a stack of payloads x (R, ...)."""
-        codec = self.channel.get(kind)
+    def _channel(self, kind: str, x_rows: torch.Tensor, chan_key, path, *, single=False,
+                 tier2=False):
+        """The ``kind`` codec's round trip of a stack of payloads x (R, ...),
+        on the tier-2 (edge -> server) codecs when ``tier2``."""
+        codec = (self.edge_channel if tier2 else self.channel).get(kind)
         if codec is None:
             return x_rows
         u = None
@@ -152,14 +179,59 @@ class BatchedRoundEngine:
                  else self.channel_uniforms(chan_key, path, x_rows.shape[0], shape))
         return codec.roundtrip(x_rows, u)
 
+    def _edge_fn(self, kind: str, chan_key, path):
+        """The tier-2 round trip of an (E, ...) stack of edge uplinks, or None."""
+        if self.edge_channel.get(kind) is None:
+            return None
+        return lambda rows: self._channel(kind, rows, chan_key, path, tier2=True)
+
+    def _fault(self, kind: str, rows: torch.Tensor, chan_key, path):
+        return rows if self.faults is None else self.faults.apply(kind, rows, chan_key, path)
+
     # -- merges ---------------------------------------------------------------
+    #
+    # ``sel`` is the 0/1 participation mask that gates the assign-backs and
+    # the "did anything arrive" checks, ``wsel`` the merge weights.  With no
+    # topology these are the flat K-client merges; with one, every merge goes
+    # through the two-tier split of ``fleet.hierarchy``.
 
     def _uplinked_msgs(self, src_p, x_msg, msg_mask, chan_key):
-        """(K, 2N) source Sigma-ell uplinks after the channel."""
+        """(K, 2N) source Sigma-ell uplinks after the tier-1 channel and the
+        faults; ``client_chunk``-bounded like the local steps."""
         omega = self.omega
-        msgs = vmap(lambda p, x, mk: client_message(p, omega, x, +1.0, mask=mk),
-                    in_dims=(0, 0, 0 if msg_mask is not None else None))(src_p, x_msg, msg_mask)
-        return self._channel("moments", msgs, chan_key, (1,))
+        msgs = chunked_vmap(lambda p, x, mk: client_message(p, omega, x, +1.0, mask=mk),
+                            (0, 0, 0 if msg_mask is not None else None),
+                            chunk=self.client_chunk)(src_p, x_msg, msg_mask)
+        msgs = self._channel("moments", msgs, chan_key, (1,))
+        return self._fault("moments", msgs, chan_key, (7,))
+
+    def _merge_msgs(self, msgs, weights, chan_key):
+        """What the target trains on: the rule's moment merge of the K client
+        messages (flat), or of the E per-edge pooled moments and their masses
+        (two-tier)."""
+        if self._seg_ids is None:
+            return self.rule.merge_moments(msgs, weights)
+        pooled, masses = hierarchy.edge_moment_merge(
+            msgs, weights, self._seg_ids, self._n_edges, self._edge_fn("moments", chan_key, (4,)))
+        return self.rule.merge_moments(pooled, masses)
+
+    def _server_merge(self, sums, masses):
+        """Tier-2 combine of per-edge (weighted sum, mass) partials: pure
+        reassociation for the mean rule; other rules re-merge the edge partial
+        means as E rows (a poisoned edge is one outlier)."""
+        if self.rule.is_mean:
+            return hierarchy.server_combine(sums, masses)
+        shaped = masses.reshape((-1,) + (1,) * (sums.ndim - 1))
+        return self.rule.weighted_sum(sums / torch.clamp_min(shaped, _MASS_EPS), masses)
+
+    def _merged_sum(self, kind, values, wsel, chan_key, path):
+        """(sum, mass) of a (K, ...) payload stack: the rule's contraction
+        (flat) or the edge partials and the server merge (two-tier)."""
+        if self._seg_ids is None:
+            return self.rule.weighted_sum(values, wsel)
+        sums, masses = hierarchy.edge_param_merge(values, wsel, self._seg_ids, self._n_edges,
+                                                  self._edge_fn(kind, chan_key, path))
+        return self._server_merge(sums, masses)
 
     def _target_steps(self, tgt_p, tgt_o, xt_steps, msgs, weights, any_gate):
         """Alg. 3 local target steps on the merged source moments; params AND
@@ -177,8 +249,8 @@ class BatchedRoundEngine:
         have_w = torch.sum(sel) > 0
         ups = torch.cat([src_p["w_rf"], tgt_p["w_rf"][None]])
         ups = self._channel("w_rf", ups, chan_key, (2,))
-        w_up, w_tgt_up = ups[:k_clients], ups[k_clients]
-        w_sum, mass = self.rule.weighted_sum(w_up, wsel)
+        w_up, w_tgt_up = self._fault("w_rf", ups[:k_clients], chan_key, (8,)), ups[k_clients]
+        w_sum, mass = self._merged_sum("w_rf", w_up, wsel, chan_key, (5,))
         w_avg = (w_sum + w_tgt_up) / (mass + 1.0)
         src_p = {**src_p, "w_rf": torch.where((sel > 0)[:, None, None] & have_w, w_avg[None],
                                               src_p["w_rf"])}
@@ -197,12 +269,13 @@ class BatchedRoundEngine:
             leaves = [self._channel("classifier", leaf, chan_key, (3, i))
                       for i, leaf in enumerate(tree_leaves(clf_up))]
             clf_up = tree_unflatten_like(clf_up, leaves)
-
-        def leaf_avg(leaf):
-            s, m = self.rule.weighted_sum(leaf, wsel)
-            return s / torch.clamp_min(m, floor)
-
-        c_avg = tree_map(leaf_avg, clf_up)
+        # one fault draw per merge: the same clients corrupt in every leaf
+        clf_up = tree_map(lambda leaf: self._fault("classifier", leaf, chan_key, (9,)), clf_up)
+        merged = []
+        for i, leaf in enumerate(tree_leaves(clf_up)):
+            s, m = self._merged_sum("classifier", leaf, wsel, chan_key, (6, i))
+            merged.append(s / torch.clamp_min(m, floor))
+        c_avg = tree_unflatten_like(clf_up, merged)
         assign = (sel > 0) & have_c
         src_p = {**src_p, "classifier": tree_map(
             lambda avg, old: torch.where(assign.reshape((-1,) + (1,) * (old.ndim - 1)),
@@ -241,7 +314,7 @@ class BatchedRoundEngine:
         # local target training (Alg. 3) on the messages that arrived
         if self.exchange_messages:
             msgs = self._uplinked_msgs(src_p, batch["x_msg"], msg_mask, chan_key)
-            merged, tgt_w = self.rule.merge_moments(msgs, mmd_mask)
+            merged, tgt_w = self._merge_msgs(msgs, mmd_mask, chan_key)
             tgt_p, tgt_o = self._target_steps(tgt_p, tgt_o, batch["xt_steps"], merged, tgt_w,
                                               torch.sum(mmd_mask) > 0)
 

@@ -26,10 +26,17 @@ uniforms and the seed-replay W_RF come from ``torch.Generator``s seeded from
 parameters.  Plans, batches and the serial wire's rounding draws are numpy
 streams and equal the reference's.
 
-Not ported yet (each raises ``NotImplementedError``): robust rules other
-than the mean and faults (ROADMAP queue 1 step 7), the asynchronous plane's
-hooks (step 8), the fleet topology and ``client_chunk`` (step 9), probes
-(step 10).
+Fleet scale (``fleet``): ``topology`` routes every merge of the batched
+engine through the two-tier edge -> server split (clients uplink to their
+edge at the tier-1 codecs, each active edge ships one merged uplink per kind
+at the tier-2 ``edge_codec``), and ``ingress_bytes`` tracks the server-ingress
+leg that collapses from K to E messages; ``client_chunk`` bounds the
+per-client working set.  Robustness (``robust``): ``rule`` owns every
+weighted merge of the batched engine; ``faults`` corrupts the stacked uplinks
+(batched) or the serialized frames (serial, ``transport="wire"``).
+
+Not ported yet (each raises ``NotImplementedError``): the asynchronous
+plane's hooks (ROADMAP queue 1 step 8) and probes (step 10).
 """
 from __future__ import annotations
 
@@ -61,7 +68,7 @@ from repro_torch.federated.model import (
     w_rf_key,
 )
 from repro_torch.optim import adam
-from repro_torch.robust import get_rule
+from repro_torch.robust import ByteFaultInjector, build_fault_plan, get_rule
 from repro_torch.utils.tree import stack_trees, tree_map, tree_mean, unstack_tree
 
 
@@ -87,12 +94,18 @@ class ProtocolConfig:
     codec_w_rf: str | None = None
     codec_classifier: str | None = None
     scenario: Any = None  # comm.netsim.Scenario; None -> TableIII(drop_setting)
-    # -- not ported yet (ROADMAP queue 1 steps 7, 9, 10) ---------------------
+    # -- fleet scale (fleet): a fleet.Topology turns on the two-tier merges
+    # (batched engine only), at the tier-2 ``edge_codec`` (default ``codec``);
+    # ``client_chunk`` runs the per-client vmap chunk rows at a time
     topology: Any = None
+    edge_codec: str | None = None
     client_chunk: int | None = None
+    # -- robustness (robust): "mean" | "finite_mean" | "norm_clip[:c]" |
+    # "trimmed_mean[:b]" | "geomedian[:iters]" or an AggregationRule (robust
+    # rules need the batched engine); ``faults`` a robust.FaultConfig
     rule: Any = "mean"
     faults: Any = None
-    probe: bool = False
+    probe: bool = False  # not ported yet (ROADMAP queue 1 step 10)
     seed: int = 0
 
 
@@ -136,11 +149,6 @@ class FedRFTCATrainer:
                  proto: ProtocolConfig, *, device=None):
         if proto.engine not in ("serial", "batched"):
             raise ValueError(f"unknown engine {proto.engine!r}")
-        for field, step in (("topology", "step 9, fleet/"), ("client_chunk", "step 9, fleet/"),
-                            ("faults", "step 7, robust/")):
-            if getattr(proto, field) is not None:
-                raise NotImplementedError(
-                    f"ProtocolConfig.{field} is not ported yet (ROADMAP queue 1 {step})")
         if proto.probe:
             raise NotImplementedError("ProtocolConfig.probe is not ported yet "
                                       "(ROADMAP queue 1 step 10, obs/)")
@@ -150,6 +158,22 @@ class FedRFTCATrainer:
         self.cfg, self.proto = cfg, proto
         self.k = len(sources)
         self.rule = get_rule(proto.rule)
+        self._chan_seed = proto.seed ^ 0x5EED
+        self._fault_plan = build_fault_plan(proto.faults, self.k, seed=self._chan_seed)
+        if engine != "batched":
+            if not self.rule.is_mean:
+                raise ValueError(f"rule={self.rule.name!r} runs on the stacked uplinks and "
+                                 "needs the batched engine")
+            if self._fault_plan is not None and proto.transport != "wire":
+                raise ValueError("serial fault injection corrupts real frames and needs "
+                                 "transport='wire'; value-level faults need the batched engine")
+        self.topology = proto.topology
+        if self.topology is not None:
+            if engine != "batched":
+                raise ValueError("fleet topology needs the batched engine")
+            if self.topology.n_clients != self.k:
+                raise ValueError(f"topology covers {self.topology.n_clients} clients, "
+                                 f"trainer has {self.k}")
         self.omega = make_omega(cfg, device=self.device)
         codec = proto.codec
         if isinstance(codec, str) and codec.startswith("auto:"):
@@ -159,6 +183,10 @@ class FedRFTCATrainer:
             proto.transport, codec, seed=proto.seed, codec_moments=proto.codec_moments,
             codec_w_rf=proto.codec_w_rf, codec_classifier=proto.codec_classifier,
         )
+        if self._fault_plan is not None and engine != "batched":
+            # serial wire plane: faults are byte corruption of real frames,
+            # which the CRC32 check turns into reject, retransmit or drop
+            self.transport.fault_injector = ByteFaultInjector.from_config(proto.faults)
         self.scenario = proto.scenario or netsim.TableIIIScenario(proto.drop_setting)
         self._frozen_w = self.transport.frozen_w
         f32 = np.dtype(np.float32)
@@ -167,12 +195,24 @@ class FedRFTCATrainer:
             "w_rf": {"w_rf": ((2 * cfg.n_rff, cfg.m), f32)},
             "classifier": {"w": ((cfg.m, cfg.n_classes), f32), "b": ((cfg.n_classes,), f32)},
         }
+        # the tier-2 (edge -> server) transport: one merged uplink per active
+        # edge and kind, the partial merge plus the mass it reports
+        if self.topology is not None:
+            edge_codec = proto.edge_codec or codec
+            if edge_codec == "seed_replay" and codec != "seed_replay":
+                raise ValueError("edge_codec='seed_replay' requires the frozen-W protocol "
+                                 "(codec='seed_replay')")
+            self.edge_transport = comm_transport.build_transport(
+                proto.transport, edge_codec, seed=proto.seed ^ 0x0ED6E)
+            self._edge_specs = {kind: {**spec, "mass": ((1,), f32)}
+                                for kind, spec in self._specs.items()}
+        else:
+            self.edge_transport, self._edge_specs = None, None
         self.ingress_bytes = {"moments": 0, "w_rf": 0, "classifier": 0}
         # every client fine-tunes the SAME initial model (paper Fig. 1)
         shared = init_params(cfg, proto.seed, device=self.device)
         self._w_key_data = w_rf_key(proto.seed)  # the seed-replay W_RF payload
         self._w_init = shared["w_rf"]
-        self._chan_seed = proto.seed ^ 0x5EED
         src_params = [_clone(shared) for _ in range(self.k)]
         self.tgt_params = _clone(shared)
         self.opt = adam(proto.lr)
@@ -206,14 +246,14 @@ class FedRFTCATrainer:
                 aggregate_w_rf=proto.aggregate_w_rf,
                 aggregate_classifier=proto.aggregate_classifier, freeze_w_rf=self._frozen_w,
                 channel=self.transport.channel_fns(), channel_seed=self._chan_seed,
-                rule=self.rule,
+                topology=self.topology,
+                edge_channel=self.edge_transport.channel_fns() if self.edge_transport else None,
+                client_chunk=proto.client_chunk, rule=self.rule, faults=self._fault_plan,
             )
             self._src_stack = stack_trees(src_params)
             self._src_opt_stack = stack_trees([self.opt.init(p) for p in src_params])
             self.src_params, self.src_opt = None, None
         else:
-            if not self.rule.is_mean:
-                raise ValueError(f"rule={self.rule.name!r} needs the batched engine")
             self._engine = None
             self.src_params = src_params
             self.src_opt = [self.opt.init(p) for p in src_params]
@@ -323,14 +363,24 @@ class FedRFTCATrainer:
 
     # ---- communication accounting (analytic; exact by wire.serialized_size) --
     def account_ingress(self, kind: str, members) -> None:
-        """Server-ingress leg of one round's ``kind`` uplinks (flat plane)."""
+        """Server-ingress leg of one round's ``kind`` uplinks.  Flat plane:
+        every participating client's message at the tier-1 codec.  Two-tier:
+        one merged uplink (partial merge plus mass) per active edge at the
+        tier-2 ``edge_codec``, recorded in the edge transport's log."""
         members = list(members)
         if not members:
             return
-        nbytes = wire.serialized_size(kind, self._specs[kind], self.transport.codecs[kind])
-        total = len(members) * nbytes
+        if self.topology is None:
+            nbytes = wire.serialized_size(kind, self._specs[kind], self.transport.codecs[kind])
+            total, tier = len(members) * nbytes, "flat"
+        else:
+            edges = self.topology.edges_of(members)
+            self.edge_transport.account_spec(kind, self._edge_specs[kind], count=len(edges))
+            nbytes = wire.serialized_size(kind, self._edge_specs[kind],
+                                          self.edge_transport.codecs[kind])
+            total, tier = len(edges) * nbytes, "edge"
         self.ingress_bytes[kind] += total
-        obs.metrics().counter("fleet.ingress_bytes").inc(total, kind=kind, tier="flat")
+        obs.metrics().counter("fleet.ingress_bytes").inc(total, kind=kind, tier=tier)
 
     def _account_comm(self, plan: network.RoundPlan, t: int) -> None:
         """Bytes and floats of the planes whose exchange is in-graph (identity

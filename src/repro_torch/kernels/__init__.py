@@ -6,6 +6,7 @@
 - rff_gram_stream: streamed Gram/moment accumulation, Omega an operand (K2, K3)
                    or drawn in the kernel (K5, K6)
 - centered_gram:   Sigma H Sigma^T from a materialized Sigma (K8)
+- segment_reduce:  weighted segment sums of the two-tier fleet merges (K9)
 - quantize:        stochastic-rounding fake-quant of the wire codecs (K10)
 - ops:             the public wrappers; ref: the dense oracles
 

@@ -1,6 +1,7 @@
 """Public wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8).  Each wrapper
+Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8) and the fleet's
+segment reduce (K9).  Each wrapper
 launches its CUDA kernel on CUDA tensors and runs the plain version on CPU
 tensors.  The CUDA kernels mask their ragged edges themselves (rows past N,
 columns past n, k past p), so no operand is padded here; the reference's
@@ -20,6 +21,7 @@ from repro_torch.core.kernels_math import (
 from repro_torch.kernels import centered_gram as _centered
 from repro_torch.kernels import rff as _rff
 from repro_torch.kernels import rff_gram_stream as _gram
+from repro_torch.kernels import segment_reduce as _segment
 
 
 def rff(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
@@ -70,3 +72,11 @@ def rff_gram_stream_fused(x: torch.Tensor, ell: torch.Tensor, *, n_features: int
     return assemble_streamed_gram_ensemble(
         gcc, gcs, gss, mc, ms, n=x.shape[1], ensemble=ensemble
     )
+
+
+def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, weights: torch.Tensor, *,
+                   n_segments: int) -> torch.Tensor:
+    """Weighted segment sums ``out[e] = sum_{k: seg[k]=e} w_k * values[k]``:
+    values (K, D), seg_ids (K,) ints in [0, n_segments), weights (K,) ->
+    (n_segments, D) fp32.  No padding: the kernel masks its ragged edges."""
+    return _segment.segment_reduce(values, seg_ids, weights, n_segments)

@@ -1,7 +1,8 @@
 """Dense plain-PyTorch oracles for the port's kernels.
 
-Port of the RF-TCA oracles of ``repro.kernels.ref``.  They materialize what
-the kernels never do (Omega, Sigma) and are the ground truth of the tests.
+Port of the RF-TCA and segment-reduce oracles of ``repro.kernels.ref``.  They
+materialize what the kernels never do (Omega, Sigma, the dense weighted
+membership) and are the ground truth of the tests.
 """
 from __future__ import annotations
 
@@ -10,6 +11,10 @@ import math
 import torch
 
 from repro_torch.kernels.prng import fused_omega_block_plain
+# K9's plain version is the reference's dense weighted-membership product itself
+from repro_torch.kernels.segment_reduce import (  # noqa: F401
+    segment_reduce_plain as segment_reduce_ref,
+)
 
 
 def rff_ref(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
@@ -48,3 +53,4 @@ def rff_gram_stream_fused_ref(x: torch.Tensor, ell: torch.Tensor, *, n_features:
         g_h = g_e if g_h is None else g_h + g_e
         u = u_e if u is None else u + u_e
     return g_h / ensemble, u / ensemble
+

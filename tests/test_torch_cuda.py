@@ -9,8 +9,9 @@ it runs on a machine that has only PyTorch:
 Tolerances: Omega within 8 ULP and bits equal (K4); 2e-5 absolute on the
 feature map (K1, K7); atol 2e-5 on G_H / max|G_H| and on u (K2/K3, K5/K6);
 atol 1e-5 on G / max|G| (K8); the fit's eigenvalues to rtol 1e-2 and its
-subspace to 1e-3; K10 bit for bit; the trainer's parameters, card against
-CPU, to 1e-4.
+subspace to 1e-3; K10 bit for bit; K9 within 1e-5 * max(1, max|plain|) with
+equal non-finite positions; the trainers' parameters, card against CPU, to
+1e-4.
 """
 import numpy as np
 import pytest
@@ -21,8 +22,11 @@ from repro_torch.core import rf_tca as trf  # noqa: E402
 from repro_torch.core.kernels_math import ell_vector  # noqa: E402
 from repro_torch.data import make_domains  # noqa: E402
 from repro_torch.federated import ClientConfig, FedRFTCATrainer, ProtocolConfig  # noqa: E402
+from repro_torch.fleet import Topology  # noqa: E402
 from repro_torch.kernels import centered_gram, ops, prng, quantize, ref, rff  # noqa: E402
+from repro_torch.kernels import segment_reduce  # noqa: E402
 from repro_torch.kernels import rff_gram_stream as gram  # noqa: E402
+from repro_torch.robust import FaultConfig  # noqa: E402
 from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -252,3 +256,83 @@ def test_trainer_on_card_matches_cpu(card, engine):
     launched = quantize.LAUNCHES["fake_quant"] - before
     assert (launched > 0) == (engine == "batched")
     assert 0.0 <= tr.evaluate() <= 1.0
+
+
+# the hierarchy's launch shapes at chip_smoke's FL and FS (a ones column makes
+# D odd) and the reference test's ragged shapes (tests/test_fleet.py:85)
+K9_SHAPES = [(1024, 1025, 64), (1024, 32769, 64), (1024, 161, 64), (1024, 6, 64), (4, 1025, 2),
+             (4, 161, 4), (8, 16, 3), (130, 70, 5), (1, 5, 1), (1024, 300, 1024)]
+
+
+@pytest.mark.parametrize("k,d,e", K9_SHAPES)
+def test_segment_reduce_kernel_matches_plain(card, k, d, e):
+    """K9: within 1e-5 * max(1, max|plain|); zero weights give exact zeros."""
+    g = torch.Generator(device=card).manual_seed(k + d + e)
+    v = torch.randn((k, d), generator=g, device=card)
+    seg = torch.randint(0, e, (k,), generator=g, device=card, dtype=torch.int32)
+    w = torch.rand((k,), generator=g, device=card)
+    before = segment_reduce.LAUNCHES["segment_reduce"]
+    out = ops.segment_reduce(v, seg, w, n_segments=e)
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce"] == before + 1
+    plain = segment_reduce.segment_reduce_plain(v, seg, w, e)
+    tol = 1e-5 * max(1.0, plain.abs().max().item())
+    assert out.shape == (e, d) and (out - plain).abs().max().item() <= tol
+    zero = ops.segment_reduce(v, seg, torch.zeros_like(w), n_segments=e)
+    assert zero.abs().max().item() == 0.0
+
+
+def test_segment_reduce_kernel_spreads_non_finite_values_like_plain(card):
+    """A non-finite value in column d of any row makes column d NaN in every
+    other edge, as the dense weighted-membership product does."""
+    v = torch.tensor([[1, 2, 3], [float("nan"), 5, 6], [7, 8, float("inf")], [1, 2, 3]],
+                     device=card)
+    seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=card)
+    w = torch.tensor([1.0, 0.0, 1.0, 1.0], device=card)
+    out = ops.segment_reduce(v, seg, w, n_segments=2).cpu()
+    want = torch.tensor([[float("nan"), 2, float("nan")], [float("nan"), 10, float("inf")]])
+    assert torch.equal(out.isnan(), want.isnan()) and torch.equal(out.isinf(), want.isinf())
+    g = torch.Generator(device=card).manual_seed(3)
+    v = torch.randn((1024, 1025), generator=g, device=card)
+    v[3, 5], v[77, 5], v[12, 900], v[100, 40] = float("nan"), float("inf"), -float("inf"), 1e38
+    w = torch.rand((1024,), generator=g, device=card)
+    seg = torch.arange(1024, device=card, dtype=torch.int32) // 16
+    small = torch.randn((6, 4), generator=g, device=card)
+    small[2, 1] = 0.0  # inf * 0 = NaN inside the edge
+    w_inf = torch.tensor([1.0, 0.0, float("inf"), 1.0, 1.0, 0.5], device=card)
+    seg_small = torch.tensor([0, 1, 1, 2, 2, 0], dtype=torch.int32, device=card)
+    for args in ((v, seg, w, 64), (small, seg_small, w_inf, 3)):
+        out = ops.segment_reduce(*args[:3], n_segments=args[3])
+        plain = segment_reduce.segment_reduce_plain(*args)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(out), test(plain))
+        ok = torch.isfinite(plain)
+        if ok.any():
+            err = (out[ok] - plain[ok]).abs().max().item()
+            assert err <= 1e-5 * max(1.0, plain[ok].abs().max().item())
+    with pytest.raises(ValueError):
+        ops.segment_reduce(v, seg.cpu(), w, n_segments=64)
+
+
+def test_two_tier_trainer_on_card_matches_cpu(card):
+    """chip_smoke's FS at a test's width: grouped edges, client_chunk=2,
+    trimmed mean under a Byzantine scale attack; K9 launches on the card."""
+    doms = make_domains(5, 120, shift=0.5, seed=1, dim=8, n_classes=3)
+    cfg = ClientConfig(input_dim=8, n_classes=3, n_rff=32, m=8, extractor_widths=(16, 8),
+                       rff_impl="fused")
+    kw = dict(n_rounds=4, t_c=2, warmup_rounds=2, batch_size=32, seed=0,
+              topology=Topology.of_groups([[0, 1], [2, 3]]), client_chunk=2,
+              rule="trimmed_mean",
+              faults=FaultConfig(byzantine=(0,), byzantine_mode="scale", byzantine_scale=100.0))
+    before = segment_reduce.LAUNCHES["segment_reduce"]
+    runs = {}
+    for dev in ("cpu", card):
+        tr = FedRFTCATrainer(doms[:4], doms[4], cfg, ProtocolConfig(**kw), device=dev)
+        tr.train()
+        runs[str(dev)] = tr
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce"] > before
+    a, b = runs["cpu"], runs[str(card)]
+    for x, y in zip(tree_leaves((a.tgt_params, a._src_stack)),
+                    tree_leaves((b.tgt_params, b._src_stack))):
+        assert (x - y.cpu()).abs().max().item() < 1e-4

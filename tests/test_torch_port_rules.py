@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import rf_tca as trf  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import prng  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -134,6 +135,9 @@ SLICE3_MODULES = (
     "federated/aggregation.py", "kernels/quantize.py", "comm/codecs.py", "comm/wire.py",
     "comm/transport.py", "comm/netsim.py", "comm/autocodec.py", "checkpoint/ckpt.py",
     "federated/engine.py", "federated/protocol.py",
+    # the fleet and robust slice
+    "fleet/__init__.py", "fleet/topology.py", "fleet/hierarchy.py", "fleet/sharding.py",
+    "robust/__init__.py", "robust/faults.py", "kernels/segment_reduce.py",
 )
 
 
@@ -145,7 +149,8 @@ def test_training_slice_modules_are_in_the_import_guard():
         path = ROOT / "src" / "repro_torch" / rel
         assert path in files, rel
         assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}, rel
-    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "quantize.cu").exists()
+    for name in ("quantize.cu", "segment_reduce.cu"):
+        assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / name).exists()
 
 
 def _fed():
@@ -172,38 +177,71 @@ def test_trainer_without_device_raises_without_card():
     assert tr.omega.device.type == "cpu" and tr._w_init.device.type == "cpu"
 
 
+def _fault_config():
+    from repro_torch.robust import FaultConfig
+
+    return FaultConfig(corrupt_moments=0.5, corrupt_w_rf=0.5, corruption="nan")
+
+
+def _two_edges():
+    from repro_torch.fleet import Topology
+
+    return Topology.of_groups([[0], [1]])
+
+
 @pytest.mark.parametrize("field,value,step", [
-    ("topology", object(), "step 9"),
-    ("client_chunk", 2, "step 9"),
-    ("faults", object(), "step 7"),
-    ("probe", True, "step 10"),
-    ("rule", "trimmed_mean:0.2", "step 7"),
-    ("rule", "geomedian", "step 7"),
+    ("topology", _two_edges, None),
+    ("client_chunk", lambda: 1, None),
+    ("faults", _fault_config, None),
+    ("probe", lambda: True, "step 10"),
+    ("rule", lambda: "trimmed_mean:0.2", None),
+    ("rule", lambda: "geomedian", None),
 ])
 def test_paths_left_out_of_the_training_slice_raise(field, value, step):
+    """The training slice left fleet, robust rules and faults out; they now
+    build and take a round on the CPU.  Only the probes (step 10) raise."""
     from repro_torch.federated import FedRFTCATrainer, ProtocolConfig
 
     sources, target, cfg = _fed()
-    proto = ProtocolConfig(warmup_rounds=0, **{field: value})
-    with pytest.raises(NotImplementedError, match=step):
-        FedRFTCATrainer(sources, target, cfg, proto, device="cpu")
+    proto = ProtocolConfig(warmup_rounds=0, n_rounds=2, t_c=2, batch_size=16,
+                           **{field: value()})
+    if step is not None:
+        with pytest.raises(NotImplementedError, match=step):
+            FedRFTCATrainer(sources, target, cfg, proto, device="cpu")
+        return
+    tr = FedRFTCATrainer(sources, target, cfg, proto, device="cpu")
+    tr.train()
+    assert tr.comm.rounds == 2 and 0.0 <= tr.evaluate() <= 1.0
+    if field == "rule":
+        assert not tr.rule.is_mean and all(bool(torch.isfinite(x).all())
+                                            for x in tree_leaves(tr.tgt_params))
 
 
 def test_engine_seams_left_out_raise():
+    """Of the engine seams the training slice left out, topology,
+    client_chunk and faults now build; the probes (step 10) and the async
+    flush (step 8) still raise."""
     from repro_torch.federated import BatchedRoundEngine, ClientConfig, aggregation
+    from repro_torch.kernels import segment_reduce
     from repro_torch.optim import adam
-    from repro_torch.robust import get_rule
+    from repro_torch.robust import build_fault_plan, get_rule
 
     cfg = ClientConfig(input_dim=6, n_classes=2, n_rff=8, m=2, extractor_widths=(4,))
     omega = torch.zeros((8, 4))
-    for kw, step in ((dict(topology=object()), "step 9"), (dict(client_chunk=4), "step 9"),
-                     (dict(faults=object()), "step 7"), (dict(probe=True), "step 10")):
-        with pytest.raises(NotImplementedError, match=step):
-            BatchedRoundEngine(cfg, adam(1e-2), omega, **kw)
+    for kw in (dict(topology=_two_edges()), dict(client_chunk=4),
+               dict(faults=build_fault_plan(_fault_config(), 2))):
+        eng = BatchedRoundEngine(cfg, adam(1e-2), omega, **kw)
+        assert getattr(eng, next(iter(kw))) is kw[next(iter(kw))]
+    with pytest.raises(NotImplementedError, match="step 10"):
+        BatchedRoundEngine(cfg, adam(1e-2), omega, probe=True)
     with pytest.raises(NotImplementedError, match="step 8"):
         BatchedRoundEngine(cfg, adam(1e-2), omega).flush()
-    # the K9 seam waits for the fleet slice
-    assert not hasattr(aggregation, "edge_weighted_sums")
-    assert get_rule("mean").is_mean
+    # the K9 seam: the plain version on CPU tensors, no kernel launch
+    launches = segment_reduce.LAUNCHES["segment_reduce"]
+    out = aggregation.edge_weighted_sums(torch.ones((5, 4)), torch.tensor([0, 1, 2, 0, 1]),
+                                         torch.ones(5), 3)
+    assert out.tolist() == [[2.0] * 4, [2.0] * 4, [1.0] * 4]
+    assert segment_reduce.LAUNCHES["segment_reduce"] == launches
+    assert get_rule("mean").is_mean and not get_rule("geomedian").is_mean
     with pytest.raises(ValueError):
         get_rule("median")
