@@ -88,7 +88,31 @@ Phases (any failed check raises, and the run exits non-zero):
             CPU from the CPU's state and must agree within 1e-4 x
             max(1, max|leaf|); the free runs' divergence is reported beside
             the CPU's own under a 1e-6 perturbation of its start;
- 11. the runs line, the kernels line (times, bounds, plain and library
+ 11. K11 (the backbone's flash attention): at the ``K11_CHECK`` shapes
+     (tests/test_kernels.py:164-187's sweep in fp32 and bf16, window 0 and 48,
+     causal and not; ragged s = 77 and 1000; the serve run's (8, 9, 3, 2048,
+     64) and internlm2-1.8b's (1, 16, 8, 4096, 128) in bf16) within 2e-5 of
+     its plain version at fp32 and one bf16 ULP of it at bf16 (plus 2e-5:
+     near-zero outputs are sums with cancellation; at most 3e-2 of max(1,
+     max|plain|)), non-finite
+     positions equal; timed like K10 at the serve shape and at hd
+     128, beside its plain version and scaled_dot_product_attention;
+ 12. the LM serve path through ``repro_torch.launch.serve.generate``, K11's
+     launch count zeroed just before and read just after each run:
+       L    smollm-135m (src/repro/configs/smollm_135m.py: 30 layers, d_model
+            576, 9 heads / 3 KV heads, hd 64, d_ff 1536, vocab 49152) in bf16,
+            weights from ``LM.init(0)``, batch 8, 2048-token prompts (SmolLM's
+            context length), 32 tokens, twice (first and warm): K11 once per
+            layer per prefill, the first launch held against plain after the
+            run, tokens in the vocab and logits finite;
+       LC   the same model at fp32, batch 2, 128-token prompts, 8 tokens, on
+            the card and, feeding the card's tokens, on the CPU from the same
+            weights: every step's logits within 1e-3 x max(1, max|logit|), and
+            the greedy tokens equal wherever the CPU's top-two gap exceeds it;
+       LH   on the card at fp32, a prefill of 128 tokens plus 4 decode steps
+            against ``forward`` over 132 (tests/test_models.py:141-161):
+            within 1e-4 (prefill) and 1e-3 (decode) of max(1, max|logit|);
+ 13. the runs line, the kernels line (times, bounds, plain and library
      times, launches), the card's name and power limit, and the result line.
 """
 from __future__ import annotations
@@ -139,6 +163,26 @@ K9_TIMED = ((FL_K, 32769, FL_EDGES), (FL_K, 1025, FL_EDGES))  # FL's W_RF and mo
 K9_RTOL = 1e-5  # on |kernel - plain| / max(1, max|plain|)
 R_WARMUP, R_ROUNDS = 10, 50
 ROBUST_RULES = ("mean", "finite_mean", "trimmed_mean", "geomedian", "norm_clip")
+# K11: tests/test_kernels.py:164-187's sweep (fp32 and bf16, window 0 and 48,
+# causal and not), ragged s, the serve run's shape and internlm2-1.8b's head
+# shape (src/repro/configs/internlm2_1p8b.py: 16 heads, 8 KV heads, hd 128)
+K11_SWEEP = ((1, 2, 1, 128, 32, 32), (2, 4, 2, 128, 16, 16), (1, 4, 4, 256, 32, 16),
+             (2, 8, 2, 64, 64, 64))
+LM_ARCH, L_BATCH, L_PROMPT, L_GEN = "smollm-135m", 8, 2048, 32  # SmolLM's context: 2048
+K11_SERVE = (L_BATCH, 9, 3, L_PROMPT, 64, 64)  # smollm-135m: 9 heads, 3 KV heads, hd 64
+K11_HD128 = (1, 16, 8, 4096, 128, 128)
+K11_CHECK = tuple(
+    (*shape, dtype, causal, window) for shape in K11_SWEEP for dtype in ("float32", "bfloat16")
+    for causal in (True, False) for window in (0, 48)) + tuple(
+    (*shape, dtype, True, window) for shape in ((2, 9, 3, 77, 64, 64), (1, 9, 3, 1000, 64, 64))
+    for dtype in ("float32", "bfloat16") for window in (0, 48)) + (
+    (*K11_SERVE, "bfloat16", True, 0), (*K11_HD128, "bfloat16", True, 0))
+K11_F32_ATOL, K11_BF16_ATOL = 2e-5, 3e-2  # tests/test_kernels.py:174-177
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+# LC: card against CPU at fp32; LH: the prefill -> decode handoff
+# (tests/test_models.py:141-161), both from LC's weights
+LC_BATCH, LC_PROMPT, LC_GEN, LC_RTOL = 2, 128, 8, 1e-3
+LH_EXTRA, LH_PREFILL_RTOL, LH_DECODE_RTOL = 4, 1e-4, 1e-3
 # torch.cuda._sleep spins cycles: 5e9 a second outlasts the host by 2.5x at
 # the H100's highest clock (1.98 GHz)
 SLEEP_CYCLES_PER_S = 5e9
@@ -187,8 +231,9 @@ def ulps(torch, a, b) -> float:
     return float(((a - b).abs() / spacing).max())
 
 
-def bound_ms(flops: float, nbytes: float, int_ops: float = 0.0) -> tuple[float, str]:
-    t_ops = (flops / PEAK_FLOPS + int_ops / PEAK_INT_OPS) * 1e3
+def bound_ms(flops: float, nbytes: float, int_ops: float = 0.0,
+             peak_flops: float = PEAK_FLOPS) -> tuple[float, str]:
+    t_ops = (flops / peak_flops + int_ops / PEAK_INT_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -1097,6 +1142,351 @@ def main() -> int:
         f"(free runs {cross['FS_free_card_vs_cpu_max_leaf_err']:.3g}, the CPU against itself "
         f"{cross['FS_cpu_self_divergence_1e-6_start']:.3g})")
 
+    # ---- 11. K11 ------------------------------------------------------------
+    from repro_torch.kernels import flash_attention as fa
+
+    t_phase = time.perf_counter()
+
+    def bf16_ulp(x):
+        """Spacing of bf16 numbers at |x| (8 significant bits)."""
+        return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0**-126))) - 7)
+
+    def k11_inputs(b, h, kv, s, d, dv, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv)))
+
+    def k11_check(q, k, v, out, causal, window, what):
+        """fp32: atol 2e-5; bf16: one bf16 ULP of the plain output plus the
+        fp32 atol (an output near zero is a sum with cancellation: the fp32
+        sums of kernel and plain differ by up to ~1e-6 there, more than a
+        bf16 ULP of the result), and at most 3e-2 of max(1, max|plain|) (the
+        model's activations reach tens, where a bf16 ULP is 0.125);
+        non-finite positions equal."""
+        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(out), test(plain)):
+                raise AssertionError(f"K11 {what}: non-finite positions differ from plain")
+        ok = torch.isfinite(plain)
+        err = (out.float() - plain.float()).abs()[ok]
+        worst = float(err.max()) if err.numel() else 0.0
+        if q.dtype == torch.float32:
+            if not worst <= K11_F32_ATOL:
+                raise AssertionError(f"K11 {what}: max abs err {worst} > {K11_F32_ATOL}")
+            return worst
+        if not bool((err <= bf16_ulp(plain)[ok] + K11_F32_ATOL).all()):
+            raise AssertionError(f"K11 {what}: beyond one bf16 ULP of plain + {K11_F32_ATOL}")
+        cap = K11_BF16_ATOL * max(1.0, float(plain.float()[ok].abs().max()))
+        if not worst <= cap:
+            raise AssertionError(f"K11 {what}: max abs err {worst} > {cap}")
+        return worst
+
+    k11_err = {"float32": 0.0, "bfloat16": 0.0}
+    for b, h, kv, s, d, dv, dt, causal, window in K11_CHECK:
+        q, k, v = k11_inputs(b, h, kv, s, d, dv, getattr(torch, dt), b * h * s + d + window)
+        what = f"({b}, {h}, {kv}, {s}, {d}, {dv}) {dt} causal={causal} window={window}"
+        k11_err[dt] = max(k11_err[dt], k11_check(
+            q, k, v, fa.flash_attention(q, k, v, causal=causal, window=window), causal, window,
+            what))
+    del q, k, v
+    log(f"[K11] {len(K11_CHECK)} shapes: fp32 within {K11_F32_ATOL} (max abs err "
+        f"{k11_err['float32']:.3g}), bf16 within one bf16 ULP of plain + {K11_F32_ATOL} (max "
+        f"abs err "
+        f"{k11_err['bfloat16']:.3g}), non-finite positions equal")
+
+    def causal_pairs(s, window=0):
+        """(query, key) pairs the causal (and window) mask keeps."""
+        return sum(min(i + 1, window) if window else i + 1 for i in range(s))
+
+    k11 = {}
+    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128):
+        nbytes = (b * h * s * (d + dv) + b * kv * s * (d + dv)) * 2
+        copies = [k11_inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
+                  for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
+        turn = itertools.cycle(copies)
+        b_ms, b_by = bound_ms(2 * b * h * causal_pairs(s) * (d + dv), nbytes,
+                              peak_flops=PEAK_BF16_FLOPS)
+        kt = timed(torch, lambda: fa.flash_attention(*next(turn)), 20)
+        pt = timed(torch, lambda: fa.flash_attention_plain(*next(turn)), 5)
+        lt = timed(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            *next(turn), is_causal=True, enable_gqa=True), 20)
+        del copies, turn
+        k11[(b, h, kv, s, d, dv)] = dict(
+            ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"], plain_ms=pt["ms"],
+            library_ms=lt["ms"], bound_ms=b_ms, bound_by=b_by,
+            tflops=2 * b * h * causal_pairs(s) * (d + dv) / kt["ms"] / 1e9)
+        log(f"[K11] ({b}, {h}, {kv}, {s}, {d}) bf16 causal: kernel {kt['ms']:.4f} ms (host "
+            f"{kt['host_ms']:.4f} ms a call, queued {kt['queued']}, "
+            f"{k11[(b, h, kv, s, d, dv)]['tflops']:.2f} TFLOP/s), plain {pt['ms']:.4f} ms, "
+            f"scaled_dot_product_attention {lt['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+            f"bf16 tensor cores)")
+    report["K11"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:69", max_abs_err=max(k11_err.values()),
+        max_abs_err_by_dtype=k11_err,
+        tolerance=f"fp32 atol {K11_F32_ATOL}; bf16 one bf16 ULP of plain + {K11_F32_ATOL}, "
+                  f"at most {K11_BF16_ATOL} x max(1, max|plain|); equal non-finite positions",
+        shape=f"{K11_SERVE} bf16 causal", bound_peak="989 TFLOP/s bf16; 3.35 TB/s",
+        library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        **k11[K11_SERVE], hd128=dict(shape=f"{K11_HD128} bf16 causal", **k11[K11_HD128]),
+    )
+    torch.cuda.synchronize()
+    report["K11"]["phase_s"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+
+    # ---- 12. the LM serve path through serve.generate ---------------------
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+    from repro_torch.models import blocks as B
+    from repro_torch.models.layers import embed
+    from repro_torch.models.model import layer_slice
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    # the first K11 launch on the main path is kept and held against the
+    # plain version after the run; the count stays the wrapper's own
+    k11_seen = []
+    k11_launch = fa.flash_attention
+
+    def recording_flash_attention(q, k, v, *, causal=True, window=0):
+        out = k11_launch(q, k, v, causal=causal, window=window)
+        if q.is_cuda and not k11_seen:
+            k11_seen.append((tuple(pinned(t) for t in (q, k, v, out)), causal, window))
+        return out
+
+    def lm_prompts(batch, s, vocab):
+        return torch.randint(0, vocab, (batch, s), generator=torch.Generator().manual_seed(SEED))
+
+    fa.flash_attention = recording_flash_attention
+    lm_cfg = get_config(LM_ARCH)
+    lm = LM(lm_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    prompts = lm_prompts(L_BATCH, L_PROMPT, lm_cfg.vocab_size).to(dev)
+    lm_runs = {}
+    for tag in ("first", "warm"):
+        fa.LAUNCHES["flash_attention"] = 0
+        res = serve.generate(lm, params, prompts, L_GEN)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        if launches != lm_cfg.n_layers:
+            raise AssertionError(f"run L ({tag}): K11 launched {launches} times, not once per "
+                                 f"layer ({lm_cfg.n_layers})")
+        toks = res["tokens"]
+        if tuple(toks.shape) != (L_BATCH, L_GEN) or not bool(
+                ((toks >= 0) & (toks < lm_cfg.vocab_size)).all()):
+            raise AssertionError(f"run L ({tag}): tokens {tuple(toks.shape)} outside the vocab")
+        if not all(bool(torch.isfinite(lg).all()) for lg in res["logits"]):
+            raise AssertionError(f"run L ({tag}): non-finite logits")
+        decode_s = sum(res["step_ms"]) / 1e3
+        lm_runs[tag] = dict(
+            prefill_s=res["prefill_s"], prefill_tokens_per_s=L_BATCH * L_PROMPT / res["prefill_s"],
+            decode_step_ms_p50=float(np.percentile(res["step_ms"], 50)),
+            decode_step_ms_p99=float(np.percentile(res["step_ms"], 99)),
+            decode_tokens_per_s=L_BATCH * (L_GEN - 1) / decode_s, k11_launches=launches,
+            sample=toks[0, :8].tolist())
+    peak = torch.cuda.max_memory_allocated() - base
+    # the card's own time for a warm prefill and a decode step, queued behind
+    # a device-side sleep (the host's enqueue time apart): against the host
+    # clock's step time this gives the device's idle share
+    _, cache = lm.prefill(params, {"tokens": prompts})
+    cache = serve.grow_cache(cache, L_GEN)
+    tok = prompts[:, -1:]
+    pf = timed(torch, lambda: lm.prefill(params, {"tokens": prompts}), 3)
+    dc = timed(torch, lambda: lm.decode_step(params, cache, {"tokens": tok}, L_PROMPT), 10)
+
+    class OpCount(TorchDispatchMode):
+        """Counts the aten ops a call dispatches (views included)."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with OpCount() as ops_decode:
+        lm.decode_step(params, cache, {"tokens": tok}, L_PROMPT)
+    with OpCount() as ops_prefill:
+        lm.prefill(params, {"tokens": prompts})
+    del cache
+    lm_device = dict(prefill_device_ms=pf["ms"], prefill_host_ms=pf["host_ms"],
+                     prefill_queued=pf["queued"], decode_step_device_ms=dc["ms"],
+                     decode_step_host_ms=dc["host_ms"], decode_step_queued=dc["queued"],
+                     aten_ops_decode_step=ops_decode.n, aten_ops_prefill=ops_prefill.n)
+    (q, k, v, out), causal, window = k11_seen[0]
+    q, k, v, out = (t.to(dev) for t in (q, k, v, out))
+    first_err = k11_check(q, k, v, out, causal, window, f"run L first launch {tuple(q.shape)}")
+    del q, k, v, out, params, res, prompts
+    k11_seen.clear()
+    runs["L"] = dict(arch=LM_ARCH, dtype="bfloat16", n_layers=lm_cfg.n_layers, batch=L_BATCH,
+                     prompt_len=L_PROMPT, gen=L_GEN, param_count=lm.param_count(),
+                     param_bytes=param_bytes, init_s=init_s, peak_bytes=int(peak),
+                     k11_first_launch_max_abs_err=first_err, **lm_device, **{
+                         f"{k}_{tag}": v for tag, r in lm_runs.items() for k, v in r.items()})
+    w = lm_runs["warm"]
+    log(f"[run L] {LM_ARCH} bf16, {lm_cfg.n_layers} layers, {lm.param_count()} parameters, batch "
+        f"{L_BATCH} x {L_PROMPT} prompt, {L_GEN} tokens: prefill "
+        f"{lm_runs['first']['prefill_s']:.4f} s first, {w['prefill_s']:.4f} s warm "
+        f"({w['prefill_tokens_per_s']:.1f} tokens/s); decode step p50 "
+        f"{w['decode_step_ms_p50']:.3f} ms p99 {w['decode_step_ms_p99']:.3f} ms "
+        f"({w['decode_tokens_per_s']:.1f} tokens/s); K11 {lm_cfg.n_layers} launches a prefill, "
+        f"the first within tolerance of plain ({first_err:.3g}); peak {peak / 2**30:.2f} GiB above"
+        f" the start; init {init_s:.2f} s; on the card a prefill takes "
+        f"{pf['ms']:.3f} ms (host enqueue {pf['host_ms']:.3f} ms, queued {pf['queued']}) and a "
+        f"decode step {dc['ms']:.3f} ms (host enqueue {dc['host_ms']:.3f} ms, queued "
+        f"{dc['queued']}); aten ops dispatched: {ops_prefill.n} a prefill, {ops_decode.n} a "
+        f"decode step")
+    torch.cuda.synchronize()
+
+    # LC: the same model at fp32, card against CPU from the same weights.  At
+    # full depth the random-init stack is chaotic: activations reach ~1000 and
+    # a 1e-7 relative perturbation of the weights moves the CPU's own logits
+    # by O(max|logit|).  So the gate is layer by layer, as FS's is round by
+    # round: every block runs on the card and the CPU from the CPU's input
+    # (and, decoding, the CPU's cache), and each output, each K/V cache entry
+    # and the logits agree within 1e-3 x max(1, max|x|).  The free runs
+    # through serve.generate are reported beside the CPU's own divergence
+    # under that perturbation.
+    lc_cfg = replace(lm_cfg, dtype=torch.float32)
+    lc = LM(lc_cfg)
+    params_cpu = lc.init(SEED, device="cpu")
+    params_card = tree_map(lambda t: t.to(dev), params_cpu)
+    prompts = lm_prompts(LC_BATCH, LC_PROMPT, lc_cfg.vocab_size)
+    fa.LAUNCHES["flash_attention"] = 0
+    res_c = serve.generate(lc, params_card, prompts.to(dev), LC_GEN)
+    torch.cuda.synchronize()
+    lc_launches = fa.LAUNCHES["flash_attention"]
+    if lc_launches != lc_cfg.n_layers:
+        raise AssertionError(f"run LC: K11 launched {lc_launches} times")
+    t0 = time.perf_counter()
+    res_p = serve.generate(lc, params_cpu, prompts, LC_GEN)
+    cpu_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(SEED)
+    nudged = tree_map(lambda t: t * (1 + 1e-7 * torch.randn(t.shape, generator=g)), params_cpu)
+    res_n = serve.generate(lc, nudged, prompts, LC_GEN)
+    del nudged
+
+    def rel_err(a, b):  # |a - b| over max(1, max|b|), b the CPU's
+        return float((a.cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    lc_run = dict(
+        free_card_vs_cpu=max(rel_err(a, b) for a, b in zip(res_c["logits"], res_p["logits"])),
+        free_cpu_vs_cpu_1e7_weights=max(rel_err(a, b) for a, b in zip(res_n["logits"],
+                                                                      res_p["logits"])))
+    del res_n
+    worst = {"prefill_layers": 0.0, "prefill_cache": 0.0, "prefill_logits": 0.0,
+             "decode_layers": 0.0, "decode_logits": 0.0}
+    x = embed(params_cpu["embedding"], prompts)
+    pos = torch.arange(LC_PROMPT)
+    ks, vs = [], []
+    for i in range(lc_cfg.n_layers):
+        y, _, kv = B.decoder_block_forward(layer_slice(params_cpu["blocks"], i), x, pos, lc_cfg,
+                                           collect_cache=True)
+        y_g, _, kv_g = B.decoder_block_forward(layer_slice(params_card["blocks"], i), x.to(dev),
+                                               pos.to(dev), lc_cfg, collect_cache=True)
+        worst["prefill_layers"] = max(worst["prefill_layers"], rel_err(y_g, y))
+        worst["prefill_cache"] = max(worst["prefill_cache"], rel_err(kv_g["k"], kv["k"]),
+                                     rel_err(kv_g["v"], kv["v"]))
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+        x = y
+    logits = lc._last_logits(params_cpu, x)
+    logits_g = lc._last_logits(params_card, x.to(dev))
+    worst["prefill_logits"] = rel_err(logits_g, logits)
+    cache = serve.grow_cache({"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}, LC_GEN)
+    del ks, vs
+    ties = 0
+    for step in range(LC_GEN):
+        if step:  # decode the CPU's pick of the step before, layer by layer
+            x = embed(params_cpu["embedding"], picks[:, None])
+            t = LC_PROMPT + step - 1
+            for i in range(lc_cfg.n_layers):
+                layer = layer_slice(cache["layers"], i)
+                on_card = {k: c.to(dev) for k, c in layer.items()}
+                y_g, _ = B.decoder_block_decode(layer_slice(params_card["blocks"], i), x.to(dev),
+                                                on_card, t, lc_cfg)
+                y, _ = B.decoder_block_decode(layer_slice(params_cpu["blocks"], i), x, layer, t,
+                                              lc_cfg)
+                worst["decode_layers"] = max(worst["decode_layers"], rel_err(y_g, y))
+                x = y
+            logits = lc._decode_logits(params_cpu, x)
+            logits_g = lc._decode_logits(params_card, x.to(dev))
+            worst["decode_logits"] = max(worst["decode_logits"], rel_err(logits_g, logits))
+        tol = LC_RTOL * max(1.0, float(logits.abs().max()))
+        top2 = torch.topk(logits[:, :lc_cfg.vocab_size], 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        ties += int((~clear).sum())
+        picks = torch.argmax(logits[:, :lc_cfg.vocab_size], dim=-1)
+        picks_g = torch.argmax(logits_g[:, :lc_cfg.vocab_size], dim=-1).cpu()
+        if not torch.equal(picks[clear], picks_g[clear]):
+            raise AssertionError(f"run LC step {step}: greedy picks differ where the CPU's "
+                                 f"top-two gap exceeds {tol}")
+    lc_run.update(worst, near_ties=ties, cpu_s=cpu_s, k11_launches=lc_launches,
+                  batch=LC_BATCH, prompt_len=LC_PROMPT, gen=LC_GEN)
+    if not max(worst.values()) <= LC_RTOL:
+        raise AssertionError(f"run LC: card and CPU differ layer by layer: {worst} > {LC_RTOL}")
+    runs["LC"] = lc_run
+    log(f"[run LC] fp32, card vs CPU layer by layer from the CPU's state, of max(1, max|x|): "
+        f"{worst}; greedy picks equal ({ties} near-ties exempt). Free runs: card vs CPU "
+        f"{lc_run['free_card_vs_cpu']:.3g}, the CPU against itself under 1e-7 weight noise "
+        f"{lc_run['free_cpu_vs_cpu_1e7_weights']:.3g}; CPU generate {cpu_s:.1f} s")
+
+    # LH: the prefill -> decode handoff on the card (tests/test_models.py:141-161),
+    # layer by layer for the reason above: each block's prefill over LC_PROMPT
+    # tokens and its LH_EXTRA decode steps from the collected (grown) cache
+    # against the same block's forward over all of them, from forward's input
+    toks = lm_prompts(LC_BATCH, LC_PROMPT + LH_EXTRA, lc_cfg.vocab_size).to(dev)
+    fa.LAUNCHES["flash_attention"] = 0
+    x = embed(params_card["embedding"], toks)
+    full_pos = torch.arange(LC_PROMPT + LH_EXTRA, device=dev)
+    lh = {"prefill": 0.0, "decode": 0.0}
+    for i in range(lc_cfg.n_layers):
+        lp = layer_slice(params_card["blocks"], i)
+        y, _ = B.decoder_block_forward(lp, x, full_pos, lc_cfg)
+        y_p, _, kv = B.decoder_block_forward(lp, x[:, :LC_PROMPT], full_pos[:LC_PROMPT], lc_cfg,
+                                             collect_cache=True)
+        scale = max(1.0, float(y.abs().max()))
+        lh["prefill"] = max(lh["prefill"],
+                            float((y_p - y[:, :LC_PROMPT]).abs().max()) / scale)
+        # room for the decode steps on this layer's (b, s, kv, hd) cache
+        kv = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, LH_EXTRA)) for k, c in kv.items()}
+        for t in range(LC_PROMPT, LC_PROMPT + LH_EXTRA):
+            y_t, kv = B.decoder_block_decode(lp, x[:, t:t + 1], kv, t, lc_cfg)
+            lh["decode"] = max(lh["decode"], float((y_t - y[:, t:t + 1]).abs().max()) / scale)
+        x = y
+    torch.cuda.synchronize()
+    lh["k11_launches"] = fa.LAUNCHES["flash_attention"]
+    if not (lh["prefill"] <= LH_PREFILL_RTOL and lh["decode"] <= LH_DECODE_RTOL):
+        raise AssertionError(f"run LH: prefill {lh['prefill']} (limit {LH_PREFILL_RTOL}), "
+                             f"decode {lh['decode']} (limit {LH_DECODE_RTOL})")
+    runs["LH"] = lh
+    log(f"[run LH] fp32, each block's prefill of {LC_PROMPT} + {LH_EXTRA} decode steps against "
+        f"its forward over {LC_PROMPT + LH_EXTRA}: prefill {lh['prefill']:.3g}, decode "
+        f"{lh['decode']:.3g} of max(1, max|x|)")
+    del params_cpu, params_card, res_c, res_p, cache, x, y
+    fa.flash_attention = k11_launch
+    report["K11"]["launches"] = runs["L"]["k11_launches_first"]
+    report["K11"]["launches_by_run"] = {"L_first": runs["L"]["k11_launches_first"],
+                                        "L_warm": runs["L"]["k11_launches_warm"],
+                                        "LC": lc_launches, "LH": lh["k11_launches"]}
+    report["K11"]["first_launch_max_abs_err"] = first_err
+    torch.cuda.synchronize()
+    runs["L"]["phase_12_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 11 (K11) {report['K11']['phase_s']:.1f} s, phase 12 (L, LC, LH) "
+        f"{runs['L']['phase_12_s']:.1f} s")
+
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     report["K4"]["launches"] = sum(la[t]["prng"]["fused_omega"] for t in la)
     report["K1"]["launches"] = sum(la[t]["rff"]["rff"] for t in la)
@@ -1111,7 +1501,7 @@ def main() -> int:
         report[key]["launches_by_run"] = {t: runs[t][field] for t in trained if runs[t][field]}
         report[key]["launches"] = sum(report[key]["launches_by_run"].values())
     kernels = [dict(id=k, **report[k])
-               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")]
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11")]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['id']} was not launched on the main path")

@@ -1,5 +1,6 @@
 """Carry reference states into the port: an ``RFTCAState`` (and its fit
-statistics), and the FedRF-TCA client parameters of a trainer.
+statistics), the FedRF-TCA client parameters of a trainer, and the LM
+backbone's parameter tree.
 
 The reference's fields arrive as numpy arrays (or ``None`` and plain
 tuples); nothing of the reference package is imported here.  With these, a
@@ -85,3 +86,28 @@ def load_reference_params(trainer, tree) -> None:
     else:
         trainer.src_params = clients
         trainer.src_opt = [trainer.opt.init(p) for p in clients]
+
+
+def lm_params_from_reference(tree, cfg, *, device=None) -> dict:
+    """The port's ``models.LM`` parameter tree from the reference's
+    ``LM.init`` tree (nested dicts of numpy leaves), leaf for leaf, each in
+    the dtype its declaration gives (``cfg.dtype``; fp32 for the FDA head).
+
+    JAX's bf16 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch`` does
+    not read: they go through float32, and bf16 -> f32 -> bf16 is exact."""
+    from repro_torch.models import LM
+    from repro_torch.models.param import ParamDecl
+
+    dev = resolve_device(device)
+
+    def walk(decl, leaf, path):
+        if isinstance(decl, ParamDecl):
+            arr = np.asarray(leaf).astype(np.float32)
+            if arr.shape != decl.shape:
+                raise ValueError(f"{path}: reference shape {arr.shape}, port {decl.shape}")
+            return torch.from_numpy(arr).to(device=dev, dtype=decl.dtype)
+        if set(decl) != set(leaf):
+            raise ValueError(f"{path}: reference keys {sorted(leaf)}, port {sorted(decl)}")
+        return {k: walk(decl[k], leaf[k], f"{path}.{k}") for k in decl}
+
+    return walk(LM(cfg).decls(), tree, "params")

@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels.
 
-Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8) and the fleet's
-segment reduce (K9).  Each wrapper
+Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8), the fleet's
+segment reduce (K9) and the backbone's attention (K11).  Each wrapper
 launches its CUDA kernel on CUDA tensors and runs the plain version on CPU
 tensors.  The CUDA kernels mask their ragged edges themselves (rows past N,
 columns past n, k past p), so no operand is padded here; the reference's
@@ -19,6 +19,7 @@ from repro_torch.core.kernels_math import (
     assemble_streamed_gram_ensemble,
 )
 from repro_torch.kernels import centered_gram as _centered
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import rff as _rff
 from repro_torch.kernels import rff_gram_stream as _gram
 from repro_torch.kernels import segment_reduce as _segment
@@ -80,3 +81,11 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, weights: torch.T
     values (K, D), seg_ids (K,) ints in [0, n_segments), weights (K,) ->
     (n_segments, D) fp32.  No padding: the kernel masks its ragged edges."""
     return _segment.segment_reduce(values, seg_ids, weights, n_segments)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """(b, h, s, d) x (b, kv, s, d) x (b, kv, s, dv) -> (b, h, s, dv).  The
+    reference's ``block_q``/``block_k`` (TPU tiles) have no counterpart: the
+    kernel tiles by 64 and masks any ``s``."""
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)

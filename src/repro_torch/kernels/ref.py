@@ -1,6 +1,6 @@
 """Dense plain-PyTorch oracles for the port's kernels.
 
-Port of the RF-TCA and segment-reduce oracles of ``repro.kernels.ref``.  They
+Port of the RF-TCA, segment-reduce and attention oracles of ``repro.kernels.ref``.  They
 materialize what the kernels never do (Omega, Sigma, the dense weighted
 membership) and are the ground truth of the tests.
 """
@@ -10,6 +10,10 @@ import math
 
 import torch
 
+# K11's plain version is the reference's dense masked softmax itself
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention_plain as attention_ref,
+)
 from repro_torch.kernels.prng import fused_omega_block_plain
 # K9's plain version is the reference's dense weighted-membership product itself
 from repro_torch.kernels.segment_reduce import (  # noqa: F401

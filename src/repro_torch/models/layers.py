@@ -1,0 +1,92 @@
+"""Shared model primitives: RMSNorm, RoPE, GLU-MLP, embeddings.
+
+Port of ``repro.models.layers``.  Parameter trees are declared through
+:mod:`repro_torch.models.param`; activations are computed in the config
+dtype, norms and rotary angles in fp32.  The reference's ``ShardRules`` (mesh
+sharding) has no counterpart on one card, and ``cross_entropy`` waits for the
+training slice (ROADMAP queue 1, step 13b).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.param import ParamDecl
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_decl(d: int, dtype) -> dict:
+    return {"scale": ParamDecl((d,), "ones", dtype)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    h = x.to(torch.float32)
+    h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
+    return (h * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, *, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Split-half
+    rotation in fp32 (not interleaved), cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GLU MLP (SwiGLU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_decl(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "gate": ParamDecl((d, f), "normal", cfg.dtype),
+        "up": ParamDecl((d, f), "normal", cfg.dtype),
+        "down": ParamDecl((f, d), "normal", cfg.dtype),
+    }
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ params["gate"]) * (x @ params["up"])
+    return h @ params["down"]
+
+
+# ---------------------------------------------------------------------------
+# token embedding + LM head
+# ---------------------------------------------------------------------------
+
+
+def embedding_decl(cfg: ModelConfig) -> dict:
+    v, d = cfg.vocab_padded, cfg.d_model
+    return {
+        "embed": ParamDecl((v, d), "normal", cfg.dtype),
+        "unembed": ParamDecl((d, v), "normal", cfg.dtype),
+    }
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["unembed"]

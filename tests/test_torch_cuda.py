@@ -11,7 +11,9 @@ feature map (K1, K7); atol 2e-5 on G_H / max|G_H| and on u (K2/K3, K5/K6);
 atol 1e-5 on G / max|G| (K8); the fit's eigenvalues to rtol 1e-2 and its
 subspace to 1e-3; K10 bit for bit; K9 within 1e-5 * max(1, max|plain|) with
 equal non-finite positions; the trainers' parameters, card against CPU, to
-1e-4.
+1e-4; K11 within 2e-5 at fp32 and one bf16 ULP of its plain output plus
+2e-5 at bf16 (at most 3e-2), with equal non-finite positions; a two-layer LM's logits,
+card against CPU at fp32, to 1e-3 of max(1, max|logit|).
 """
 import numpy as np
 import pytest
@@ -24,10 +26,11 @@ from repro_torch.data import make_domains  # noqa: E402
 from repro_torch.federated import ClientConfig, FedRFTCATrainer, ProtocolConfig  # noqa: E402
 from repro_torch.fleet import Topology  # noqa: E402
 from repro_torch.kernels import centered_gram, ops, prng, quantize, ref, rff  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import segment_reduce  # noqa: E402
 from repro_torch.kernels import rff_gram_stream as gram  # noqa: E402
 from repro_torch.robust import FaultConfig  # noqa: E402
-from repro_torch.utils.tree import tree_leaves  # noqa: E402
+from repro_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -336,3 +339,86 @@ def test_two_tier_trainer_on_card_matches_cpu(card):
     for x, y in zip(tree_leaves((a.tgt_params, a._src_stack)),
                     tree_leaves((b.tgt_params, b._src_stack))):
         assert (x - y.cpu()).abs().max().item() < 1e-4
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 numbers at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp_min(2.0**-126)))
+    return torch.exp2(e - 7)
+
+
+K11_SHAPES = [(1, 2, 1, 128, 32, 32), (2, 4, 2, 128, 16, 16), (1, 4, 4, 256, 32, 16),
+              (2, 8, 2, 64, 64, 64), (2, 9, 3, 77, 64, 64), (1, 2, 1, 1, 64, 64),
+              (1, 4, 2, 300, 128, 128), (1, 2, 2, 130, 112, 112)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv", K11_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
+def test_flash_attention_kernel_matches_plain(card, b, h, kv, s, d, dv, dtype, causal, window):
+    g = torch.Generator(device=card).manual_seed(b * h * s + d)
+    q = torch.randn((b, h, s, d), generator=g, device=card).to(dtype)
+    k = torch.randn((b, kv, s, d), generator=g, device=card).to(dtype)
+    v = torch.randn((b, kv, s, dv), generator=g, device=card).to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert out.dtype == dtype and tuple(out.shape) == (b, h, s, dv)
+    assert torch.equal(torch.isfinite(out), torch.isfinite(plain))
+    err = (out.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-5
+    else:
+        # one bf16 ULP of plain, plus the fp32 atol: near zero an output is a
+        # sum with cancellation, whose fp32 error outgrows the result's ULP
+        assert bool((err <= _bf16_ulp(plain) + 2e-5).all()) and err.max().item() <= 3e-2
+
+
+def test_flash_attention_kernel_reads_strides_and_raises(card):
+    """The model's (b, s, h, d) activations go in as transposed views; the
+    output comes back in q's memory order."""
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((2, 100, 6, 64), generator=g, device=card)
+    k = torch.randn((2, 100, 2, 64), generator=g, device=card)
+    v = torch.randn((2, 100, 2, 64), generator=g, device=card)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    plain = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    assert out.transpose(1, 2).is_contiguous()
+    assert (out - plain).abs().max().item() <= 2e-5
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2).cpu(), v.transpose(1, 2))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2).half(), k.transpose(1, 2).half(),
+                            v.transpose(1, 2).half())
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(card):
+    """A two-layer dense LM (smollm-135m's widths) at fp32: prefill and
+    greedy decode through serve.generate on the card, and the same tokens
+    through the CPU from the same weights; K11 launches once per layer in the
+    card's prefill (s = 70: a ragged key tile)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    cfg = replace(get_config("smollm-135m"), n_layers=2, dtype=torch.float32)
+    model = LM(cfg)
+    params = model.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.to(card), params)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(0))
+    before = fa.LAUNCHES["flash_attention"]
+    res_card = serve.generate(model, on_card, prompts.to(card), 4)
+    assert fa.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    # the CPU decodes the card's tokens, so a near-tie cannot fork the runs
+    logits, cache = model.prefill(params, {"tokens": prompts})
+    cache = serve.grow_cache(cache, 4)
+    for i, a in enumerate(res_card["logits"]):
+        if i:
+            tok = res_card["tokens"][:, i - 1:i]
+            logits, cache = model.decode_step(params, cache, {"tokens": tok}, 70 + i - 1)
+        b = logits.float()
+        assert (a.cpu().float() - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())

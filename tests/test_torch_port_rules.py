@@ -245,3 +245,81 @@ def test_engine_seams_left_out_raise():
     assert get_rule("mean").is_mean and not get_rule("geomedian").is_mean
     with pytest.raises(ValueError):
         get_rule("median")
+
+
+SLICE5_MODULES = (
+    "configs/__init__.py", "configs/base.py", "configs/smollm_135m.py",
+    "configs/internlm2_1p8b.py", "models/__init__.py", "models/param.py", "models/layers.py",
+    "models/attention.py", "models/blocks.py", "models/fda_head.py", "models/model.py",
+    "kernels/flash_attention.py", "launch/__init__.py", "launch/serve.py",
+)
+
+
+def test_lm_slice_modules_are_in_the_import_guard():
+    """The serve slice's modules exist and fall under the jax/repro guard;
+    K11's kernel module falls under the no-``try`` guard (it scans every
+    module of ``kernels/``) and its CUDA source is built with the others."""
+    from repro_torch.kernels import _build
+
+    files = set(_port_files())
+    for rel in SLICE5_MODULES:
+        path = ROOT / "src" / "repro_torch" / rel
+        assert path in files, rel
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}, rel
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "flash_attention.cu").exists()
+    assert "flash_attention" in _build.SOURCES
+
+
+def test_lm_without_device_raises_without_card():
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None resolves to it")
+    model = LM(get_config("smollm-135m").reduced())
+    for call in (model.init, lambda: model.init_cache(1, 4),
+                 lambda: serve.main(["--reduced", "--batch", "1", "--prompt-len", "4",
+                                     "--gen", "2"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert model.init(0, device="cpu")["ln_f"]["scale"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch,step", [
+    ("mamba2-2.7b", "step 13e"), ("deepseek-v2-lite-16b", "step 13c"),
+    ("zamba2-7b", "step 13f"), ("qwen3-moe-235b-a22b", "step 13c"),
+    ("llama-3.2-vision-90b", "step 13g"), ("musicgen-large", "step 13h"),
+])
+def test_lm_families_outside_the_slice_raise(arch, step):
+    """Only the dense GQA family is ported; the others name their step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        with pytest.raises(NotImplementedError, match=step):
+            LM(cfg)
+
+
+def test_lm_loss_and_other_blocks_raise():
+    """Training (LM.loss) and the MoE/MLA/SSM/cross blocks wait for their steps."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM, attention, blocks
+
+    cfg = get_config("smollm-135m").reduced()
+    model = LM(cfg)
+    params = model.init(0, device="cpu")
+    toks = torch.zeros((2, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="step 13b"):
+        model.loss(params, {"tokens": toks, "labels": toks})
+    for call, step in ((lambda: blocks.decoder_block_decl(replace(cfg, n_experts=4)), "13c"),
+                       (lambda: LM(replace(cfg, kv_lora_rank=32)), "13d"),
+                       (lambda: blocks.ssm_block_decl(cfg), "13e"),
+                       (lambda: attention.cross_attn_decl(cfg), "13g"),
+                       (lambda: blocks.cross_block_decl(cfg), "13g")):
+        with pytest.raises(NotImplementedError, match=f"step {step}"):
+            call()
+    for arch in ("smollm-135m", "smollm-360m", "internlm2-1.8b", "command-r-plus-104b"):
+        assert LM(get_config(arch)).param_count() > 0
