@@ -88,15 +88,21 @@ Phases (any failed check raises, and the run exits non-zero):
             CPU from the CPU's state and must agree within 1e-4 x
             max(1, max|leaf|); the free runs' divergence is reported beside
             the CPU's own under a 1e-6 perturbation of its start;
- 11. K11 (the backbone's flash attention): at the ``K11_CHECK`` shapes
-     (tests/test_kernels.py:164-187's sweep in fp32 and bf16, window 0 and 48,
-     causal and not; ragged s = 77 and 1000; the serve run's (8, 9, 3, 2048,
-     64) and internlm2-1.8b's (1, 16, 8, 4096, 128) in bf16) within 2e-5 of
-     its plain version at fp32 and one bf16 ULP of it at bf16 (plus 2e-5:
-     near-zero outputs are sums with cancellation; at most 3e-2 of max(1,
-     max|plain|)), non-finite
-     positions equal; timed like K10 at the serve shape and at hd
-     128, beside its plain version and scaled_dot_product_attention;
+ 11. K11 (the backbone's flash attention): the ptxas line of each of its
+     kernels (registers, spills) and the count of HGMMA (wgmma) instructions
+     in its SASS (``cuobjdump -sass``: the bf16 path runs on the tensor
+     cores); at the ``K11_CHECK`` shapes (tests/test_kernels.py:164-187's
+     sweep in fp32 and bf16, window 0 and 48, causal and not; ragged s = 77
+     and 1000; MLA's d 192 / dv 128, d 320 / dv 288 (dv over the grid), d 20
+     (rows TMA cannot load) and d 640 (q and K streamed in d-chunks) in both
+     dtypes; v at the model's scale (x 60) in bf16; the serve run's (8, 9,
+     3, 2048, 64) and internlm2-1.8b's (1, 16, 8, 4096, 128) in bf16) within
+     2e-5 of its plain version at fp32 and one bf16 ULP of it at bf16 (plus
+     2e-5: near-zero outputs are sums with cancellation; at most 3e-2 of
+     max(1, max|plain|)), non-finite positions equal; timed like K10 at the
+     serve shape, at hd 128 and at deepseek-v2-lite's MLA prefill (1, 16,
+     16, 4096, 192, 128), beside its plain version and
+     scaled_dot_product_attention;
  12. the LM serve path through ``repro_torch.launch.serve.generate``, K11's
      launch count zeroed just before and read just after each run:
        L    smollm-135m (src/repro/configs/smollm_135m.py: 30 layers, d_model
@@ -104,7 +110,9 @@ Phases (any failed check raises, and the run exits non-zero):
             weights from ``LM.init(0)``, batch 8, 2048-token prompts (SmolLM's
             context length), 32 tokens, twice (first and warm): K11 once per
             layer per prefill, the first launch held against plain after the
-            run, tokens in the vocab and logits finite;
+            run (the K11_CHECK gate, unless the float64 exact answer fails
+            it too: then no farther from the exact answer than plain),
+            tokens in the vocab and logits finite;
        LC   the same model at fp32, batch 2, 128-token prompts, 8 tokens, on
             the card and, feeding the card's tokens, on the CPU from the same
             weights: every step's logits within 1e-3 x max(1, max|logit|), and
@@ -171,9 +179,19 @@ K11_SWEEP = ((1, 2, 1, 128, 32, 32), (2, 4, 2, 128, 16, 16), (1, 4, 4, 256, 32, 
 LM_ARCH, L_BATCH, L_PROMPT, L_GEN = "smollm-135m", 8, 2048, 32  # SmolLM's context: 2048
 K11_SERVE = (L_BATCH, 9, 3, L_PROMPT, 64, 64)  # smollm-135m: 9 heads, 3 KV heads, hd 64
 K11_HD128 = (1, 16, 8, 4096, 128, 128)
+# deepseek-v2-lite's MLA prefill (src/repro/configs/deepseek_v2_lite_16b.py:
+# 16 heads, d = 128 + 64 rope, dv 128; src/repro/models/attention.py:248-261)
+K11_MLA = (1, 16, 16, 4096, 192, 128)
+# head widths past the FFMA tile: MLA's, d past one fp32 chunk with dv over
+# the grid, rows TMA cannot load (40 bytes), d streamed through the bf16 ring
+K11_WIDE = ((1, 4, 4, 256, 192, 128), (1, 2, 1, 100, 320, 288), (1, 2, 1, 100, 20, 12),
+            (1, 2, 1, 200, 640, 64))
+# v at the scale of smollm-135m's prefill activations (|v| ~ 60), bf16 causal
+K11_LARGE_V, K11_V_SCALE = ((2, 4, 2, 512, 64, 64), (1, 4, 2, 256, 128, 128)), 60.0
 K11_CHECK = tuple(
-    (*shape, dtype, causal, window) for shape in K11_SWEEP for dtype in ("float32", "bfloat16")
-    for causal in (True, False) for window in (0, 48)) + tuple(
+    (*shape, dtype, causal, window) for shape in K11_SWEEP + K11_WIDE
+    for dtype in ("float32", "bfloat16") for causal in (True, False)
+    for window in (0, 48)) + tuple(
     (*shape, dtype, True, window) for shape in ((2, 9, 3, 77, 64, 64), (1, 9, 3, 1000, 64, 64))
     for dtype in ("float32", "bfloat16") for window in (0, 48)) + (
     (*K11_SERVE, "bfloat16", True, 0), (*K11_HD128, "bfloat16", True, 0))
@@ -1146,6 +1164,20 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
 
     t_phase = time.perf_counter()
+    k11_ptxas = []
+    for line in _build.ptxas_log.get("flash_attention", "").splitlines():
+        if "Compiling entry function" in line:
+            k11_ptxas.append(line.split("'")[1])
+        elif k11_ptxas and ("spill" in line or "registers" in line):
+            k11_ptxas[-1] += " | " + line.split(":", 1)[-1].strip()
+    for line in k11_ptxas:
+        log(f"[K11] ptxas {line}")
+    if not k11_ptxas or any("0 bytes spill stores" not in line for line in k11_ptxas):
+        log("[K11] a kernel spills (or no ptxas log: the library was built before this run)")
+    hgmma = sum("HGMMA" in line for line in _build.sass("flash_attention").splitlines())
+    log(f"[K11] {hgmma} HGMMA instructions in the SASS of the flash_attention library")
+    if hgmma == 0:
+        raise AssertionError("K11: no HGMMA in the SASS: the bf16 path is not on wgmma")
 
     def bf16_ulp(x):
         """Spacing of bf16 numbers at |x| (8 significant bits)."""
@@ -1181,6 +1213,65 @@ def main() -> int:
             raise AssertionError(f"K11 {what}: max abs err {worst} > {cap}")
         return worst
 
+    def exact_attention(q, k, v, causal, window):
+        """The plain version's math in float64, one batch row at a time."""
+        s, g = q.shape[2], q.shape[1] // k.shape[1]
+        i = torch.arange(s, device=q.device)[:, None]
+        j = torch.arange(s, device=q.device)[None, :]
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= i >= j
+        if window:
+            keep &= (i - j) < window
+        rows = []
+        for bi in range(q.shape[0]):
+            sc = torch.einsum("hqd,hkd->hqk", q[bi].double(),
+                              k[bi].double().repeat_interleave(g, 0)) / q.shape[-1] ** 0.5
+            sc = torch.where(keep, sc, torch.full_like(sc, fa.NEG_INF))
+            rows.append(torch.einsum("hqk,hkd->hqd", torch.softmax(sc, -1),
+                                     v[bi].double().repeat_interleave(g, 0)))
+            del sc
+        return torch.stack(rows)
+
+    def k11_check_model(q, k, v, out, causal, window, what):
+        """A launch on the model's activations: the K11_CHECK gate against the
+        plain version, unless the exact (float64) answer, rounded to bf16,
+        itself fails that gate.  Such outputs cancel (|o| << |v|) beyond what
+        fp32 scores resolve, so the gate then holds only an implementation
+        that rounds as the plain version does; the kernel is instead held to
+        be no farther from the exact answer than the plain version, in the
+        gate's units (one bf16 ULP of the exact answer plus 2e-5), at its
+        worst position.  Non-finite positions and the 3e-2 cap as always."""
+        plain = fa.flash_attention_plain(q, k, v, causal=causal, window=window)
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            if not torch.equal(test(out), test(plain)):
+                raise AssertionError(f"K11 {what}: non-finite positions differ from plain")
+        ok = torch.isfinite(plain)
+        err = (out.float() - plain.float()).abs()[ok]
+        res = dict(max_abs_err=float(err.max()) if err.numel() else 0.0)
+        cap = K11_BF16_ATOL * max(1.0, float(plain.float()[ok].abs().max()))
+        if not res["max_abs_err"] <= cap:
+            raise AssertionError(f"K11 {what}: max abs err {res['max_abs_err']} > {cap}")
+        res["kernel_vs_plain_gate_units"] = float(
+            (err / (bf16_ulp(plain)[ok] + K11_F32_ATOL)).max())
+        if res["kernel_vs_plain_gate_units"] <= 1.0:
+            return res
+        exact = exact_attention(q, k, v, causal, window)
+        res["exact_vs_plain_gate_units"] = float(
+            ((exact.to(torch.bfloat16).float() - plain.float()).abs()[ok]
+             / (bf16_ulp(plain)[ok] + K11_F32_ATOL)).max())
+        if res["exact_vs_plain_gate_units"] <= 1.0:
+            raise AssertionError(f"K11 {what}: beyond one bf16 ULP of plain + {K11_F32_ATOL} "
+                                 f"({res['kernel_vs_plain_gate_units']:.3g}), where the exact "
+                                 f"answer is within it")
+        unit = (bf16_ulp(exact) + K11_F32_ATOL)[ok]
+        res["kernel_vs_exact_gate_units"] = float(((out.double() - exact).abs()[ok] / unit).max())
+        res["plain_vs_exact_gate_units"] = float(((plain.double() - exact).abs()[ok] / unit).max())
+        del exact
+        if not res["kernel_vs_exact_gate_units"] <= res["plain_vs_exact_gate_units"]:
+            raise AssertionError(f"K11 {what}: farther from the exact answer than plain ({res})")
+        return res
+
     k11_err = {"float32": 0.0, "bfloat16": 0.0}
     for b, h, kv, s, d, dv, dt, causal, window in K11_CHECK:
         q, k, v = k11_inputs(b, h, kv, s, d, dv, getattr(torch, dt), b * h * s + d + window)
@@ -1188,8 +1279,15 @@ def main() -> int:
         k11_err[dt] = max(k11_err[dt], k11_check(
             q, k, v, fa.flash_attention(q, k, v, causal=causal, window=window), causal, window,
             what))
+    for b, h, kv, s, d, dv in K11_LARGE_V:
+        q, k, v = k11_inputs(b, h, kv, s, d, dv, torch.bfloat16, b * h * s + d)
+        v = (v.float() * K11_V_SCALE).to(torch.bfloat16)
+        k11_err["bfloat16"] = max(k11_err["bfloat16"], k11_check(
+            q, k, v, fa.flash_attention(q, k, v), True, 0,
+            f"({b}, {h}, {kv}, {s}, {d}, {dv}) bf16 causal, v x {K11_V_SCALE}"))
     del q, k, v
-    log(f"[K11] {len(K11_CHECK)} shapes: fp32 within {K11_F32_ATOL} (max abs err "
+    log(f"[K11] {len(K11_CHECK) + len(K11_LARGE_V)} shapes (v x {K11_V_SCALE} at "
+        f"{K11_LARGE_V}): fp32 within {K11_F32_ATOL} (max abs err "
         f"{k11_err['float32']:.3g}), bf16 within one bf16 ULP of plain + {K11_F32_ATOL} (max "
         f"abs err "
         f"{k11_err['bfloat16']:.3g}), non-finite positions equal")
@@ -1199,7 +1297,7 @@ def main() -> int:
         return sum(min(i + 1, window) if window else i + 1 for i in range(s))
 
     k11 = {}
-    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128):
+    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128, K11_MLA):
         nbytes = (b * h * s * (d + dv) + b * kv * s * (d + dv)) * 2
         copies = [k11_inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
                   for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
@@ -1214,12 +1312,13 @@ def main() -> int:
         k11[(b, h, kv, s, d, dv)] = dict(
             ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"], plain_ms=pt["ms"],
             library_ms=lt["ms"], bound_ms=b_ms, bound_by=b_by,
-            tflops=2 * b * h * causal_pairs(s) * (d + dv) / kt["ms"] / 1e9)
-        log(f"[K11] ({b}, {h}, {kv}, {s}, {d}) bf16 causal: kernel {kt['ms']:.4f} ms (host "
+            tflops=2 * b * h * causal_pairs(s) * (d + dv) / kt["ms"] / 1e9,
+            plan=fa.bf16_plan(b, h, kv, s, d, dv))
+        log(f"[K11] ({b}, {h}, {kv}, {s}, {d}, {dv}) bf16 causal: kernel {kt['ms']:.4f} ms (host "
             f"{kt['host_ms']:.4f} ms a call, queued {kt['queued']}, "
             f"{k11[(b, h, kv, s, d, dv)]['tflops']:.2f} TFLOP/s), plain {pt['ms']:.4f} ms, "
             f"scaled_dot_product_attention {lt['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
-            f"bf16 tensor cores)")
+            f"bf16 tensor cores); plan {k11[(b, h, kv, s, d, dv)]['plan']}")
     report["K11"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1231,6 +1330,8 @@ def main() -> int:
         library="torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
         **k11[K11_SERVE], hd128=dict(shape=f"{K11_HD128} bf16 causal", **k11[K11_HD128]),
+        mla=dict(shape=f"{K11_MLA} bf16 causal", **k11[K11_MLA]),
+        ptxas=k11_ptxas, hgmma=hgmma,
     )
     torch.cuda.synchronize()
     report["K11"]["phase_s"] = time.perf_counter() - t_phase
@@ -1327,7 +1428,9 @@ def main() -> int:
                      aten_ops_decode_step=ops_decode.n, aten_ops_prefill=ops_prefill.n)
     (q, k, v, out), causal, window = k11_seen[0]
     q, k, v, out = (t.to(dev) for t in (q, k, v, out))
-    first_err = k11_check(q, k, v, out, causal, window, f"run L first launch {tuple(q.shape)}")
+    first_gate = k11_check_model(q, k, v, out, causal, window,
+                                 f"run L first launch {tuple(q.shape)}")
+    first_err = first_gate["max_abs_err"]
     del q, k, v, out, params, res, prompts
     k11_seen.clear()
     runs["L"] = dict(arch=LM_ARCH, dtype="bfloat16", n_layers=lm_cfg.n_layers, batch=L_BATCH,
@@ -1342,7 +1445,9 @@ def main() -> int:
         f"({w['prefill_tokens_per_s']:.1f} tokens/s); decode step p50 "
         f"{w['decode_step_ms_p50']:.3f} ms p99 {w['decode_step_ms_p99']:.3f} ms "
         f"({w['decode_tokens_per_s']:.1f} tokens/s); K11 {lm_cfg.n_layers} launches a prefill, "
-        f"the first within tolerance of plain ({first_err:.3g}); peak {peak / 2**30:.2f} GiB above"
+        f"the first within tolerance ({first_err:.3g} from plain; in gate units "
+        f"{ {k: round(x, 3) for k, x in first_gate.items() if k.endswith('units')} }); peak "
+        f"{peak / 2**30:.2f} GiB above"
         f" the start; init {init_s:.2f} s; on the card a prefill takes "
         f"{pf['ms']:.3f} ms (host enqueue {pf['host_ms']:.3f} ms, queued {pf['queued']}) and a "
         f"decode step {dc['ms']:.3f} ms (host enqueue {dc['host_ms']:.3f} ms, queued "
@@ -1482,6 +1587,7 @@ def main() -> int:
                                         "L_warm": runs["L"]["k11_launches_warm"],
                                         "LC": lc_launches, "LH": lh["k11_launches"]}
     report["K11"]["first_launch_max_abs_err"] = first_err
+    report["K11"]["first_launch_gate"] = first_gate
     torch.cuda.synchronize()
     runs["L"]["phase_12_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 11 (K11) {report['K11']['phase_s']:.1f} s, phase 12 (L, LC, LH) "

@@ -7,6 +7,10 @@ named by a hash of every source in ``csrc/`` (the ``.cuh`` headers are
 shared), so an edited source is rebuilt and an unchanged one is loaded as it
 is.  All sources are compiled in parallel, one ``nvcc`` each.
 
+Every library links ``libcuda`` (``NVCC_LIBS``): the bf16 path of
+``flash_attention.cu`` encodes its TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``.
+
 ``--use_fast_math`` is deliberately absent: it replaces ``sincosf``,
 ``log1pf`` and ``tanf`` by approximations, and Cauchy draws give phases of
 any size that need ``sincosf``'s accurate large-argument reduction.
@@ -34,6 +38,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+NVCC_LIBS = ("-lcuda",)  # after the source, so the linker keeps it
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -53,7 +58,7 @@ def _digest() -> str:
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + NVCC_LIBS).encode())
     return h.hexdigest()[:16]
 
 
@@ -69,7 +74,7 @@ def build_all() -> float:
     procs = []
     for name in todo:
         tmp = BUILD_DIR / f"{name}-{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *NVCC_LIBS]
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
@@ -96,6 +101,13 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def sass(name: str) -> str:
+    """The SASS of the library ``name`` (``cuobjdump -sass``, beside nvcc)."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(_lib_path(name))], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def check(err: int, what: str) -> None:

@@ -2,16 +2,18 @@
 
 Port of ``repro.models.attention`` for the dense GQA path.  Training and
 prefill attention is :func:`flash_attention`: on CUDA tensors the
-hand-written K11 kernel (``kernels/csrc/flash_attention.cu``), the reference
-kernel's math, which the reference's jnp blockwise scan (its
-``models/attention.py:81``) also computes; on CPU tensors the dense plain
-version.  One difference is kept on purpose: the scan rounds the softmax
-weights p to v's dtype before the PV product, K11 keeps them fp32, so in bf16
-the port differs from the reference's model by that rounding.  Decode is a
-single-token product against the KV cache, as in the reference.
+hand-written K11 kernel (``kernels/csrc/flash_attention.cu``; bf16 on the
+tensor cores, any head widths), the reference kernel's math, which the
+reference's jnp blockwise scan (its ``models/attention.py:81``) also
+computes; on CPU tensors the dense plain version.  One difference is kept on
+purpose: the scan rounds the softmax weights p to v's dtype before the PV
+product, K11 keeps them to fp32 precision (in bf16, as three bf16 parts whose
+sum is p), so in bf16 the port differs from the reference's model by that
+rounding.  Decode is a single-token product against the KV cache, as in the
+reference.
 
 MLA (DeepSeek) and cross-attention (VLM) wait for later steps (ROADMAP
-queue 1, steps 13d and 13g).
+queue 1, steps 13d and 13g); K11 already takes MLA's d = 192, dv = 128.
 """
 from __future__ import annotations
 

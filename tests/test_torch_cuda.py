@@ -12,7 +12,8 @@ atol 1e-5 on G / max|G| (K8); the fit's eigenvalues to rtol 1e-2 and its
 subspace to 1e-3; K10 bit for bit; K9 within 1e-5 * max(1, max|plain|) with
 equal non-finite positions; the trainers' parameters, card against CPU, to
 1e-4; K11 within 2e-5 at fp32 and one bf16 ULP of its plain output plus
-2e-5 at bf16 (at most 3e-2), with equal non-finite positions; a two-layer LM's logits,
+2e-5 at bf16 (at most 3e-2), with equal non-finite positions, at every head
+width (d 20 to 640, dv 12 to 288); a two-layer LM's logits,
 card against CPU at fp32, to 1e-3 of max(1, max|logit|).
 """
 import numpy as np
@@ -349,7 +350,12 @@ def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 K11_SHAPES = [(1, 2, 1, 128, 32, 32), (2, 4, 2, 128, 16, 16), (1, 4, 4, 256, 32, 16),
               (2, 8, 2, 64, 64, 64), (2, 9, 3, 77, 64, 64), (1, 2, 1, 1, 64, 64),
-              (1, 4, 2, 300, 128, 128), (1, 2, 2, 130, 112, 112)]
+              (1, 4, 2, 300, 128, 128), (1, 2, 2, 130, 112, 112),
+              # MLA's d 192 / dv 128; d past one fp32 chunk and dv split over the
+              # grid; rows of 40 bytes (no TMA: padded by the wrapper); d streamed
+              # through the bf16 ring
+              (1, 4, 4, 256, 192, 128), (1, 2, 1, 100, 320, 288), (1, 2, 1, 100, 20, 12),
+              (1, 2, 1, 200, 640, 64)]
 
 
 @pytest.mark.parametrize("b,h,kv,s,d,dv", K11_SHAPES)
@@ -376,22 +382,58 @@ def test_flash_attention_kernel_matches_plain(card, b, h, kv, s, d, dv, dtype, c
         assert bool((err <= _bf16_ulp(plain) + 2e-5).all()) and err.max().item() <= 3e-2
 
 
-def test_flash_attention_kernel_reads_strides_and_raises(card):
+@pytest.mark.parametrize("b,h,kv,s,d,dv", [(2, 4, 2, 512, 64, 64), (1, 4, 2, 256, 128, 128)])
+def test_flash_attention_bf16_model_scale_v_within_gate(card, b, h, kv, s, d, dv):
+    """v at a model's scale (x 60, as in smollm-135m's prefill): outputs that
+    cancel are held to ~2e-5, which p in three bf16 parts meets (two parts
+    leave ~2^-17 |v|; tests/test_torch_flash_numerics.py)."""
+    g = torch.Generator(device=card).manual_seed(b * h * s + d)
+    q = torch.randn((b, h, s, d), generator=g, device=card).bfloat16()
+    k = torch.randn((b, kv, s, d), generator=g, device=card).bfloat16()
+    v = (torch.randn((b, kv, s, dv), generator=g, device=card) * 60).bfloat16()
+    out = ops.flash_attention(q, k, v)
+    plain = fa.flash_attention_plain(q, k, v)
+    err = (out.float() - plain.float()).abs()
+    assert bool((err <= _bf16_ulp(plain) + 2e-5).all())
+    assert err.max().item() <= 3e-2 * max(1.0, plain.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_reads_strides_and_raises(card, dtype):
     """The model's (b, s, h, d) activations go in as transposed views; the
     output comes back in q's memory order."""
     g = torch.Generator(device=card).manual_seed(0)
-    q = torch.randn((2, 100, 6, 64), generator=g, device=card)
-    k = torch.randn((2, 100, 2, 64), generator=g, device=card)
-    v = torch.randn((2, 100, 2, 64), generator=g, device=card)
+    q = torch.randn((2, 100, 6, 64), generator=g, device=card).to(dtype)
+    k = torch.randn((2, 100, 2, 64), generator=g, device=card).to(dtype)
+    v = torch.randn((2, 100, 2, 64), generator=g, device=card).to(dtype)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     plain = fa.flash_attention_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     assert out.transpose(1, 2).is_contiguous()
-    assert (out - plain).abs().max().item() <= 2e-5
+    err = (out.float() - plain.float()).abs()
+    if dtype == torch.float32:
+        assert err.max().item() <= 2e-5
+    else:
+        assert bool((err <= _bf16_ulp(plain) + 2e-5).all())
     with pytest.raises(ValueError):
         ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2).cpu(), v.transpose(1, 2))
     with pytest.raises(ValueError):
         ops.flash_attention(q.transpose(1, 2).half(), k.transpose(1, 2).half(),
                             v.transpose(1, 2).half())
+
+
+def test_flash_attention_bf16_plan(card):
+    """The bf16 kernel's launch shapes: three warpgroups sharing K/V at
+    smollm-135m's g = 3, two q tiles a block at MLA's g = 1, q and K
+    streamed in d-chunks once q no longer fits, dv above 256 over the grid."""
+    serve = fa.bf16_plan(8, 9, 3, 2048, 64, 64)
+    assert (serve["warpgroups"], serve["keys_a_tile"], serve["q_resident"]) == (3, 64, 1)
+    assert serve["blocks"] == 8 * 3 * 32
+    mla = fa.bf16_plan(1, 16, 16, 4096, 192, 128)
+    assert (mla["warpgroups"], mla["keys_a_tile"], mla["blocks"]) == (2, 64, 16 * 32)
+    assert mla["smem_bytes"] <= 232448
+    wide = fa.bf16_plan(1, 2, 1, 200, 640, 64)
+    assert wide["q_resident"] == 0 and wide["d_blocks_an_item"] < 10
+    assert fa.bf16_plan(1, 2, 1, 100, 320, 288)["dv_chunks"] == 2
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(card):

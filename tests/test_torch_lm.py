@@ -92,7 +92,8 @@ def close(a, b, atol, *, rel_to_max=False):
 # ---------------------------------------------------------------------------
 
 SWEEP = [(1, 2, 1, 128, 32, 32), (2, 4, 2, 128, 16, 16), (1, 4, 4, 256, 32, 16),
-         (2, 8, 2, 64, 64, 64)]  # tests/test_kernels.py:164-166
+         (2, 8, 2, 64, 64, 64),  # tests/test_kernels.py:164-166
+         (1, 4, 4, 128, 192, 128), (1, 2, 1, 128, 20, 12)]  # MLA's d 192 / dv 128; a ragged row
 
 
 def _qkv(b, h, kv, s, d, dv, seed):
