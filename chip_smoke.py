@@ -16,12 +16,28 @@ Phases (any failed check raises, and the run exits non-zero):
      floats within 8 ULP (gauss and laplace, sigma != 1, seed >= 2^32, e > 0);
   3. K1 at N in {1000, 4096}, p = 2048, n = 3612: max abs error <= 2e-5;
      timed there and at a request's width (n = 300);
-  4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}):
-     atol 2e-5 on G_H / max|G_H| and on u against the plain version;
+  4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}, and
+     the tensor-core tiles' edges ``FUSED_GRAM_EDGES``: N 65, p 7 and 40,
+     n 795, each at the data's sigma and at the slice's own): atol 2e-5 on
+     G_H / max|G_H| and on u against the plain version; where an edge
+     misses it, the float64 answer from the same Omega must itself be
+     beyond 2e-5 of plain on that metric and the kernel no farther from it
+     than plain (each edge reports both distances from that answer);
+     whether two identical K5 calls agree bit for bit (its k is
+     split across blocks with atomic adds; reported, not gated); the Omega
+     draws per element of K5 and K6, counted by the kernel; K5 with Cauchy
+     draws (laplace) timed, with the share of phases the featurize
+     recomputes as fp32's FMA chain and its distance from plain (reported);
   5. operand Gram (K2/K3) at N in {1000, 4096} with Omega from the port's
      ``draw_omega``: atol 2e-5 on G_H / max|G_H| and on u; seed-fused
-     featurize (K7) at N = 4096: atol 2e-5; centered Gram (K8) at
-     2N in {2000, 8192} on K1's Sigma: atol 1e-5 on G / max|G|;
+     featurize (K7) at N = 4096 and at ``FUSED_K7_EDGES`` (N 65 and 1000, p
+     7 and 40, n 1 and 795, each at both sigmas): atol 2e-5, and its draws
+     per Omega element as the kernel counts them (at most ceil(n / 1024));
+     K7 with laplace draws timed as K5 is; centered Gram (K8) at 2N in {2000, 8192} on
+     K1's Sigma: atol 1e-5 on G / max|G|; the ptxas line (registers, spills)
+     of each tensor-core kernel of the ``rff`` and ``rff_gram_stream_fused``
+     libraries (K5-K7) and their HGMMA count (``cuobjdump -sass``): no
+     spills, HGMMA present;
   6. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
      1e-2, subspace projector within 1e-3);
   7. the main path through the public entry points, each run followed by 16
@@ -120,8 +136,9 @@ Phases (any failed check raises, and the run exits non-zero):
        LH   on the card at fp32, a prefill of 128 tokens plus 4 decode steps
             against ``forward`` over 132 (tests/test_models.py:141-161):
             within 1e-4 (prefill) and 1e-3 (decode) of max(1, max|logit|);
- 13. the runs line, the kernels line (times, bounds, plain and library
-     times, launches), the card's name and power limit, and the result line.
+ 13. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+     both their fp32 and split-TF32 bounds), plain and library times,
+     launches), the card's name and power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -149,9 +166,23 @@ LOBPCG_TIGHT_TOL = 1e-9  # residual under 1e-9 * 10 * 2N (|Ax| + theta): ~8e-5 a
 # (log1p, sqrt, cos or tan) is not counted: K4's bound is a loose lower figure.
 PEAK_FLOPS = 67e12
 PEAK_INT_OPS = PEAK_FLOPS / 4
+# fp32-accurate products on the tf32 tensor cores (495 TFLOP/s dense) as
+# three products each: the rate K5-K7 run at, and the least time for any fp32
+# product kernel's work (K1-K3, K5-K8 report it beside their fp32 bound)
+PEAK_SPLIT_TF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 THREEFRY_INT_OPS = 82  # 20 rounds x (add, rotate, xor) + 5 key injections x 4 + 2
 REQUEST_COLS = 300  # K1 timed at a transform request's width as well
+# the tensor-core featurize / Gram tiles' edges on the data: (N, p, n) for K7,
+# (N, S, p, n) for K5/K6 (N past a 128-feature block, p under and over a
+# k-tile of 32, n ragged (copied to a multiple of 4 for TMA) and n = 1), each
+# at the full data's sigma and at the slice's own median-heuristic sigma, as
+# a fit of the slice would take it.  With the data's sigma of 28 on 7 or 40
+# rows the phases stay under 1 and G_H is a cancellation of G_cc where plain
+# itself is ~1.8e-5 (40 rows) from the float64 answer: there the kernel is
+# held to be no farther from that answer than plain
+FUSED_K7_EDGES = ((65, 7, 1), (65, 40, 795), (1000, 2048, 795), (1000, 40, 1))
+FUSED_GRAM_EDGES = ((65, 1, 40, 795), (1000, 4, 7, 795), (65, 4, 2048, 795))
 # F's launch shapes at K = 4, F64's at K = 64 and FL's at K = 1024 with its
 # 64 edge uplinks (downlink, moments, W_RF, classifier w and b), and ragged ones
 K10_CHECK = ((1, 1024), (4, 1024), (5, 32768), (4, 160), (4, 5), (64, 1024), (65, 32768),
@@ -254,6 +285,29 @@ def bound_ms(flops: float, nbytes: float, int_ops: float = 0.0,
     t_ops = (flops / peak_flops + int_ops / PEAK_INT_OPS) * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def product_bounds(flops: float, nbytes: float, int_ops: float = 0.0) -> dict:
+    """An fp32 product kernel's two bounds: its operations at the fp32 FFMA
+    rate and at the split-TF32 rate (three tf32 products a product)."""
+    fp32, _ = bound_ms(flops, nbytes, int_ops)
+    tc, _ = bound_ms(flops, nbytes, int_ops, peak_flops=PEAK_SPLIT_TF32_FLOPS)
+    return dict(bound_fp32_ms=fp32, bound_split_tf32_ms=tc)
+
+
+def ptxas_entries(log_text: str, names=("",)) -> list[str]:
+    """The ptxas lines (registers, spills) of the kernels whose mangled names
+    contain one of ``names`` (by default every kernel), one line a kernel."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            cur = name if any(k in name for k in names) else None
+            if cur:
+                out.append(cur)
+        elif cur and ("spill" in line or "registers" in line):
+            out[-1] += " | " + line.split(":", 1)[-1].strip()
+    return out
 
 
 def main() -> int:
@@ -361,7 +415,8 @@ def main() -> int:
         req[str(nf)] = dict(ms=cuda_ms(torch, lambda: rff.rff(xr, om), 20), bound_ms=rb)
         log(f"[K1] request N={nf} p={P} n={REQUEST_COLS}: kernel {req[str(nf)]['ms']:.4f} ms,"
             f" bound {rb:.4f} ms")
-    b_ms, b_by = bound_ms(2 * 4096 * P * n, (4096 * P + P * n + 2 * 4096 * n) * 4)
+    k1_work = (2 * 4096 * P * n, (4096 * P + P * n + 2 * 4096 * n) * 4)
+    b_ms, b_by = bound_ms(*k1_work)
     report["K1"] = dict(
         name="rff", route="cuda", source="src/repro_torch/kernels/csrc/rff.cu",
         headers=["src/repro_torch/kernels/csrc/featurize.cuh"],
@@ -369,7 +424,7 @@ def main() -> int:
         tolerance=f"atol {RFF_ATOL}",
         ms=cuda_ms(torch, lambda: rff.rff(x, om4), 10),
         plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x, om4), 10),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, **product_bounds(*k1_work),
         library_ms=cuda_ms(torch, lambda: torch.matmul(om4, x), 10),
         shape=f"N=4096 p={P} n={n}",
         request_shape=f"p={P} n={REQUEST_COLS}", request=req,
@@ -380,26 +435,90 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 4. fused Gram ----------------------------------------------------
-    gram_err = {}
-    for nf, draws in ((1000, 1), (1000, 4), (4096, 1), (4096, 4)):
-        kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sigma)
-        block = gram.gram_tile_plan(nf, n=n, ensemble=draws)["block"]
+    gram_err, gram_edges = {}, []
+
+    def gram_errs(g, u, g_ref, u_ref):
+        return dict(G_H=float((g - g_ref).abs().max()) / float(g_ref.abs().max()),
+                    u=float((u - u_ref).abs().max()))
+
+    def fused_gram_exact(xg, lg, nf, draws, sig):
+        """(G_H, u) in float64 from the same Omega draws and scale."""
+        inv, xd, ld = gram.feature_scale(nf, draws), xg.double(), lg.double()
+        cs, ss = [], []
+        for e in range(draws):
+            om = prng.fused_omega_block_plain(SEED, nf, xg.shape[0], ensemble_index=e, sigma=sig,
+                                              device=dev)
+            z = om.double() @ xd
+            cs.append(torch.cos(z) * inv)
+            ss.append(torch.sin(z) * inv)
+        mom = [torch.stack([m for b in blocks for m in (b @ ld, b.sum(dim=1))], dim=1)
+               for blocks in (cs, ss)]
+        c, s = torch.cat(cs, dim=1), torch.cat(ss, dim=1)
+        return assemble_streamed_gram_ensemble(c @ c.T, c @ s.T, s @ s.T, *mom, n=xg.shape[1],
+                                               ensemble=draws)
+
+    def fused_gram_check(xg, nf, draws, sig, exact=False):
+        """The gate against plain; on a metric past it, the float64 answer
+        must be past it too and the kernel no farther from that than plain.
+        ``exact`` reports both distances from the float64 answer always."""
+        ng = xg.shape[1]
+        lg = ell if ng == n else ell_vector(ng // 2, ng - ng // 2, device=dev)
+        kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sig)
         g_k, u_k = assemble_streamed_gram_ensemble(
-            *gram.rff_gram_stream_fused(x, ell, **kw), n=n, ensemble=draws)
+            *gram.rff_gram_stream_fused(xg, lg, **kw), n=ng, ensemble=draws)
         g_p, u_p = assemble_streamed_gram_ensemble(
-            *gram.rff_gram_stream_fused_plain(x, ell, **kw), n=n, ensemble=draws)
-        scale = float(g_p.abs().max())
-        eg = float((g_k - g_p).abs().max()) / scale
-        eu = float((u_k - u_p).abs().max())
-        if not (eg <= GRAM_ATOL and eu <= GRAM_ATOL):
-            raise AssertionError(f"fused Gram N={nf} S={draws}: G_H {eg}, u {eu} > {GRAM_ATOL}")
-        gram_err[(nf, draws)] = max(eg, eu)
-        log(f"[gram] N={nf} S={draws} block={block}: G_H/max {eg:.3g}, u {eu:.3g}")
-        del g_k, g_p
+            *gram.rff_gram_stream_fused_plain(xg, lg, **kw), n=ng, ensemble=draws)
+        res = gram_errs(g_k, u_k, g_p, u_p)
+        over = [m for m in ("G_H", "u") if not res[m] <= GRAM_ATOL]
+        if over or exact:
+            g_x, u_x = fused_gram_exact(xg, lg, nf, draws, sig)
+            kx, px = gram_errs(g_k, u_k, g_x, u_x), gram_errs(g_p, u_p, g_x, u_x)
+            for m in ("G_H", "u"):
+                res[f"{m}_kernel_vs_exact"], res[f"{m}_plain_vs_exact"] = kx[m], px[m]
+        if over:
+            what = f"fused Gram N={nf} S={draws} p={xg.shape[0]} n={ng} sigma={sig:.4g}"
+            log(f"[gram] {what}: past {GRAM_ATOL} of plain, against float64 {res}")
+            for m in over:
+                if px[m] <= GRAM_ATOL:
+                    raise AssertionError(f"{what}: {m} {res[m]} > {GRAM_ATOL} from plain, where "
+                                         f"the float64 answer is {px[m]} from plain")
+                if not kx[m] <= px[m]:
+                    raise AssertionError(f"{what}: {m} farther from float64 than plain ({res})")
+        return res
+
+    for nf, draws in ((1000, 1), (1000, 4), (4096, 1), (4096, 4)):
+        block = gram.gram_tile_plan(nf, n=n, ensemble=draws)["block"]
+        res = fused_gram_check(x, nf, draws, sigma)
+        gram_err[(nf, draws)] = max(res["G_H"], res["u"])
+        log(f"[gram] N={nf} S={draws} block={block}: G_H/max {res['G_H']:.3g}, u {res['u']:.3g}")
+    for nf, draws, pe, ne in FUSED_GRAM_EDGES:
+        xe = xt[:pe, :ne].contiguous()
+        for sig in (sigma, median_sigma(xe)):
+            res = fused_gram_check(xe, nf, draws, sig, exact=True)
+            gram_edges.append(dict(N=nf, S=draws, p=pe, n=ne, sigma=sig, **res))
+            log(f"[gram] edge N={nf} S={draws} p={pe} n={ne} sigma={sig:.4g}: G_H/max "
+                f"{res['G_H']:.3g}, u {res['u']:.3g}; G_H from float64: kernel "
+                f"{res['G_H_kernel_vs_exact']:.3g}, plain {res['G_H_plain_vs_exact']:.3g}")
     torch.cuda.synchronize()
+    k5_kw = dict(n_features=1000, seed=SEED, ensemble=1, sigma=sigma)
+    k5_same = all(torch.equal(a, b) for a, b in zip(gram.rff_gram_stream_fused(x, ell, **k5_kw),
+                                                     gram.rff_gram_stream_fused(x, ell, **k5_kw)))
+    log(f"[gram] two identical K5 calls bit-identical: {k5_same} (k split across blocks, "
+        f"atomic adds)")
+
+    def fused_counts(fn, **kw):
+        """One check launch with the featurize's counters: (Omega elements
+        drawn, phases recomputed as fp32's FMA chain, Omega elements that
+        recompute drew)."""
+        cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+        fn(counters=cnt, **kw)
+        return cnt.tolist()
+
     for key, nf, draws in (("K5", 1000, 1), ("K6", 4096, 4)):
         kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sigma)
-        block = gram.gram_tile_plan(nf, n=n, ensemble=draws)["block"]
+        plan = gram.gram_tile_plan(nf, n=n, ensemble=draws)
+        drawn, recomputed, _ = fused_counts(gram.rff_gram_stream_fused, x=x, ell=ell, **kw)
+        draws_per = drawn / (nf * P * draws)
         k_ms = cuda_ms(torch, lambda: gram.rff_gram_stream_fused(x, ell, **kw), 3)
         p_ms = cuda_ms(torch, lambda: gram.rff_gram_stream_fused_plain(x, ell, **kw), 3)
         oms = [prng.fused_omega(SEED, nf, P, ensemble_index=e, sigma=sigma, device=dev)
@@ -415,21 +534,53 @@ def main() -> int:
         del oms, w
         flops = 2 * draws * nf * P * n + 2 * draws * n * (nf * nf + nf * (nf + 1))
         nbytes = (P * n + n + 3 * nf * nf + 4 * nf * draws) * 4
-        b_ms, b_by = bound_ms(flops, nbytes, int_ops=draws * nf * P * THREEFRY_INT_OPS)
+        int_ops = draws * nf * P * THREEFRY_INT_OPS
+        bounds = product_bounds(flops, nbytes, int_ops)
+        b_ms, b_by = bound_ms(flops, nbytes, int_ops, peak_flops=PEAK_SPLIT_TF32_FLOPS)
         report[key] = dict(
             name=f"rff_gram_stream_fused (N={nf}, S={draws})", route="cuda",
             source="src/repro_torch/kernels/csrc/rff_gram_stream_fused.cu",
-            headers=["src/repro_torch/kernels/csrc/featurize.cuh",
+            headers=["src/repro_torch/kernels/csrc/featurize_tf32.cuh",
+                     "src/repro_torch/kernels/csrc/gram_tf32.cuh",
+                     "src/repro_torch/kernels/csrc/hopper.cuh",
                      "src/repro_torch/kernels/csrc/threefry.cuh"],
             replaces=("src/repro/kernels/rff_gram_stream.py:524" if key == "K5"
                       else "src/repro/kernels/rff_gram_stream.py:587"),
-            max_abs_err=max(v for (f, _), v in gram_err.items() if f == nf),
+            max_abs_err=max(v for k, v in gram_err.items() if k[0] == nf),
             tolerance=f"atol {GRAM_ATOL} on G_H/max|G_H| and u", ms=k_ms, plain_ms=p_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            shape=f"N={nf} S={draws} p={P} n={n} block={block}",
+            bound_ms=b_ms, bound_by=b_by, **bounds, library_ms=lib_ms,
+            shape=f"N={nf} S={draws} p={P} n={n} block={plan['block']}",
+            draws_per_omega_element=draws_per, phases_recomputed=recomputed,
         )
-        log(f"[gram] {key} N={nf} S={draws}: kernel {k_ms:.2f} ms, plain {p_ms:.2f} ms, "
-            f"torch.matmul {lib_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by})")
+        log(f"[gram] {key} N={nf} S={draws}: kernel {k_ms:.3f} ms, plain {p_ms:.2f} ms, "
+            f"torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms split-TF32 "
+            f"({bounds['bound_fp32_ms']:.3f} fp32), Omega drawn {draws_per:g}x per element "
+            f"(kernel's count), {recomputed} phases recomputed")
+    report["K5"]["bit_identical_repeat"] = k5_same
+    report["K5"]["edges"] = gram_edges
+
+    def laplace_run(key, fn, plain, nf, draws, err, **kw):
+        """``key`` with Cauchy draws at the main shape: time, plain time,
+        the share of phases recomputed as fp32's FMA chain, the distance
+        from plain (reported, not gated)."""
+        kw.update(n_features=nf, seed=SEED, sigma=sigma, rf_kernel="laplace")
+        drawn, recomputed, redrawn = fused_counts(fn, **kw)
+        res = dict(ms=cuda_ms(torch, lambda: fn(**kw), 3),
+                   plain_ms=cuda_ms(torch, lambda: plain(**kw), 3),
+                   recomputed_share=recomputed / (nf * n * draws),
+                   draws_per_omega_element=drawn / (nf * P * draws),
+                   recompute_draws_per_omega_element=redrawn / (nf * P * draws),
+                   **err(fn(**kw), plain(**kw)))
+        report[key]["laplace"] = res
+        log(f"[{key}] laplace N={nf} S={draws} p={P} n={n}: kernel {res['ms']:.3f} ms, plain "
+            f"{res['plain_ms']:.3f} ms, {100 * res['recomputed_share']:.2f} % of phases "
+            f"recomputed (Omega redrawn {res['recompute_draws_per_omega_element']:g}x per "
+            f"element), from plain {res}")
+
+    laplace_run("K5", gram.rff_gram_stream_fused, gram.rff_gram_stream_fused_plain, 1000, 1,
+                lambda a, b: gram_errs(*assemble_streamed_gram_ensemble(*a, n=n, ensemble=1),
+                                       *assemble_streamed_gram_ensemble(*b, n=n, ensemble=1)),
+                x=x, ell=ell, ensemble=1)
     torch.cuda.synchronize()
 
     # ---- 5. operand Gram (K2/K3), seed-fused featurize (K7), centered Gram (K8)
@@ -455,6 +606,7 @@ def main() -> int:
         flops = 2 * nf * P * n + 2 * n * (nf * nf + nf * (nf + 1))
         nbytes = (nf * P + P * n + n + 3 * nf * nf + 4 * nf) * 4
         b_ms, b_by = bound_ms(flops, nbytes)
+        bounds = product_bounds(flops, nbytes)
         report[key] = dict(
             name=f"rff_gram_stream (Omega operand, N={nf})", route="cuda",
             source="src/repro_torch/kernels/csrc/rff_gram_stream_fused.cu",
@@ -463,37 +615,58 @@ def main() -> int:
             replaces=("src/repro/kernels/rff_gram_stream.py:244" if key == "K2"
                       else "src/repro/kernels/rff_gram_stream.py:180"),
             max_abs_err=max(eg, eu), tolerance=f"atol {GRAM_ATOL} on G_H/max|G_H| and u",
-            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, **bounds, library_ms=lib_ms,
             shape=f"N={nf} p={P} n={n} block={block}",
         )
         log(f"[{key}] N={nf}: G_H/max {eg:.3g}, u {eu:.3g}; kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+            f"{p_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+            f"split-TF32 {bounds['bound_split_tf32_ms']:.3f})")
         del om
     torch.cuda.synchronize()
 
+    k7_errs = {}
+    for nf, pe, ne in ((4096, P, n),) + FUSED_K7_EDGES:
+        xe = x if (pe, ne) == (P, n) else xt[:pe, :ne].contiguous()
+        for sig in (sigma,) if xe is x or ne < 2 else (sigma, median_sigma(xe)):
+            k7_kw = dict(n_features=nf, seed=SEED, ensemble_index=1, sigma=sig)
+            err = float((rff.rff_fused(xe, **k7_kw)
+                         - rff.rff_fused_plain(xe, **k7_kw)).abs().max())
+            if not err <= RFF_ATOL:
+                raise AssertionError(f"K7 N={nf} p={pe} n={ne} sigma={sig:.4g}: max abs err "
+                                     f"{err} > {RFF_ATOL}")
+            k7_errs[(nf, pe, ne, sig)] = err
+            log(f"[K7] N={nf} p={pe} n={ne} sigma={sig:.4g}: max abs err {err:.3g}")
     nf = 4096
     k7_kw = dict(n_features=nf, seed=SEED, ensemble_index=1, sigma=sigma)
-    k7_err = float((rff.rff_fused(x, **k7_kw) - rff.rff_fused_plain(x, **k7_kw)).abs().max())
-    if not k7_err <= RFF_ATOL:
-        raise AssertionError(f"K7 N={nf}: max abs err {k7_err} > {RFF_ATOL}")
     om = prng.fused_omega(SEED, nf, P, ensemble_index=1, sigma=sigma, device=dev)
-    b_ms, b_by = bound_ms(2 * nf * P * n, (P * n + 2 * nf * n) * 4,
-                          int_ops=nf * P * THREEFRY_INT_OPS)
+    k7_work = (2 * nf * P * n, (P * n + 2 * nf * n) * 4, nf * P * THREEFRY_INT_OPS)
+    b_ms, b_by = bound_ms(*k7_work, peak_flops=PEAK_SPLIT_TF32_FLOPS)
+    drawn, recomputed, _ = fused_counts(rff.rff_fused, x=x, **k7_kw)
+    draws_per = drawn / (nf * P)
+    if not draws_per <= -(-n // 1024):
+        raise AssertionError(f"K7 drew each Omega element {draws_per}x > ceil(n / 1024)")
     report["K7"] = dict(
         name="rff_fused", route="cuda", source="src/repro_torch/kernels/csrc/rff.cu",
-        headers=["src/repro_torch/kernels/csrc/featurize.cuh",
+        headers=["src/repro_torch/kernels/csrc/featurize_tf32.cuh",
+                 "src/repro_torch/kernels/csrc/hopper.cuh",
                  "src/repro_torch/kernels/csrc/threefry.cuh"],
-        replaces="src/repro/kernels/rff.py:117", max_abs_err=k7_err,
+        replaces="src/repro/kernels/rff.py:117", max_abs_err=k7_errs[(nf, P, n, sigma)],
+        max_abs_err_edges=max(k7_errs.values()),
         tolerance=f"atol {RFF_ATOL}", ms=cuda_ms(torch, lambda: rff.rff_fused(x, **k7_kw), 10),
         plain_ms=cuda_ms(torch, lambda: rff.rff_fused_plain(x, **k7_kw), 5),
-        bound_ms=b_ms, bound_by=b_by,
+        bound_ms=b_ms, bound_by=b_by, **product_bounds(*k7_work),
         library_ms=cuda_ms(torch, lambda: torch.matmul(om, x), 10),
-        shape=f"N={nf} p={P} n={n} ensemble_index=1",
+        shape=f"N={nf} p={P} n={n} ensemble_index=1", draws_per_omega_element=draws_per,
+        phases_recomputed=recomputed,
     )
-    log(f"[K7] N={nf}: max abs err {k7_err:.3g}; kernel {report['K7']['ms']:.3f} ms, plain "
+    log(f"[K7] N={nf}: kernel {report['K7']['ms']:.3f} ms, plain "
         f"{report['K7']['plain_ms']:.3f} ms, torch.matmul {report['K7']['library_ms']:.3f} ms,"
-        f" bound {b_ms:.3f} ms ({b_by})")
+        f" bound {b_ms:.3f} ms split-TF32 ({report['K7']['bound_fp32_ms']:.3f} fp32), Omega "
+        f"drawn {draws_per:g}x per element (kernel's count; ceil(n / 1024) = {-(-n // 1024)}), "
+        f"{recomputed} phases recomputed")
     del om
+    laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1,
+                lambda a, b: dict(max_abs_err=float((a - b).abs().max())), x=x, ensemble_index=1)
 
     k8 = {}
     for nf in (1000, 4096):
@@ -506,12 +679,13 @@ def main() -> int:
             raise AssertionError(f"K8 2N={rows}: G/max {err} > {CENTERED_ATOL}")
         del g_k, g_p
         c = sig - sig.mean(dim=1, keepdim=True)
-        b_ms, b_by = bound_ms(rows * (rows + 1) * n, (rows * n + rows * rows) * 4)
+        k8_work = (rows * (rows + 1) * n, (rows * n + rows * rows) * 4)
+        b_ms, b_by = bound_ms(*k8_work)
         k8[rows] = dict(
             max_abs_err=err, ms=cuda_ms(torch, lambda: centered.centered_gram(sig), 5),
             plain_ms=cuda_ms(torch, lambda: centered.centered_gram_plain(sig), 5),
             library_ms=cuda_ms(torch, lambda: torch.matmul(c, c.T), 5),
-            bound_ms=b_ms, bound_by=b_by,
+            bound_ms=b_ms, bound_by=b_by, **product_bounds(*k8_work),
         )
         del sig, c
         log(f"[K8] 2N={rows} n={n}: G/max {err:.3g}; kernel {k8[rows]['ms']:.3f} ms, plain "
@@ -527,6 +701,24 @@ def main() -> int:
         small=dict(shape=f"2N=2000 n={n}", **k8[2000]),
     )
     torch.cuda.synchronize()
+    # the tensor-core kernels of K5-K7: registers, spills, HGMMA in the SASS
+    for lib, key, entries in (("rff", "K7", ("featurize_tf32",)),
+                              ("rff_gram_stream_fused", "K5", ("featurize_tf32", "gram_tf32"))):
+        lines = ptxas_entries(_build.ptxas(lib), entries)
+        hgmma = sum("HGMMA" in line for line in _build.sass(lib).splitlines())
+        for line in lines:
+            log(f"[{key}] ptxas {lib}: {line}")
+        log(f"[{key}] {hgmma} HGMMA instructions in the SASS of the {lib} library")
+        if hgmma == 0:
+            raise AssertionError(f"{lib}: no HGMMA in the SASS: not on the tensor cores")
+        if len(lines) != len(entries):
+            raise AssertionError(f"{lib}: ptxas reported {lines} for the kernels {entries}")
+        if any("0 bytes spill stores" not in line for line in lines):
+            raise AssertionError(f"{lib}: a tensor-core kernel spills: {lines}")
+        report[key][f"ptxas_{lib}"] = lines
+        report[key][f"hgmma_{lib}"] = hgmma
+    report["K6"]["ptxas_rff_gram_stream_fused"] = report["K5"]["ptxas_rff_gram_stream_fused"]
+    report["K6"]["hgmma_rff_gram_stream_fused"] = report["K5"]["hgmma_rff_gram_stream_fused"]
 
     # ---- 6. small fit: card vs the CPU plain path --------------------------
     small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
@@ -1164,16 +1356,11 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
 
     t_phase = time.perf_counter()
-    k11_ptxas = []
-    for line in _build.ptxas_log.get("flash_attention", "").splitlines():
-        if "Compiling entry function" in line:
-            k11_ptxas.append(line.split("'")[1])
-        elif k11_ptxas and ("spill" in line or "registers" in line):
-            k11_ptxas[-1] += " | " + line.split(":", 1)[-1].strip()
+    k11_ptxas = ptxas_entries(_build.ptxas("flash_attention"))
     for line in k11_ptxas:
         log(f"[K11] ptxas {line}")
     if not k11_ptxas or any("0 bytes spill stores" not in line for line in k11_ptxas):
-        log("[K11] a kernel spills (or no ptxas log: the library was built before this run)")
+        log("[K11] a kernel spills (or ptxas reported none)")
     hgmma = sum("HGMMA" in line for line in _build.sass("flash_attention").splitlines())
     log(f"[K11] {hgmma} HGMMA instructions in the SASS of the flash_attention library")
     if hgmma == 0:

@@ -103,6 +103,23 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def ptxas(name: str) -> str:
+    """The ptxas report (registers, spills) of the library ``name``: from
+    this process's build, or from a compile into a temporary file when the
+    library was built before."""
+    out = ptxas_log.get(name)
+    if out is None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{name}-{os.getpid()}.ptxas.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"), *NVCC_LIBS]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        tmp.unlink(missing_ok=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
+        out = ptxas_log[name] = proc.stdout
+    return out
+
+
 def sass(name: str) -> str:
     """The SASS of the library ``name`` (``cuobjdump -sass``, beside nvcc)."""
     cuobjdump = Path(_nvcc()).with_name("cuobjdump")

@@ -1,12 +1,13 @@
 // Featurize: [cos(Omega X); sin(Omega X)] * scale, an fp32 FFMA product over
 // p with the cos/sin epilogue fused, written by hand (no cuBLAS).
 //
-// Shared by K1 and K7 (rff.cu: Omega from an operand, or drawn in the
-// kernel) and the streamed Gram (rff_gram_stream_fused.cu: K2/K3 with Omega
-// from an operand, K5/K6 with Omega drawn): the Omega source is the template
-// parameter `Gen`, any functor `float operator()(row, col)` with a `draw(e)`
-// that selects ensemble draw e (blockIdx.y).  `Gen` is called only for
-// row < nf and col < p, so an operand is never read past its edges.
+// Only the operand path uses it now: K1 (rff.cu) and K2/K3's first stage
+// (rff_gram_stream_fused.cu, rt_operand_featurize), with OperandOmega as the
+// Omega source.  The seed-fused path (K7, K5/K6) runs on the tensor cores in
+// featurize_tf32.cuh.  The source is the template parameter `Gen`, any
+// functor `float operator()(row, col)` with a `draw(e)` that selects ensemble
+// draw e (blockIdx.y).  `Gen` is called only for row < nf and col < p, so an
+// operand is never read past its edges.
 //
 // Tile: BM = 32 feature rows x BN = 256 sample columns per block of 256
 // threads, each thread 4 rows x 8 columns (two groups of 4 columns 128 apart,

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA tile
 // loads, warpgroup matrix multiplies (wgmma) and their shared-memory
-// descriptors.  Used by flash_attention.cu (K11's bf16 path).
+// descriptors.  Used by flash_attention.cu (K11's bf16 path) and, in their
+// tf32 forms with the cluster and cp.async helpers at the end of this file,
+// by featurize_tf32.cuh and gram_tf32.cuh (K7 and K5/K6).
 //
 // Shared-memory tiles are bf16 rows of 128 bytes (64 values) stored with the
 // 128-byte swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: the
@@ -219,6 +221,167 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a, uint64_
 template <>
 __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a, uint64_t b, int acc) {
   wgmma_ss_n128(d, a, b, acc);
+}
+
+
+// ---------------------------------------------------------------------------
+// tf32 on the tensor cores, split into three products (featurize_tf32.cuh,
+// gram_tf32.cuh).  The byte geometry above holds for fp32 words: a 128-byte
+// swizzled row is 32 values, a wgmma k-step of 8 reads 32 bytes of each row.
+// tf32 operands in shared memory must be K-major (the transpose bits exist
+// for 16-bit types only), so A comes from registers where its K axis is not
+// contiguous in memory.
+// ---------------------------------------------------------------------------
+
+// tf32(x), rounded to nearest with ties away from zero (the low 13 bits 0)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to ~22 bits: hi = tf32(x), lo = tf32(x - hi) (x - hi is exact)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 8, tf32 in registers: rows 16 w + l / 4
+// and + 8, columns l % 4 and + 4 of warp w, lane l, as a0..a3 = (r, c), (r +
+// 8, c), (r, c + 4), (r + 8, c + 4)) B^T (B: 128 x 8, shared, K-major); acc =
+// 0 overwrites D.  The tensor cores' fp32 additions into D round toward zero.
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// the three products of one k-step into one accumulator, the two small
+// terms first: D (+)= A_lo B_hi^T + A_hi B_lo^T + A_hi B_hi^T (acc = 0 starts D)
+__device__ __forceinline__ void wgmma_tf32x3_n128(float (&d)[64], const uint32_t (&a_hi)[4],
+                                                  const uint32_t (&a_lo)[4], uint64_t b_hi,
+                                                  uint64_t b_lo, int acc = 1) {
+  wgmma_rs_tf32_n128(d, a_lo, b_hi, acc);
+  wgmma_rs_tf32_n128(d, a_hi, b_lo);
+  wgmma_rs_tf32_n128(d, a_hi, b_hi);
+}
+
+// byte offset of element (row, k) in a 128-byte-swizzled tile of fp32 rows
+// of 32 values (the layout a CU_TENSOR_MAP_SWIZZLE_128B load writes)
+__device__ __forceinline__ uint32_t sw128_f32(int row, int k) {
+  return static_cast<uint32_t>(row * 128 + ((((k >> 2) ^ row) & 7) << 4) + (k & 3) * 4);
+}
+
+// ---- thread block clusters -------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of `addr` (this CTA's shared memory) in CTA `rank`
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// one arrival on an mbarrier of any CTA of the cluster (a mapa address),
+// releasing this thread's earlier writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// mbar_wait that acquires at cluster scope (arrivals from other CTAs)
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// a 32-bit load from any CTA of the cluster's shared memory (a mapa address)
+__device__ __forceinline__ uint32_t ld_cluster_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// bitwise or into a 32-bit word of any CTA of the cluster (a mapa address)
+__device__ __forceinline__ void red_or_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("red.shared::cluster.or.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// every thread of every CTA of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy accesses (wgmma operands, bulk copies, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- copies ----------------------------------------------------------------
+
+// one box of a 2-d tensor map (columns c0, rows c1); boxes reaching past the
+// tensor are zero-filled
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from this CTA's shared memory to `dst` in any CTA
+// of the cluster (mapa addresses for dst and bar), counted on that CTA's
+// barrier `bar` as transaction bytes; an async-proxy copy, so wgmma there
+// reads it without a proxy fence
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, uint32_t src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// announce `bytes` of transaction traffic on `bar` without arriving
+__device__ __forceinline__ void mbar_expect_tx_only(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
 }
 
 }  // namespace hop

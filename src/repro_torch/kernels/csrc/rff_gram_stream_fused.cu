@@ -13,22 +13,32 @@
 // for the operand path), padded sample columns masked to 0.
 //
 // Per chunk of bc sample columns the host launches, in order:
-//   1. featurize (featurize.cuh): rt_fused_featurize draws Omega_e in the
-//      kernel (FusedOmega, threefry K4); rt_operand_featurize reads it from
-//      the (N, p) operand (OperandOmega, loads past p or N masked).  Either
+//   1. featurize: rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
+//      threefry K4) on the tensor cores (featurize_tf32.cuh: three tf32
+//      products, Omega drawn once per 1024 columns of the chunk);
+//      rt_operand_featurize reads it from the (N, p) operand on the FFMA tile
+//      of featurize.cuh (OperandOmega, loads past p or N masked).  Either
 //      writes the chunk's (nf, S bc) cos and sin slabs into a workspace
 //      reused by every chunk;
 //   2. gram_moments: the 2S moment columns of the chunk, one warp per
 //      (row, draw, cos|sin), added into M_c and M_s;
-//   3. gram_accumulate: the three (nf, nf) products over k = S bc, added into
-//      G_cc, G_cs, G_ss, on the shared 128 x 128 tile of gram_tile.cuh;
-//      G_cc and G_ss are symmetric, so only tiles with row tile <= column
-//      tile are computed (the wrapper mirrors them).
-// Peak memory: O(N^2 + N bc S).  A fused Omega is drawn once per (row tile,
-// p chunk, 256-column tile of a chunk); an operand Omega is read as often.
-// Bound: fp32 operations of the Gram products (~4 S n nf^2 FLOP with the
-// symmetry) ahead of the featurize product (2 S nf p n) and the draws.
+//   3. the three (nf, nf) products over k = S bc, added into G_cc, G_cs,
+//      G_ss: rt_fused_gram_accumulate on the tensor cores (gram_tf32.cuh:
+//      three tf32 products, a TMA ring, k split across blocks where the
+//      tiles are few, each row of the A operand taken less its draw's mean
+//      over the first chunk, added back by the last chunk's launch),
+//      rt_gram_accumulate on the FFMA 128 x 128 tile of gram_tile.cuh.  G_cc
+//      and G_ss are symmetric, so only tiles with row tile <= column tile
+//      are computed (the wrapper mirrors them).
+// Peak memory: O(N^2 + N bc S).  A fused Omega is drawn once per (feature
+// tile, k-tile, 1024 columns of a chunk); an operand Omega is read once per
+// 256-column tile.  Bound: operations of the Gram products (~4 S n nf^2
+// FLOP with the symmetry) ahead of the featurize product (2 S nf p n) and
+// the draws; the seed-fused path does them at the split-TF32 rate (495 / 3
+// TFLOP/s), the operand path at the fp32 FFMA rate (67 TFLOP/s).
 #include "featurize.cuh"
+#include "featurize_tf32.cuh"
+#include "gram_tf32.cuh"
 #include "gram_tile.cuh"
 #include "threefry.cuh"
 
@@ -85,11 +95,12 @@ __global__ void gram_moments_kernel(const float* __restrict__ wc, const float* _
 extern "C" int rt_fused_featurize(uint32_t k0, float inv_sigma, int kind, const void* x,
                                   int64_t ldx, int x_col0, int nf, int p, int n_valid,
                                   int bc, int draws, float scale, void* wc, void* ws,
-                                  void* stream) {
+                                  void* stats, void* stream) {
   const rt::FusedOmega gen{k0, 0u, inv_sigma, kind};
-  return int(rt::launch_featurize(gen, draws, static_cast<const float*>(x), ldx, x_col0, nf,
+  return int(rt::launch_featurize_tf32(gen, draws, static_cast<const float*>(x), ldx, x_col0, nf,
                                   p, n_valid, bc, scale, static_cast<float*>(wc),
                                   static_cast<float*>(ws), int64_t(draws) * bc, bc,
+                                  static_cast<unsigned long long*>(stats),
                                   static_cast<cudaStream_t>(stream)));
 }
 
@@ -122,4 +133,19 @@ extern "C" int rt_gram_accumulate(const void* wc, const void* ws, int nf, int K,
       static_cast<const float*>(wc), static_cast<const float*>(ws), nf, K,
       static_cast<float*>(gcc), static_cast<float*>(gcs), static_cast<float*>(gss));
   return int(cudaGetLastError());
+}
+
+// K = draws x bc; shift_c, shift_s: (nf, draws) row shifts of the A operand;
+// mom_c, mom_s: the moments at the last chunk, else null (gram_tf32.cuh)
+extern "C" int rt_fused_gram_accumulate(const void* wc, const void* ws, int nf, int K, int bc,
+                                        void* gcc, void* gcs, void* gss, const void* shift_c,
+                                        const void* shift_s, const void* mom_c,
+                                        const void* mom_s, void* stream) {
+  return int(rt::launch_gram_tf32(static_cast<const float*>(wc), static_cast<const float*>(ws), nf,
+                                  K, bc, static_cast<float*>(gcc), static_cast<float*>(gcs),
+                                  static_cast<float*>(gss), static_cast<const float*>(shift_c),
+                                  static_cast<const float*>(shift_s),
+                                  static_cast<const float*>(mom_c),
+                                  static_cast<const float*>(mom_s),
+                                  static_cast<cudaStream_t>(stream)));
 }

@@ -64,15 +64,28 @@ struct FusedOmega {
   __device__ __forceinline__ float operator()(uint32_t row, uint32_t col) const {
     uint32_t b0, b1;
     threefry2x32(key0, key1, row, col, b0, b1);
+    return from_bits(b0, b1);
+  }
+  // the float transform of one element's threefry bits (callers that draw
+  // several elements at once run the integer rounds of all of them first).
+  // The assumptions state the arguments' ranges (u in [0, 1 - 2^-24]), so
+  // the compiler may drop the library functions' branches for arguments that
+  // cannot occur; the values are the same.
+  __device__ __forceinline__ float from_bits(uint32_t b0, uint32_t b1) const {
     float v;
     if (kind == kGauss) {
       const float u1 = uniform24(b0);
       const float u2 = uniform24(b1);
-      const float r = sqrtf(-2.0f * log1pf(-u1));
-      v = r * cosf(6.283185307179586f * u2);
+      const float l = log1pf(-u1);
+      __builtin_assume(l <= 0.0f && l > -17.0f);
+      const float r = sqrtf(-2.0f * l);
+      const float a = 6.283185307179586f * u2;
+      __builtin_assume(a >= 0.0f && a < 6.3f);
+      v = r * cosf(a);
     } else {
-      const float u = uniform24(b0);
-      v = tanf(3.141592653589793f * (u - 0.5f));
+      const float a = 3.141592653589793f * (uniform24(b0) - 0.5f);
+      __builtin_assume(a >= -1.6f && a < 1.6f);
+      v = tanf(a);
     }
     return v * inv_sigma;
   }

@@ -20,10 +20,13 @@ col)`` and never stored.
 On CUDA tensors :func:`rff_gram_stream` and :func:`rff_gram_stream_fused`
 walk X in chunks of sample columns (:func:`gram_tile_plan`); per chunk they
 launch a featurize kernel (Omega read, or drawn in the kernel), the moment
-kernel and the Gram accumulate kernel.  On CPU tensors they run
-:func:`rff_gram_stream_plain` and :func:`rff_gram_stream_fused_plain`.
-``LAUNCHES`` (seed-fused, K5/K6) and ``OPERAND_LAUNCHES`` (Omega operand,
-K2/K3) count the launches.
+kernel and the Gram accumulate kernel.  The seed-fused path runs both
+products on the tensor cores as three tf32 products each
+(``csrc/featurize_tf32.cuh``, ``csrc/gram_tf32.cuh``); the operand path keeps
+the FFMA tiles (``csrc/featurize.cuh``, ``csrc/gram_tile.cuh``).  On CPU
+tensors they run :func:`rff_gram_stream_plain` and
+:func:`rff_gram_stream_fused_plain`.  ``LAUNCHES`` (seed-fused, K5/K6) and
+``OPERAND_LAUNCHES`` (Omega operand, K2/K3) count the launches.
 """
 from __future__ import annotations
 
@@ -32,12 +35,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.prng import _KINDS, _MASK, _inv_sigma, fused_omega_block_plain
-from repro_torch.kernels.rff import inv_sqrt
+from repro_torch.kernels.rff import counter_ptr, inv_sqrt, tma_rows
 
 LAUNCHES = {"featurize": 0, "moments": 0, "accumulate": 0}
 OPERAND_LAUNCHES = {"featurize": 0, "moments": 0, "accumulate": 0}
 
-FEATURIZE_COLS = 256  # featurize.cuh FZ_BN: chunk widths are multiples of it
+# chunk widths are multiples of it: featurize.cuh's FZ_BN, two of
+# featurize_tf32.cuh's FT_COLS (the seed-fused tile)
+FEATURIZE_COLS = 256
 # The workspace holds one chunk's cos and sin slabs, (nf, S * block) each.
 WORKSPACE_BYTES = 64 << 20
 
@@ -86,7 +91,7 @@ def rff_gram_stream_fused_plain(x, ell, *, n_features, seed, ensemble=1, sigma=1
 
 
 def gram_tile_plan(n_features: int, *, n: int, ensemble: int = 1) -> dict:
-    """The fused Gram's chunking on the card for N features, n samples, S draws.
+    """The streamed Gram's chunking on the card for N features, n samples, S draws.
 
     ``block``: sample columns per chunk, a multiple of ``FEATURIZE_COLS``, as
     wide as ``WORKSPACE_BYTES`` allows (fewer chunks mean fewer
@@ -122,11 +127,15 @@ def _check_operands(name: str, x: torch.Tensor, ell: torch.Tensor) -> bool:
     return False
 
 
-def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
+def _stream(x, ell, nf: int, draws: int, featurize, counts: dict, fused: bool):
     """The chunk loop on the card: per chunk of sample columns,
     ``featurize(c0, n_valid, block, ws_c, ws_s, stream)`` fills the cos/sin
-    workspace, then the moment and accumulate kernels add into the outputs.
-    Returns the five outputs with G_cc and G_ss mirrored."""
+    workspace, then the moment kernel and the accumulate kernel add into the
+    outputs.  ``fused`` takes the tensor-core accumulate, which multiplies
+    each row of its first operand less that draw's mean over the first
+    chunk (from the moments) and, at the last chunk, adds the shifts back
+    from the moments' column sums.  Otherwise the FFMA tile.  Returns the
+    five outputs with G_cc and G_ss mirrored."""
     n = x.shape[1]
     block = gram_tile_plan(nf, n=n, ensemble=draws)["block"]
     dev = x.device
@@ -140,8 +149,13 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
     vp, i32 = _build.VP, _build.I32
     moments = _build.fn("rff_gram_stream_fused", "rt_gram_moments",
                         [vp, vp, i32, i32, i32, vp, i32, vp, vp, vp])
-    accumulate = _build.fn("rff_gram_stream_fused", "rt_gram_accumulate",
-                           [vp, vp, i32, i32, vp, vp, vp, vp])
+    if fused:
+        fused_accumulate = _build.fn("rff_gram_stream_fused", "rt_fused_gram_accumulate",
+                                     [vp, vp, i32, i32, i32] + [vp] * 8)
+    else:
+        accumulate = _build.fn("rff_gram_stream_fused", "rt_gram_accumulate",
+                               [vp, vp, i32, i32, vp, vp, vp, vp])
+    shifts = None
     with torch.cuda.device(dev):
         stream = _build.stream_ptr()
         for c0 in range(0, n, block):
@@ -153,8 +167,18 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
                           stream)
             _build.check(err, "gram moments")
             counts["moments"] += 1
-            err = accumulate(ws_c.data_ptr(), ws_s.data_ptr(), nf, draws * block,
-                             gcc.data_ptr(), gcs.data_ptr(), gss.data_ptr(), stream)
+            outs = (ws_c.data_ptr(), ws_s.data_ptr(), nf, draws * block)
+            grams = (gcc.data_ptr(), gcs.data_ptr(), gss.data_ptr())
+            if fused:
+                if shifts is None:
+                    # (nf, S): each row's mean over this chunk's valid columns, per draw
+                    shifts = tuple((m[:, 1::2] / n_valid).contiguous() for m in (mc, ms))
+                last = c0 + block >= n
+                err = fused_accumulate(*outs, block, *grams, shifts[0].data_ptr(),
+                                       shifts[1].data_ptr(), mc.data_ptr() if last else None,
+                                       ms.data_ptr() if last else None, stream)
+            else:
+                err = accumulate(*outs, *grams, stream)
             _build.check(err, "gram accumulate")
             counts["accumulate"] += 1
     return mirror_upper(gcc), gcs, mirror_upper(gss), mc, ms
@@ -185,16 +209,18 @@ def rff_gram_stream(x, omega, ell):
         return f(omega.data_ptr(), p, x.data_ptr(), x.shape[1], c0, nf, p, n_valid, block,
                  scale, ws_c.data_ptr(), ws_s.data_ptr(), stream)
 
-    return _stream(x, ell, nf, 1, featurize, OPERAND_LAUNCHES)
+    return _stream(x, ell, nf, 1, featurize, OPERAND_LAUNCHES, fused=False)
 
 
 def rff_gram_stream_fused(x, ell, *, n_features, seed, ensemble=1, sigma=1.0,
-                          rf_kernel="gauss"):
+                          rf_kernel="gauss", counters=None):
     """Seed-fused five outputs from X (p, n) and ell (n,).
 
     The workspace holds one chunk's (nf, S block) cos and sin slabs, with
     ``block`` from :func:`gram_tile_plan`.  CUDA tensors launch the kernels;
-    CPU tensors run the plain version.
+    CPU tensors run the plain version.  ``counters`` (CUDA only) sums the
+    featurize launches' counts, as :func:`repro_torch.kernels.rff.counter_ptr`
+    says.
     """
     if rf_kernel not in _KINDS:
         raise ValueError(f"unknown rf kernel {rf_kernel!r}")
@@ -207,13 +233,15 @@ def rff_gram_stream_fused(x, ell, *, n_features, seed, ensemble=1, sigma=1.0,
     f = _build.fn(
         "rff_gram_stream_fused", "rt_fused_featurize",
         [_build.U32, _build.F32, _build.I32, _build.VP, _build.I64] + [_build.I32] * 6
-        + [_build.F32, _build.VP, _build.VP, _build.VP],
+        + [_build.F32, _build.VP, _build.VP, _build.VP, _build.VP],
     )
     scale = feature_scale(n_features, ensemble)
+    xr = tma_rows(x)
+    stats = counter_ptr(counters)
 
     def featurize(c0, n_valid, block, ws_c, ws_s, stream):
-        return f(seed & _MASK, _inv_sigma(sigma), _KINDS[rf_kernel], x.data_ptr(), n, c0,
-                 n_features, p, n_valid, block, ensemble, scale, ws_c.data_ptr(),
-                 ws_s.data_ptr(), stream)
+        return f(seed & _MASK, _inv_sigma(sigma), _KINDS[rf_kernel], xr.data_ptr(), xr.shape[1],
+                 c0, n_features, p, n_valid, block, ensemble, scale, ws_c.data_ptr(),
+                 ws_s.data_ptr(), stats, stream)
 
-    return _stream(x, ell, n_features, ensemble, featurize, LAUNCHES)
+    return _stream(x, ell, n_features, ensemble, featurize, LAUNCHES, fused=True)
