@@ -29,15 +29,26 @@ Phases (any failed check raises, and the run exits non-zero):
      draws (laplace) timed, with the share of phases the featurize
      recomputes as fp32's FMA chain and its distance from plain (reported);
   5. operand Gram (K2/K3) at N in {1000, 4096} with Omega from the port's
-     ``draw_omega``: atol 2e-5 on G_H / max|G_H| and on u; seed-fused
-     featurize (K7) at N = 4096 and at ``FUSED_K7_EDGES`` (N 65 and 1000, p
-     7 and 40, n 1 and 795, each at both sigmas): atol 2e-5, and its draws
-     per Omega element as the kernel counts them (at most ceil(n / 1024));
-     K7 with laplace draws timed as K5 is; centered Gram (K8) at 2N in {2000, 8192} on
-     K1's Sigma: atol 1e-5 on G / max|G|; the ptxas line (registers, spills)
-     of each tensor-core kernel of the ``rff`` and ``rff_gram_stream_fused``
-     libraries (K5-K7) and their HGMMA count (``cuobjdump -sass``): no
-     spills, HGMMA present;
+     ``draw_omega`` and at ``OPERAND_GRAM_EDGES`` (N 65 and 1000, p 7, 40
+     and 2048, n 795, each at both sigmas): atol 2e-5 on G_H / max|G_H| and
+     on u, under phase 4's float64 rule at an edge; K2 with a Cauchy Omega
+     (laplace, N = 1000) under the same gate and rule, timed, with the share
+     of phases its featurize recomputes as fp32's FMA chain (the kernel's
+     count); seed-fused featurize (K7) at N = 4096 and at
+     ``FUSED_K7_EDGES`` (N 65 and 1000, p 7 and 40, n 1 and 795, each at
+     both sigmas): atol 2e-5, and its draws per Omega element as the kernel
+     counts them (at most ceil(n / 1024)); K7 with laplace draws timed as K5
+     is; centered Gram (K8) at 2N in {2000, 8192} on K1's Sigma and at
+     ``K8_EDGES`` (K1's Sigma at the data's sigma on 7 and 40 rows: nearly
+     constant rows; n 795 and 3611, not multiples of 4; 2N 130 and 2000,
+     not multiples of 128): atol 1e-5 on G / max|G|, or, where plain itself
+     is past that from the float64 answer, no farther from it than plain
+     (each edge reports both distances), G exactly symmetric; whether two
+     identical K8 calls agree bit for bit (its k is split across blocks at
+     2N = 2000; reported, not gated); the ptxas line (registers, spills) of
+     each tensor-core kernel of the ``rff``, ``rff_gram_stream_fused`` and
+     ``centered_gram`` libraries (K2/K3, K5-K8) and their HGMMA count
+     (``cuobjdump -sass``): no spills, HGMMA present;
   6. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
      1e-2, subspace projector within 1e-3);
   7. the main path through the public entry points, each run followed by 16
@@ -183,6 +194,13 @@ REQUEST_COLS = 300  # K1 timed at a transform request's width as well
 # held to be no farther from that answer than plain
 FUSED_K7_EDGES = ((65, 7, 1), (65, 40, 795), (1000, 2048, 795), (1000, 40, 1))
 FUSED_GRAM_EDGES = ((65, 1, 40, 795), (1000, 4, 7, 795), (65, 4, 2048, 795))
+# the same edges on the operand path (K2/K3, S = 1): (N, p, n), Omega from
+# draw_omega at each sigma (its rows of p = 7 copied with zero columns for TMA)
+OPERAND_GRAM_EDGES = ((65, 40, 795), (1000, 7, 795), (65, 2048, 795))
+# K8 on K1's Sigma at the data's sigma (28) on 7 rows: phases under ~0.2,
+# nearly constant rows; n not a multiple of 4 (Sigma copied for TMA) and 2N
+# not a multiple of 128: (N, p, n), n past N_T taken from x
+K8_EDGES = ((65, 7, 795), (1000, 7, 795), (1000, 7, 3611), (65, 40, 795))
 # F's launch shapes at K = 4, F64's at K = 64 and FL's at K = 1024 with its
 # 64 edge uplinks (downlink, moments, W_RF, classifier w and b), and ragged ones
 K10_CHECK = ((1, 1024), (4, 1024), (5, 32768), (4, 160), (4, 5), (64, 1024), (65, 32768),
@@ -324,7 +342,7 @@ def main() -> int:
 
     from repro_torch.core import mmd, rf_tca
     from repro_torch.core.kernels_math import (
-        assemble_streamed_gram, assemble_streamed_gram_ensemble, ell_vector, median_sigma,
+        assemble_streamed_gram_ensemble, ell_vector, median_sigma,
     )
     from repro_torch.core.rff import draw_omega
     from repro_torch.data import make_domains
@@ -441,13 +459,11 @@ def main() -> int:
         return dict(G_H=float((g - g_ref).abs().max()) / float(g_ref.abs().max()),
                     u=float((u - u_ref).abs().max()))
 
-    def fused_gram_exact(xg, lg, nf, draws, sig):
-        """(G_H, u) in float64 from the same Omega draws and scale."""
-        inv, xd, ld = gram.feature_scale(nf, draws), xg.double(), lg.double()
+    def gram_exact(xg, lg, oms, inv):
+        """(G_H, u) in float64 from the same Omega draws ``oms`` and scale."""
+        xd, ld = xg.double(), lg.double()
         cs, ss = [], []
-        for e in range(draws):
-            om = prng.fused_omega_block_plain(SEED, nf, xg.shape[0], ensemble_index=e, sigma=sig,
-                                              device=dev)
+        for om in oms:
             z = om.double() @ xd
             cs.append(torch.cos(z) * inv)
             ss.append(torch.sin(z) * inv)
@@ -455,28 +471,23 @@ def main() -> int:
                for blocks in (cs, ss)]
         c, s = torch.cat(cs, dim=1), torch.cat(ss, dim=1)
         return assemble_streamed_gram_ensemble(c @ c.T, c @ s.T, s @ s.T, *mom, n=xg.shape[1],
-                                               ensemble=draws)
+                                               ensemble=len(oms))
 
-    def fused_gram_check(xg, nf, draws, sig, exact=False):
-        """The gate against plain; on a metric past it, the float64 answer
-        must be past it too and the kernel no farther from that than plain.
-        ``exact`` reports both distances from the float64 answer always."""
-        ng = xg.shape[1]
-        lg = ell if ng == n else ell_vector(ng // 2, ng - ng // 2, device=dev)
-        kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sig)
-        g_k, u_k = assemble_streamed_gram_ensemble(
-            *gram.rff_gram_stream_fused(xg, lg, **kw), n=ng, ensemble=draws)
-        g_p, u_p = assemble_streamed_gram_ensemble(
-            *gram.rff_gram_stream_fused_plain(xg, lg, **kw), n=ng, ensemble=draws)
+    def gram_gate(what, five_k, five_p, exact, ng, draws, report_exact):
+        """The gate on the assembled (G_H, u) against plain; on a metric past
+        it, the float64 answer (``exact()``) must be past it too and the
+        kernel no farther from that than plain.  ``report_exact`` reports
+        both distances from the float64 answer always."""
+        g_k, u_k = assemble_streamed_gram_ensemble(*five_k, n=ng, ensemble=draws)
+        g_p, u_p = assemble_streamed_gram_ensemble(*five_p, n=ng, ensemble=draws)
         res = gram_errs(g_k, u_k, g_p, u_p)
         over = [m for m in ("G_H", "u") if not res[m] <= GRAM_ATOL]
-        if over or exact:
-            g_x, u_x = fused_gram_exact(xg, lg, nf, draws, sig)
+        if over or report_exact:
+            g_x, u_x = exact()
             kx, px = gram_errs(g_k, u_k, g_x, u_x), gram_errs(g_p, u_p, g_x, u_x)
             for m in ("G_H", "u"):
                 res[f"{m}_kernel_vs_exact"], res[f"{m}_plain_vs_exact"] = kx[m], px[m]
         if over:
-            what = f"fused Gram N={nf} S={draws} p={xg.shape[0]} n={ng} sigma={sig:.4g}"
             log(f"[gram] {what}: past {GRAM_ATOL} of plain, against float64 {res}")
             for m in over:
                 if px[m] <= GRAM_ATOL:
@@ -485,6 +496,30 @@ def main() -> int:
                 if not kx[m] <= px[m]:
                     raise AssertionError(f"{what}: {m} farther from float64 than plain ({res})")
         return res
+
+    def ell_of(ng):
+        return ell if ng == n else ell_vector(ng // 2, ng - ng // 2, device=dev)
+
+    def fused_gram_check(xg, nf, draws, sig, exact=False):
+        ng, lg = xg.shape[1], ell_of(xg.shape[1])
+        kw = dict(n_features=nf, seed=SEED, ensemble=draws, sigma=sig)
+
+        def exact_answer():
+            oms = [prng.fused_omega_block_plain(SEED, nf, xg.shape[0], ensemble_index=e,
+                                                sigma=sig, device=dev) for e in range(draws)]
+            return gram_exact(xg, lg, oms, gram.feature_scale(nf, draws))
+
+        return gram_gate(f"fused Gram N={nf} S={draws} p={xg.shape[0]} n={ng} sigma={sig:.4g}",
+                         gram.rff_gram_stream_fused(xg, lg, **kw),
+                         gram.rff_gram_stream_fused_plain(xg, lg, **kw), exact_answer,
+                         ng, draws, exact)
+
+    def operand_gram_check(xg, om, what, exact=False):
+        ng, lg = xg.shape[1], ell_of(xg.shape[1])
+        return gram_gate(f"operand Gram {what}", gram.rff_gram_stream(xg, om, lg),
+                         gram.rff_gram_stream_plain(xg, om, lg),
+                         lambda: gram_exact(xg, lg, [om], gram.feature_scale(om.shape[0], 1)),
+                         ng, 1, exact)
 
     for nf, draws in ((1000, 1), (1000, 4), (4096, 1), (4096, 4)):
         block = gram.gram_tile_plan(nf, n=n, ensemble=draws)["block"]
@@ -584,17 +619,21 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- 5. operand Gram (K2/K3), seed-fused featurize (K7), centered Gram (K8)
+    operand_edges = []
+    for nf, pe, ne in OPERAND_GRAM_EDGES:
+        xe = xt[:pe, :ne].contiguous()
+        for sig in (sigma, median_sigma(xe)):
+            what = f"N={nf} p={pe} n={ne} sigma={sig:.4g}"
+            res = operand_gram_check(xe, draw_omega(SEED, nf, pe, sigma=sig, device=dev), what,
+                                     exact=True)
+            operand_edges.append(dict(N=nf, p=pe, n=ne, sigma=sig, **res))
+            log(f"[K2] edge {what}: G_H/max {res['G_H']:.3g}, u {res['u']:.3g}; G_H from "
+                f"float64: kernel {res['G_H_kernel_vs_exact']:.3g}, plain "
+                f"{res['G_H_plain_vs_exact']:.3g}")
     for key, nf in (("K2", 1000), ("K3", 4096)):
         om = draw_omega(SEED, nf, P, sigma=sigma, device=dev)
-        g_k, u_k = ops.rff_gram_stream(x, om, ell)
-        five = gram.rff_gram_stream_plain(x, om, ell)
-        g_p, u_p = assemble_streamed_gram(five[0], five[1], five[2], five[3][:, 0],
-                                          five[4][:, 0], five[3][:, 1], five[4][:, 1], n=n)
-        eg = float((g_k - g_p).abs().max() / g_p.abs().max())
-        eu = float((u_k - u_p).abs().max())
-        if not (eg <= GRAM_ATOL and eu <= GRAM_ATOL):
-            raise AssertionError(f"{key} N={nf}: G_H {eg}, u {eu} > {GRAM_ATOL}")
-        del g_k, g_p, five
+        res = operand_gram_check(x, om, f"N={nf}")
+        eg, eu = res["G_H"], res["u"]
         block = gram.gram_tile_plan(nf, n=n)["block"]
         k_ms = cuda_ms(torch, lambda: gram.rff_gram_stream(x, om, ell), 3)
         p_ms = cuda_ms(torch, lambda: gram.rff_gram_stream_plain(x, om, ell), 3)
@@ -605,13 +644,14 @@ def main() -> int:
         del w
         flops = 2 * nf * P * n + 2 * n * (nf * nf + nf * (nf + 1))
         nbytes = (nf * P + P * n + n + 3 * nf * nf + 4 * nf) * 4
-        b_ms, b_by = bound_ms(flops, nbytes)
+        b_ms, b_by = bound_ms(flops, nbytes, peak_flops=PEAK_SPLIT_TF32_FLOPS)
         bounds = product_bounds(flops, nbytes)
         report[key] = dict(
             name=f"rff_gram_stream (Omega operand, N={nf})", route="cuda",
             source="src/repro_torch/kernels/csrc/rff_gram_stream_fused.cu",
-            headers=["src/repro_torch/kernels/csrc/featurize.cuh",
-                     "src/repro_torch/kernels/csrc/gram_tile.cuh"],
+            headers=["src/repro_torch/kernels/csrc/featurize_tf32.cuh",
+                     "src/repro_torch/kernels/csrc/gram_tf32.cuh",
+                     "src/repro_torch/kernels/csrc/hopper.cuh"],
             replaces=("src/repro/kernels/rff_gram_stream.py:244" if key == "K2"
                       else "src/repro/kernels/rff_gram_stream.py:180"),
             max_abs_err=max(eg, eu), tolerance=f"atol {GRAM_ATOL} on G_H/max|G_H| and u",
@@ -619,9 +659,30 @@ def main() -> int:
             shape=f"N={nf} p={P} n={n} block={block}",
         )
         log(f"[{key}] N={nf}: G_H/max {eg:.3g}, u {eu:.3g}; kernel {k_ms:.3f} ms, plain "
-            f"{p_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
-            f"split-TF32 {bounds['bound_split_tf32_ms']:.3f})")
+            f"{p_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms split-TF32 "
+            f"({bounds['bound_fp32_ms']:.3f} fp32)")
         del om
+    report["K2"]["edges"] = operand_edges
+    # K2 with a Cauchy Omega at the data's sigma: about half the phases reach
+    # |z| >= 64 and are recomputed as fp32's FMA chain from the operand
+    nf = 1000
+    om = draw_omega(SEED, nf, P, sigma=sigma, kernel="laplace", device=dev)
+    res = operand_gram_check(x, om, f"N={nf} laplace", exact=True)
+    cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+    gram.rff_gram_stream(x, om, ell, counters=cnt)
+    drawn, recomputed, redrawn = cnt.tolist()
+    if drawn or redrawn or not recomputed:
+        raise AssertionError(f"K2 laplace: counters {cnt.tolist()}, expected only recomputed "
+                             "phases")
+    res.update(ms=cuda_ms(torch, lambda: gram.rff_gram_stream(x, om, ell), 3),
+               plain_ms=cuda_ms(torch, lambda: gram.rff_gram_stream_plain(x, om, ell), 3),
+               recomputed_share=recomputed / (nf * n))
+    report["K2"]["laplace"] = res
+    log(f"[K2] laplace N={nf} p={P} n={n}: kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, {100 * res['recomputed_share']:.2f} % of phases recomputed "
+        f"(kernel's count); G_H/max {res['G_H']:.3g}, u {res['u']:.3g}; G_H from float64: "
+        f"kernel {res['G_H_kernel_vs_exact']:.3g}, plain {res['G_H_plain_vs_exact']:.3g}")
+    del om
     torch.cuda.synchronize()
 
     k7_errs = {}
@@ -668,42 +729,78 @@ def main() -> int:
     laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1,
                 lambda a, b: dict(max_abs_err=float((a - b).abs().max())), x=x, ensemble_index=1)
 
+    def centered_check(sig, what, exact=False):
+        """K8's gate, G/max within 1e-5 of plain, or, where plain itself is
+        past that from the float64 answer, the kernel no farther from it."""
+        g_k = centered.centered_gram(sig)
+        g_p = centered.centered_gram_plain(sig)
+        if not torch.equal(g_k, g_k.T):
+            raise AssertionError(f"K8 {what}: G is not symmetric")
+        res = dict(G=float((g_k - g_p).abs().max() / g_p.abs().max()))
+        if not res["G"] <= CENTERED_ATOL or exact:
+            g_x = centered.centered_gram_plain(sig.double())
+            scale = float(g_x.abs().max())
+            res["G_kernel_vs_exact"] = float((g_k.double() - g_x).abs().max()) / scale
+            res["G_plain_vs_exact"] = float((g_p.double() - g_x).abs().max()) / scale
+        if not res["G"] <= CENTERED_ATOL:
+            log(f"[K8] {what}: past {CENTERED_ATOL} of plain, against float64 {res}")
+            if res["G_plain_vs_exact"] <= CENTERED_ATOL:
+                raise AssertionError(f"K8 {what}: G/max {res['G']} > {CENTERED_ATOL} from plain,"
+                                     f" where the float64 answer is {res['G_plain_vs_exact']}")
+            if not res["G_kernel_vs_exact"] <= res["G_plain_vs_exact"]:
+                raise AssertionError(f"K8 {what}: farther from float64 than plain ({res})")
+        return res
+
+    k8_edges = []
+    for nf, pe, ne in K8_EDGES:
+        xe = (x if ne > N_T else xt)[:pe, :ne].contiguous()
+        sig = rff.rff(xe, draw_omega(SEED, nf, pe, sigma=sigma, device=dev))
+        what = f"2N={2 * nf} p={pe} n={ne} sigma={sigma:.4g}"
+        res = centered_check(sig, what, exact=True)
+        k8_edges.append(dict(two_N=2 * nf, p=pe, n=ne, sigma=sigma, **res))
+        log(f"[K8] edge {what}: G/max {res['G']:.3g}; from float64: kernel "
+            f"{res['G_kernel_vs_exact']:.3g}, plain {res['G_plain_vs_exact']:.3g}")
     k8 = {}
     for nf in (1000, 4096):
         sig = rff.rff(x, draw_omega(SEED, nf, P, sigma=sigma, device=dev))
         rows = 2 * nf
-        g_k = centered.centered_gram(sig)
-        g_p = centered.centered_gram_plain(sig)
-        err = float((g_k - g_p).abs().max() / g_p.abs().max())
-        if not err <= CENTERED_ATOL:
-            raise AssertionError(f"K8 2N={rows}: G/max {err} > {CENTERED_ATOL}")
-        del g_k, g_p
+        err = centered_check(sig, f"2N={rows}")["G"]
         c = sig - sig.mean(dim=1, keepdim=True)
         k8_work = (rows * (rows + 1) * n, (rows * n + rows * rows) * 4)
-        b_ms, b_by = bound_ms(*k8_work)
+        b_ms, b_by = bound_ms(*k8_work, peak_flops=PEAK_SPLIT_TF32_FLOPS)
         k8[rows] = dict(
             max_abs_err=err, ms=cuda_ms(torch, lambda: centered.centered_gram(sig), 5),
             plain_ms=cuda_ms(torch, lambda: centered.centered_gram_plain(sig), 5),
             library_ms=cuda_ms(torch, lambda: torch.matmul(c, c.T), 5),
             bound_ms=b_ms, bound_by=b_by, **product_bounds(*k8_work),
         )
+        if rows == 2000:
+            k8[rows]["bit_identical_repeat"] = torch.equal(centered.centered_gram(sig),
+                                                           centered.centered_gram(sig))
         del sig, c
         log(f"[K8] 2N={rows} n={n}: G/max {err:.3g}; kernel {k8[rows]['ms']:.3f} ms, plain "
             f"{k8[rows]['plain_ms']:.3f} ms, torch.matmul {k8[rows]['library_ms']:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by})")
+            f"bound {b_ms:.3f} ms split-TF32 ({k8[rows]['bound_fp32_ms']:.3f} fp32)")
+    log(f"[K8] two identical calls at 2N=2000 bit-identical: "
+        f"{k8[2000]['bit_identical_repeat']} (k split across blocks, atomic adds)")
     report["K8"] = dict(
         name="centered_gram", route="cuda", source="src/repro_torch/kernels/csrc/centered_gram.cu",
-        headers=["src/repro_torch/kernels/csrc/gram_tile.cuh"],
+        headers=["src/repro_torch/kernels/csrc/gram_tf32.cuh",
+                 "src/repro_torch/kernels/csrc/hopper.cuh"],
         replaces="src/repro/kernels/centered_gram.py:38",
         tolerance=f"atol {CENTERED_ATOL} on G/max|G|", shape=f"2N=8192 n={n}",
         **{k: v for k, v in k8[8192].items()},
         max_abs_err_all=max(v["max_abs_err"] for v in k8.values()),
-        small=dict(shape=f"2N=2000 n={n}", **k8[2000]),
+        small=dict(shape=f"2N=2000 n={n}", **k8[2000]), edges=k8_edges,
     )
     torch.cuda.synchronize()
-    # the tensor-core kernels of K5-K7: registers, spills, HGMMA in the SASS
-    for lib, key, entries in (("rff", "K7", ("featurize_tf32",)),
-                              ("rff_gram_stream_fused", "K5", ("featurize_tf32", "gram_tf32"))):
+    # the tensor-core kernels of K2/K3, K5-K8: registers, spills, HGMMA in the
+    # SASS (featurize_tf32_kernel<false> draws Omega, <true> loads it)
+    for lib, key, entries in (("rff", "K7", ("featurize_tf32_kernel",)),
+                              ("rff_gram_stream_fused", "K5",
+                               ("featurize_tf32_kernelILb0", "featurize_tf32_kernelILb1",
+                                "gram_tf32_kernel")),
+                              ("centered_gram", "K8", ("gram_tf32_kernel",))):
         lines = ptxas_entries(_build.ptxas(lib), entries)
         hgmma = sum("HGMMA" in line for line in _build.sass(lib).splitlines())
         for line in lines:
@@ -717,8 +814,9 @@ def main() -> int:
             raise AssertionError(f"{lib}: a tensor-core kernel spills: {lines}")
         report[key][f"ptxas_{lib}"] = lines
         report[key][f"hgmma_{lib}"] = hgmma
-    report["K6"]["ptxas_rff_gram_stream_fused"] = report["K5"]["ptxas_rff_gram_stream_fused"]
-    report["K6"]["hgmma_rff_gram_stream_fused"] = report["K5"]["hgmma_rff_gram_stream_fused"]
+    for key in ("K6", "K2", "K3"):
+        for field in ("ptxas_rff_gram_stream_fused", "hgmma_rff_gram_stream_fused"):
+            report[key][field] = report["K5"][field]
 
     # ---- 6. small fit: card vs the CPU plain path --------------------------
     small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",

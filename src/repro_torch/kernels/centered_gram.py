@@ -3,9 +3,11 @@
 Port of ``repro.kernels.centered_gram.centered_gram_pallas``, the statistics
 of the dense RF-TCA fit (``mode="dense"``).  As in the reference, the row mean
 mu is a torch reduction outside the kernel; on a CUDA tensor
-:func:`centered_gram` launches ``csrc/centered_gram.cu``, which subtracts mu
-as tiles are loaded, masks the ragged sample count and computes the upper
-output tiles only; on a CPU tensor it runs :func:`centered_gram_plain`.
+:func:`centered_gram` launches ``csrc/centered_gram.cu`` (the tensor-core
+Gram of ``csrc/gram_tf32.cuh``: three tf32 products a product), which
+subtracts mu from both operands as tiles are loaded, masks the ragged sample
+count after that and computes the upper output tiles only; on a CPU tensor
+it runs :func:`centered_gram_plain`.
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.rff import tma_rows
 from repro_torch.kernels.rff_gram_stream import mirror_upper
 
 LAUNCHES = {"centered_gram": 0}
@@ -38,10 +41,12 @@ def centered_gram(sigma: torch.Tensor) -> torch.Tensor:
     if rows == 0 or n == 0:
         return out
     mu = sigma.mean(dim=1).contiguous()
+    sr = tma_rows(sigma)
     f = _build.fn("centered_gram", "rt_centered_gram",
-                  [_build.VP, _build.VP, _build.I32, _build.I32, _build.VP, _build.VP])
+                  [_build.VP, _build.I64, _build.VP, _build.I32, _build.I32, _build.VP, _build.VP])
     with torch.cuda.device(sigma.device):
-        err = f(sigma.data_ptr(), mu.data_ptr(), rows, n, out.data_ptr(), _build.stream_ptr())
+        err = f(sr.data_ptr(), sr.shape[1], mu.data_ptr(), rows, n, out.data_ptr(),
+                _build.stream_ptr())
     _build.check(err, "centered_gram")
     LAUNCHES["centered_gram"] += 1
     return mirror_upper(out)

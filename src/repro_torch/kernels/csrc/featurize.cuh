@@ -1,9 +1,8 @@
 // Featurize: [cos(Omega X); sin(Omega X)] * scale, an fp32 FFMA product over
 // p with the cos/sin epilogue fused, written by hand (no cuBLAS).
 //
-// Only the operand path uses it now: K1 (rff.cu) and K2/K3's first stage
-// (rff_gram_stream_fused.cu, rt_operand_featurize), with OperandOmega as the
-// Omega source.  The seed-fused path (K7, K5/K6) runs on the tensor cores in
+// Only K1 (rff.cu) uses it now, with OperandOmega as the Omega source; K2/K3
+// and the seed-fused path (K7, K5/K6) run on the tensor cores in
 // featurize_tf32.cuh.  The source is the template parameter `Gen`, any
 // functor `float operator()(row, col)` with a `draw(e)` that selects ensemble
 // draw e (blockIdx.y).  `Gen` is called only for row < nf and col < p, so an

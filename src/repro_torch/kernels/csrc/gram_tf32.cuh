@@ -1,55 +1,71 @@
-// The seed-fused Gram accumulate on Hopper's tensor cores: G_cc += C C^T,
-// G_cs += C S^T, G_ss += S S^T over one chunk's k = S bc columns of the cos
-// and sin slabs, fp32-accurate as three tf32 products.
+// The Gram products on Hopper's tensor cores, fp32-accurate as three tf32
+// products, one design for every Gram of the port:
+//   - the streamed Gram accumulate (kCentered = false): G_cc += C C^T, G_cs
+//     += C S^T, G_ss += S S^T over one chunk's k = S bc columns of the cos
+//     and sin slabs, whether Omega is an operand or drawn;
+//   - the centered Gram (kCentered = true): G = (Sigma - mu 1^T)(Sigma -
+//     mu 1^T)^T over the n samples of Sigma (2N, n).
 //
-// Replaces the Gram stage of src/repro/kernels/rff_gram_stream.py:524
-// (rff_gram_stream_fused_pallas, K5) and :587 (its tiled form, K6).  The
-// operand path (K2/K3) keeps the FFMA tile of gram_tile.cuh.
+// Replaces the Gram stage of src/repro/kernels/rff_gram_stream.py:244
+// (rff_gram_stream_pallas, K2), :180 (its tiled form, K3), :524
+// (rff_gram_stream_fused_pallas, K5) and :587 (its tiled form, K6), and
+// src/repro/kernels/centered_gram.py:38 (centered_gram_pallas, K8).
 //
-// Bound: operations, ~4 S n N^2 fp32-accurate FLOP with the symmetry, 3x that
-// on the tf32 tensor cores (495 TFLOP/s dense).  A 128 x 128 tile reads 32 KB
-// a k-step of 32 for 1 MFLOP of fp32-equivalent work, so at the split-TF32
-// rate it leans on the L2 (the slabs of one chunk, 30-64 MB, are read by
-// every tile of a row or column).
+// Bound: operations, ~4 S n N^2 fp32-accurate FLOP with the symmetry for
+// the streamed Gram, (2N)^2 n for the centered one, 3x that on the tf32
+// tensor cores (495 TFLOP/s dense).  A 128 x 128 tile reads 32 KB a k-step
+// of 32 for 1 MFLOP of fp32-equivalent work, so at the split-TF32 rate it
+// leans on the L2 (the slabs of one chunk, 30-64 MB, or Sigma, 30-118 MB,
+// are read by every tile of a row or column).
 //
 // Design:
-//   - Both operands are the slabs' rows, K-major as tf32 wgmma needs.  A
-//     (tile rows) comes from shared memory into registers, split there into
-//     hi = tf32(v) and lo = tf32(v - hi); B (tile columns) is split once a
-//     stage by the producer warpgroup into hi (in place) and lo tiles, so the
-//     workspace keeps one fp32 slab per chunk (pre-split slabs would halve
-//     the chunk width and double the read-modify-writes of the N^2
-//     accumulators).  Each k-step runs three wgmma m64n128k8 into one fp32
-//     accumulator, the two small terms first (A_lo B_hi, A_hi B_lo, A_hi B_hi).
-//     The tensor cores' fp32 additions round toward zero, which over a
+//   - Both operands are rows of one (rows, K) matrix, K-major as tf32 wgmma
+//     needs.  A (tile rows) comes from shared memory into registers, split
+//     there into hi = tf32(v) and lo = tf32(v - hi); B (tile columns) is
+//     split once a stage by the producer warpgroup into hi (in place) and lo
+//     tiles, so the operand stays one fp32 matrix in device memory (pre-split
+//     slabs would halve the chunk width and double the read-modify-writes of
+//     the N^2 accumulators).  Each k-step runs three wgmma m64n128k8 into one
+//     fp32 accumulator, the two small terms first (A_lo B_hi, A_hi B_lo, A_hi
+//     B_hi).  The tensor cores' fp32 additions round toward zero, which over a
 //     chunk's k (2048 at N = 4096, S = 4) biases a positive diagonal by ~1e-5
 //     of its size, half the gate; so each stage (k of 32) starts a fresh
 //     wgmma accumulator, added to the block's sum in registers with fp32's
 //     rounding to nearest (~5e-7: tests/test_torch_split_tf32_numerics.py).
 //   - Warp-specialised: one producer thread keeps a 4-stage TMA ring of A and
-//     B tiles (32 k x 128 rows each, 128-byte swizzle, rows past N
-//     zero-filled) in flight; producer warps 1-3 split B (an issuing thread
-//     that also split measured slower: its waits for free stages held the
-//     splits back); consumer warpgroups 1 and 2 own 64 tile rows each.
-//   - A shifted: each row of the A operand (C for G_cc and G_cs, S for
-//     G_ss) is taken less its draw's shift a (the row's mean over that
-//     draw's columns of the first chunk, from the moments), so the products
-//     are (A - a 1^T) B^T; the last chunk's launch adds a (B 1)^T, B 1 the
-//     moments' column sums over every chunk.  With small phases a row of C
-//     is nearly constant and G_H is a cancellation of G_cc; products of the
-//     unshifted rows (each value split into two tf32 parts, ~2^-22 of it
+//     B tiles (32 k x 128 rows each, 128-byte swizzle, rows past the matrix
+//     and k past its columns zero-filled) in flight; producer warps 1-3 split
+//     B (an issuing thread that also split measured slower: its waits for
+//     free stages held the splits back); consumer warpgroups 1 and 2 own 64
+//     tile rows each.
+//   - Streamed Gram, A shifted: each row of the A operand (C for G_cc and
+//     G_cs, S for G_ss) is taken less its draw's shift a (the row's mean over
+//     that draw's columns of the first chunk, from the moments), so the
+//     products are (A - a 1^T) B^T; the last chunk's launch adds a (B 1)^T,
+//     B 1 the moments' column sums over every chunk.  With small phases a row
+//     of C is nearly constant and G_H is a cancellation of G_cc; products of
+//     the unshifted rows (each value split into two tf32 parts, ~2^-22 of it
 //     lost) came out farther from the float64 answer than fp32's sgemm
 //     (H100: 1.5e-5 against 1.2e-5 at N = 65, p = 40, sigma = 28).  A
 //     shifted row is small, and so are the split's losses on both operands
 //     of its products (tests/test_torch_split_tf32_numerics.py).
-//   - The grid walks the upper tiles of G_cc and G_ss (they are symmetric;
-//     the wrapper mirrors them) and every tile of G_cs.  Where those tiles
-//     are too few for the card (K5's 136 at N = 1000 on 132 SMs) the chunk's
-//     k is split across blocks (`split`), each adding its part with
-//     red.global.add: the order of the additions then varies from run to
-//     run, so two identical calls agree to rounding, not bit for bit.  With
-//     split = 1 each tile is read, added to and written back, in a fixed
-//     order.
+//   - Centered Gram, both operands shifted: A less mu in registers as above,
+//     B less mu in the splitters' pass, and no add-back.  A one-sided shift
+//     would leave ((Sigma - mu 1^T) 1) mu^T, mu times the rounding residue of
+//     the mean: on nearly constant rows (cos rows at small phases) that is
+//     past the 1e-5 gate.  n need not be a multiple of 32: TMA fills the
+//     columns past n with 0, which the shift would turn into -mu (a bias of
+//     pad mu_i mu_j an entry), so columns at or past n are masked to 0 after
+//     the shift, in both operands.  One product, upper tiles only.
+//   - The grid walks the upper tiles of the symmetric products (G_cc, G_ss,
+//     the centered G; the wrappers mirror them) and every tile of G_cs.
+//     Where those tiles are too few for the card (K5's and K2's 136 at N =
+//     1000, K8's 136 at 2N = 2000, on 132 SMs) the k axis is split across
+//     blocks (`split`), each adding its part with red.global.add: the order of
+//     the additions then varies from run to run, so two identical calls agree
+//     to rounding, not bit for bit (the mirrored output stays exactly
+//     symmetric).  With split = 1 each tile is read, added to and written
+//     back, in a fixed order.
 #pragma once
 #include <cstdint>
 #include <cuda.h>
@@ -79,6 +95,7 @@ struct GxArgs {
   // sums of C and of S over every chunk; null before it
   const float* mom_c;
   const float* mom_s;
+  int k_valid;  // columns at or past it are padding, masked after the shift (centered)
 };
 
 // tile q of the upper triangle, column-major: (bi, bj) with bi <= bj
@@ -90,6 +107,9 @@ __device__ __forceinline__ void upper_tile(int q, int& bi, int& bj) {
   bi = q - j * (j + 1) / 2;
 }
 
+// kCentered: one product (G_cc's slot) of the (nf, K) matrix with itself,
+// both operands less shift_c (mu, draws = 1), columns >= k_valid masked
+template <bool kCentered>
 __global__ void __launch_bounds__(384, 1)
 gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap ts,
                  const GxArgs a) {
@@ -105,10 +125,11 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
   auto empty = [&](int s) { return bars + 8u * (2 * GX_STAGES + s); };
 
   // block -> (which, bi, bj): upper G_cc tiles, all G_cs tiles, upper G_ss
+  // (centered: the upper tiles of its one product)
   const int t_side = (a.nf + GX_T - 1) / GX_T;
   const int n_up = t_side * (t_side + 1) / 2;
   int q = blockIdx.x, which, bi, bj;
-  if (q < n_up) {
+  if (kCentered || q < n_up) {
     which = 0;
     upper_tile(q, bi, bj);
   } else if (q < n_up + t_side * t_side) {
@@ -169,11 +190,7 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
         hop::mbar_wait(landed(s), (it / GX_STAGES) & 1);
         float4* hi = reinterpret_cast<float4*>(sb + (b_hi(s) - base));
         float4* lo = reinterpret_cast<float4*>(sb + (b_lo(s) - base));
-#pragma unroll
-        for (int j = 0; j < (GX_TILE_BYTES / 16 + GX_SPLITTERS - 1) / GX_SPLITTERS; ++j) {
-          const int i = u + GX_SPLITTERS * j;
-          if (i >= GX_TILE_BYTES / 16) break;
-          const float4 v = hi[i];
+        auto split = [&](int i, float4 v) {
           uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
           hop::split_tf32(v.x, h0, l0);
           hop::split_tf32(v.y, h1, l1);
@@ -183,6 +200,33 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
                               __uint_as_float(h3));
           lo[i] = make_float4(__uint_as_float(l0), __uint_as_float(l1), __uint_as_float(l2),
                               __uint_as_float(l3));
+        };
+        if constexpr (kCentered) {
+          // B less mu, the columns past k_valid masked after the shift; one
+          // float4 at a time (unrolled with the means it spilled at 40
+          // registers).  float4 i holds row i / 8, swizzled chunk i % 8:
+          // columns k .. k + 3
+          const int k0 = (kt0 + it) * GX_BK;
+#pragma unroll 1
+          for (int i = u; i < GX_TILE_BYTES / 16; i += GX_SPLITTERS) {
+            const int r = i / 8;
+            const int k = k0 + 4 * ((i % 8) ^ (r % 8));
+            const int gr = bj * GX_T + r;
+            const float m = gr < a.nf ? __ldg(a.shift_c + gr) : 0.f;
+            float4 v = hi[i];
+            v.x = k < a.k_valid ? v.x - m : 0.f;
+            v.y = k + 1 < a.k_valid ? v.y - m : 0.f;
+            v.z = k + 2 < a.k_valid ? v.z - m : 0.f;
+            v.w = k + 3 < a.k_valid ? v.w - m : 0.f;
+            split(i, v);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < (GX_TILE_BYTES / 16 + GX_SPLITTERS - 1) / GX_SPLITTERS; ++j) {
+            const int i = u + GX_SPLITTERS * j;
+            if (i >= GX_TILE_BYTES / 16) break;
+            split(i, hi[i]);
+          }
         }
         hop::fence_proxy_async();  // B hi and lo are wgmma operands
         hop::mbar_arrive(full(s));
@@ -219,6 +263,8 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
       }
       hop::mbar_wait(full(s), (it / GX_STAGES) & 1);
       const uint8_t* at = sb + (a_sm(s) - base);
+      // the centered Gram masks the padding columns after the shift
+      const int k_pad = kCentered ? a.k_valid - (kt0 + it) * GX_BK : GX_BK;
       uint32_t hi[GX_BK / 8][4], lo[GX_BK / 8][4];
 #pragma unroll
       for (int kk = 0; kk < GX_BK / 8; ++kk) {
@@ -227,10 +273,10 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
         const float v1 = *reinterpret_cast<const float*>(at + hop::sw128_f32(r0 + 8, k));
         const float v2 = *reinterpret_cast<const float*>(at + hop::sw128_f32(r0, k + 4));
         const float v3 = *reinterpret_cast<const float*>(at + hop::sw128_f32(r0 + 8, k + 4));
-        hop::split_tf32(v0 - sh0, hi[kk][0], lo[kk][0]);
-        hop::split_tf32(v1 - sh1, hi[kk][1], lo[kk][1]);
-        hop::split_tf32(v2 - sh0, hi[kk][2], lo[kk][2]);
-        hop::split_tf32(v3 - sh1, hi[kk][3], lo[kk][3]);
+        hop::split_tf32(k < k_pad ? v0 - sh0 : 0.f, hi[kk][0], lo[kk][0]);
+        hop::split_tf32(k < k_pad ? v1 - sh1 : 0.f, hi[kk][1], lo[kk][1]);
+        hop::split_tf32(k + 4 < k_pad ? v2 - sh0 : 0.f, hi[kk][2], lo[kk][2]);
+        hop::split_tf32(k + 4 < k_pad ? v3 - sh1 : 0.f, hi[kk][3], lo[kk][3]);
       }
       hop::wgmma_fence();
 #pragma unroll
@@ -275,53 +321,27 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
   }
 }
 
-// a 2-d map of an (nf, K) fp32 slab, boxes of 32 k x 128 rows, 128-byte swizzle
-inline bool make_slab_map(CUtensorMap* map, const void* ptr, int nf, int K) {
-  cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)nf};
-  cuuint64_t strides[1] = {(cuuint64_t)K * 4};
-  cuuint32_t box[2] = {(cuuint32_t)GX_BK, (cuuint32_t)GX_T};
-  cuuint32_t elem[2] = {1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
-                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// the k split for nf features and K columns: enough blocks for about four
-// waves where the tiles alone are fewer, at least 8 k-tiles a block
-inline int gram_tf32_split(int nf, int K, int sms) {
-  const int t = (nf + GX_T - 1) / GX_T;
-  const int tiles = t * (t + 1) + t * t;
-  const int n_kt = K / GX_BK;
+// the k split for `tiles` output tiles over n_kt k-tiles: enough blocks for
+// about four waves where the tiles alone are fewer, at least 8 k-tiles a block
+inline int gram_tf32_split(int tiles, int n_kt) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int most = n_kt / 8 > 1 ? n_kt / 8 : 1;
   const int split = (4 * sms + tiles - 1) / tiles;
   return split < most ? split : most;
 }
 
-// K = draws x bc columns, bc a multiple of 32 (the workspace's chunk widths
-// are of 256); shift_c, shift_s (nf, draws) or null; mom_c, mom_s the
-// moments (nf, 2 draws) at the last chunk, else null
-inline cudaError_t launch_gram_tf32(const float* wc, const float* ws, int nf, int K, int bc,
-                                    float* gcc, float* gcs, float* gss, const float* shift_c,
-                                    const float* shift_s, const float* mom_c, const float* mom_s,
-                                    cudaStream_t stream) {
-  if (K % GX_BK != 0 || bc % GX_BK != 0 || K % bc != 0) return cudaErrorInvalidValue;
-  CUtensorMap tc, ts;
-  if (!make_slab_map(&tc, wc, nf, K) || !make_slab_map(&ts, ws, nf, K))
-    return cudaErrorInvalidValue;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int t = (nf + GX_T - 1) / GX_T;
-  const int tiles = t * (t + 1) + t * t;
-  GxArgs a{nf, K / GX_BK, 0, gram_tf32_split(nf, K, sms), gcc, gcs, gss,
-           shift_c, shift_s, bc / GX_BK, K / bc, mom_c, mom_s};
+template <bool kCentered>
+inline cudaError_t launch_gram_tf32_kernel(const CUtensorMap& ta, const CUtensorMap& tb, int tiles,
+                                           GxArgs a, cudaStream_t stream) {
+  a.split = gram_tf32_split(tiles, a.n_kt);
   a.kt_per_split = (a.n_kt + a.split - 1) / a.split;
   a.split = (a.n_kt + a.kt_per_split - 1) / a.kt_per_split;
-  cudaError_t err = cudaFuncSetAttribute(gram_tf32_kernel,
+  cudaError_t err = cudaFuncSetAttribute(gram_tf32_kernel<kCentered>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, GX_SMEM);
   if (err != cudaSuccess) return err;
-  gram_tf32_kernel<<<dim3(tiles, a.split), 384, GX_SMEM, stream>>>(tc, ts, a);
+  gram_tf32_kernel<kCentered><<<dim3(tiles, a.split), 384, GX_SMEM, stream>>>(ta, tb, a);
   return cudaGetLastError();
 }
 

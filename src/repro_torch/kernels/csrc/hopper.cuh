@@ -2,7 +2,7 @@
 // loads, warpgroup matrix multiplies (wgmma) and their shared-memory
 // descriptors.  Used by flash_attention.cu (K11's bf16 path) and, in their
 // tf32 forms with the cluster and cp.async helpers at the end of this file,
-// by featurize_tf32.cuh and gram_tf32.cuh (K7 and K5/K6).
+// by featurize_tf32.cuh and gram_tf32.cuh (K2/K3, K5-K8).
 //
 // Shared-memory tiles are bf16 rows of 128 bytes (64 values) stored with the
 // 128-byte swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: the
@@ -362,6 +362,23 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
+}
+
+// (host) the TMA map of a (rows, cols) fp32 matrix whose rows are ld floats
+// apart, boxes of box_cols x box_rows, 128-byte swizzle, out-of-bounds
+// elements read as 0; false where TMA cannot take it (ld not a multiple of 4,
+// ptr not 16-byte aligned) or cuTensorMapEncodeTiled refuses it
+inline bool map_f32_sw128(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols,
+                          int64_t ld, int box_cols, int box_rows) {
+  if (ld % 4 != 0 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 4};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // `bytes` (a multiple of 16) from this CTA's shared memory to `dst` in any CTA

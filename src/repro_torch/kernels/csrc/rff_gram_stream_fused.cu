@@ -13,51 +13,32 @@
 // for the operand path), padded sample columns masked to 0.
 //
 // Per chunk of bc sample columns the host launches, in order:
-//   1. featurize: rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
-//      threefry K4) on the tensor cores (featurize_tf32.cuh: three tf32
-//      products, Omega drawn once per 1024 columns of the chunk);
-//      rt_operand_featurize reads it from the (N, p) operand on the FFMA tile
-//      of featurize.cuh (OperandOmega, loads past p or N masked).  Either
-//      writes the chunk's (nf, S bc) cos and sin slabs into a workspace
-//      reused by every chunk;
+//   1. featurize on the tensor cores (featurize_tf32.cuh: three tf32
+//      products a product, phases of |z| >= 64 recomputed as fp32's FMA
+//      chain): rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
+//      threefry K4; once per 1024 columns of the chunk), rt_operand_featurize
+//      loads it from the (N, p) operand by TMA.  Either writes the chunk's
+//      (nf, S bc) cos and sin slabs into a workspace reused by every chunk;
 //   2. gram_moments: the 2S moment columns of the chunk, one warp per
 //      (row, draw, cos|sin), added into M_c and M_s;
-//   3. the three (nf, nf) products over k = S bc, added into G_cc, G_cs,
-//      G_ss: rt_fused_gram_accumulate on the tensor cores (gram_tf32.cuh:
-//      three tf32 products, a TMA ring, k split across blocks where the
-//      tiles are few, each row of the A operand taken less its draw's mean
-//      over the first chunk, added back by the last chunk's launch),
-//      rt_gram_accumulate on the FFMA 128 x 128 tile of gram_tile.cuh.  G_cc
-//      and G_ss are symmetric, so only tiles with row tile <= column tile
-//      are computed (the wrapper mirrors them).
+//   3. rt_fused_gram_accumulate: the three (nf, nf) products over k = S bc,
+//      added into G_cc, G_cs, G_ss on the tensor cores (gram_tf32.cuh: three
+//      tf32 products, a TMA ring, k split across blocks where the tiles are
+//      few, each row of the A operand taken less its draw's mean over the
+//      first chunk, added back by the last chunk's launch).  G_cc and G_ss
+//      are symmetric, so only tiles with row tile <= column tile are
+//      computed (the wrapper mirrors them).
 // Peak memory: O(N^2 + N bc S).  A fused Omega is drawn once per (feature
 // tile, k-tile, 1024 columns of a chunk); an operand Omega is read once per
-// 256-column tile.  Bound: operations of the Gram products (~4 S n nf^2
-// FLOP with the symmetry) ahead of the featurize product (2 S nf p n) and
-// the draws; the seed-fused path does them at the split-TF32 rate (495 / 3
-// TFLOP/s), the operand path at the fp32 FFMA rate (67 TFLOP/s).
-#include "featurize.cuh"
+// (feature tile, k-tile, 128 columns of a chunk), mostly from the L2.  Bound:
+// operations of the Gram products (~4 S n nf^2 FLOP with the symmetry) ahead
+// of the featurize product (2 S nf p n) and the draws, both at the
+// split-TF32 rate (495 / 3 TFLOP/s).
 #include "featurize_tf32.cuh"
 #include "gram_tf32.cuh"
-#include "gram_tile.cuh"
 #include "threefry.cuh"
 
 namespace {
-
-// Upper tiles of G_cc and G_ss (they are symmetric; the wrapper mirrors
-// them) and every tile of G_cs, all three over the chunk's k = S bc columns.
-__global__ void __launch_bounds__(rt::GTHREADS)
-gram_accumulate_kernel(const float* __restrict__ wc, const float* __restrict__ ws, int nf,
-                       int K, float* __restrict__ gcc, float* __restrict__ gcs,
-                       float* __restrict__ gss) {
-  const int which = blockIdx.z;  // 0: cc, 1: cs, 2: ss
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (which != 1 && bi > bj) return;
-  const float* A = which == 2 ? ws : wc;
-  const float* B = which == 0 ? wc : ws;
-  float* out = which == 0 ? gcc : (which == 1 ? gcs : gss);
-  rt::gram_tile<false>(A, B, K, nf, K, nullptr, bi, bj, out, nf);
-}
 
 // One warp per (row r, draw e, cos|sin): the chunk's ell-moment and column
 // sum of that feature row, added into columns (2e, 2e+1) of M_c or M_s.
@@ -104,14 +85,23 @@ extern "C" int rt_fused_featurize(uint32_t k0, float inv_sigma, int kind, const 
                                   static_cast<cudaStream_t>(stream)));
 }
 
+// omega (nf, ld_omega) with its first p columns the weights, ld_omega a
+// multiple of 4; x (p, ldx) likewise (TMA row strides; the wrapper pads);
+// stats: null, or the counters of launch_featurize_tf32, of which only the
+// phases recomputed are added to (nothing is drawn)
 extern "C" int rt_operand_featurize(const void* omega, int64_t ld_omega, const void* x,
                                     int64_t ldx, int x_col0, int nf, int p, int n_valid,
-                                    int bc, float scale, void* wc, void* ws, void* stream) {
-  const rt::OperandOmega gen{static_cast<const float*>(omega), ld_omega};
-  return int(rt::launch_featurize(gen, 1, static_cast<const float*>(x), ldx, x_col0, nf, p,
-                                  n_valid, bc, scale, static_cast<float*>(wc),
-                                  static_cast<float*>(ws), bc, bc,
-                                  static_cast<cudaStream_t>(stream)));
+                                    int bc, float scale, void* wc, void* ws, void* stats,
+                                    void* stream) {
+  CUtensorMap tx, tom;
+  if (!hop::map_f32_sw128(&tx, x, p, ldx, ldx, 32, rt::FT_BK) ||
+      !hop::map_f32_sw128(&tom, omega, nf, p, ld_omega, rt::FT_BK, rt::FT_OM_BOX_ROWS))
+    return int(cudaErrorInvalidValue);
+  const rt::FtArgs a{x_col0, nf, p, n_valid, bc, scale, static_cast<float*>(wc),
+                     static_cast<float*>(ws), bc, 0,
+                     static_cast<unsigned long long*>(stats)};
+  return int(rt::launch_featurize_tf32_kernel<true>(tx, tom, rt::FusedOmega{}, 1, a,
+                                                    static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int rt_gram_moments(const void* wc, const void* ws, int nf, int draws, int bc,
@@ -126,26 +116,25 @@ extern "C" int rt_gram_moments(const void* wc, const void* ws, int nf, int draws
   return int(cudaGetLastError());
 }
 
-extern "C" int rt_gram_accumulate(const void* wc, const void* ws, int nf, int K, void* gcc,
-                                  void* gcs, void* gss, void* stream) {
-  const int t = (nf + rt::GT - 1) / rt::GT;
-  gram_accumulate_kernel<<<dim3(t, t, 3), rt::GTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(wc), static_cast<const float*>(ws), nf, K,
-      static_cast<float*>(gcc), static_cast<float*>(gcs), static_cast<float*>(gss));
-  return int(cudaGetLastError());
-}
-
-// K = draws x bc; shift_c, shift_s: (nf, draws) row shifts of the A operand;
-// mom_c, mom_s: the moments at the last chunk, else null (gram_tf32.cuh)
+// K = draws x bc columns, bc a multiple of 32 (the workspace's chunk widths
+// are of 256); shift_c, shift_s: (nf, draws) row shifts of the A operand;
+// mom_c, mom_s: the moments (nf, 2 draws) at the last chunk, else null
 extern "C" int rt_fused_gram_accumulate(const void* wc, const void* ws, int nf, int K, int bc,
                                         void* gcc, void* gcs, void* gss, const void* shift_c,
                                         const void* shift_s, const void* mom_c,
                                         const void* mom_s, void* stream) {
-  return int(rt::launch_gram_tf32(static_cast<const float*>(wc), static_cast<const float*>(ws), nf,
-                                  K, bc, static_cast<float*>(gcc), static_cast<float*>(gcs),
-                                  static_cast<float*>(gss), static_cast<const float*>(shift_c),
-                                  static_cast<const float*>(shift_s),
-                                  static_cast<const float*>(mom_c),
-                                  static_cast<const float*>(mom_s),
-                                  static_cast<cudaStream_t>(stream)));
+  if (K % rt::GX_BK != 0 || bc % rt::GX_BK != 0 || K % bc != 0)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap tc, ts;
+  if (!hop::map_f32_sw128(&tc, wc, nf, K, K, rt::GX_BK, rt::GX_T) ||
+      !hop::map_f32_sw128(&ts, ws, nf, K, K, rt::GX_BK, rt::GX_T))
+    return int(cudaErrorInvalidValue);
+  const int t = (nf + rt::GX_T - 1) / rt::GX_T;
+  const rt::GxArgs a{nf, K / rt::GX_BK, 0, 1,
+                     static_cast<float*>(gcc), static_cast<float*>(gcs), static_cast<float*>(gss),
+                     static_cast<const float*>(shift_c), static_cast<const float*>(shift_s),
+                     bc / rt::GX_BK, K / bc,
+                     static_cast<const float*>(mom_c), static_cast<const float*>(mom_s), K};
+  return int(rt::launch_gram_tf32_kernel<false>(tc, ts, t * (t + 1) + t * t, a,
+                                                static_cast<cudaStream_t>(stream)));
 }

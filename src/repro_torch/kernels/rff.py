@@ -22,9 +22,9 @@ LAUNCHES = {"rff": 0, "rff_fused": 0}
 
 
 def tma_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (p, n) as the seed-fused featurize's TMA loads take it: rows a
-    multiple of 4 floats apart and 16-byte aligned; otherwise a copy with
-    zero columns appended."""
+    """A row-major matrix (X, an Omega operand, Sigma) as the tensor-core
+    kernels' TMA loads take it: rows a multiple of 4 floats apart and 16-byte
+    aligned; otherwise a copy with zero columns appended."""
     n = x.shape[1]
     if n % 4 == 0 and x.data_ptr() % 16 == 0:
         return x
@@ -86,11 +86,12 @@ def rff_fused_plain(x: torch.Tensor, *, n_features: int, seed: int, ensemble_ind
 
 
 def counter_ptr(counters: torch.Tensor | None) -> int | None:
-    """The device pointer of a seed-fused featurize's counters, or None.
+    """The device pointer of a tensor-core featurize's counters, or None.
 
     ``counters`` is a CUDA int64 tensor of 3, to which the kernel adds the
     Omega elements its producers drew, the phases of |z| >= 64 it recomputed
-    as fp32's FMA chain and the Omega elements that recompute drew."""
+    as fp32's FMA chain and the Omega elements that recompute drew (with an
+    Omega operand, the phases only)."""
     if counters is None:
         return None
     if counters.dtype != torch.int64 or tuple(counters.shape) != (3,) or not counters.is_cuda:

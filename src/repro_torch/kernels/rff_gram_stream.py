@@ -19,14 +19,13 @@ col)`` and never stored.
 
 On CUDA tensors :func:`rff_gram_stream` and :func:`rff_gram_stream_fused`
 walk X in chunks of sample columns (:func:`gram_tile_plan`); per chunk they
-launch a featurize kernel (Omega read, or drawn in the kernel), the moment
-kernel and the Gram accumulate kernel.  The seed-fused path runs both
-products on the tensor cores as three tf32 products each
-(``csrc/featurize_tf32.cuh``, ``csrc/gram_tf32.cuh``); the operand path keeps
-the FFMA tiles (``csrc/featurize.cuh``, ``csrc/gram_tile.cuh``).  On CPU
-tensors they run :func:`rff_gram_stream_plain` and
-:func:`rff_gram_stream_fused_plain`.  ``LAUNCHES`` (seed-fused, K5/K6) and
-``OPERAND_LAUNCHES`` (Omega operand, K2/K3) count the launches.
+launch a featurize kernel (Omega loaded by TMA, or drawn in the kernel), the
+moment kernel and the Gram accumulate kernel.  Both paths run both products
+on the tensor cores as three tf32 products each
+(``csrc/featurize_tf32.cuh``, ``csrc/gram_tf32.cuh``).  On CPU tensors they
+run :func:`rff_gram_stream_plain` and :func:`rff_gram_stream_fused_plain`.
+``LAUNCHES`` (seed-fused, K5/K6) and ``OPERAND_LAUNCHES`` (Omega operand,
+K2/K3) count the launches.
 """
 from __future__ import annotations
 
@@ -40,8 +39,8 @@ from repro_torch.kernels.rff import counter_ptr, inv_sqrt, tma_rows
 LAUNCHES = {"featurize": 0, "moments": 0, "accumulate": 0}
 OPERAND_LAUNCHES = {"featurize": 0, "moments": 0, "accumulate": 0}
 
-# chunk widths are multiples of it: featurize.cuh's FZ_BN, two of
-# featurize_tf32.cuh's FT_COLS (the seed-fused tile)
+# chunk widths are multiples of it: two of featurize_tf32.cuh's FT_COLS, the
+# sample columns of one CTA of the tensor-core featurize (both Omega sources)
 FEATURIZE_COLS = 256
 # The workspace holds one chunk's cos and sin slabs, (nf, S * block) each.
 WORKSPACE_BYTES = 64 << 20
@@ -127,14 +126,13 @@ def _check_operands(name: str, x: torch.Tensor, ell: torch.Tensor) -> bool:
     return False
 
 
-def _stream(x, ell, nf: int, draws: int, featurize, counts: dict, fused: bool):
+def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
     """The chunk loop on the card: per chunk of sample columns,
     ``featurize(c0, n_valid, block, ws_c, ws_s, stream)`` fills the cos/sin
     workspace, then the moment kernel and the accumulate kernel add into the
-    outputs.  ``fused`` takes the tensor-core accumulate, which multiplies
-    each row of its first operand less that draw's mean over the first
-    chunk (from the moments) and, at the last chunk, adds the shifts back
-    from the moments' column sums.  Otherwise the FFMA tile.  Returns the
+    outputs.  The accumulate multiplies each row of its first operand less
+    that draw's mean over the first chunk (from the moments) and, at the last
+    chunk, adds the shifts back from the moments' column sums.  Returns the
     five outputs with G_cc and G_ss mirrored."""
     n = x.shape[1]
     block = gram_tile_plan(nf, n=n, ensemble=draws)["block"]
@@ -149,12 +147,8 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict, fused: bool):
     vp, i32 = _build.VP, _build.I32
     moments = _build.fn("rff_gram_stream_fused", "rt_gram_moments",
                         [vp, vp, i32, i32, i32, vp, i32, vp, vp, vp])
-    if fused:
-        fused_accumulate = _build.fn("rff_gram_stream_fused", "rt_fused_gram_accumulate",
-                                     [vp, vp, i32, i32, i32] + [vp] * 8)
-    else:
-        accumulate = _build.fn("rff_gram_stream_fused", "rt_gram_accumulate",
-                               [vp, vp, i32, i32, vp, vp, vp, vp])
+    accumulate = _build.fn("rff_gram_stream_fused", "rt_fused_gram_accumulate",
+                           [vp, vp, i32, i32, i32] + [vp] * 8)
     shifts = None
     with torch.cuda.device(dev):
         stream = _build.stream_ptr()
@@ -167,28 +161,27 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict, fused: bool):
                           stream)
             _build.check(err, "gram moments")
             counts["moments"] += 1
-            outs = (ws_c.data_ptr(), ws_s.data_ptr(), nf, draws * block)
-            grams = (gcc.data_ptr(), gcs.data_ptr(), gss.data_ptr())
-            if fused:
-                if shifts is None:
-                    # (nf, S): each row's mean over this chunk's valid columns, per draw
-                    shifts = tuple((m[:, 1::2] / n_valid).contiguous() for m in (mc, ms))
-                last = c0 + block >= n
-                err = fused_accumulate(*outs, block, *grams, shifts[0].data_ptr(),
-                                       shifts[1].data_ptr(), mc.data_ptr() if last else None,
-                                       ms.data_ptr() if last else None, stream)
-            else:
-                err = accumulate(*outs, *grams, stream)
+            if shifts is None:
+                # (nf, S): each row's mean over this chunk's valid columns, per draw
+                shifts = tuple((m[:, 1::2] / n_valid).contiguous() for m in (mc, ms))
+            last = c0 + block >= n
+            err = accumulate(ws_c.data_ptr(), ws_s.data_ptr(), nf, draws * block, block,
+                             gcc.data_ptr(), gcs.data_ptr(), gss.data_ptr(),
+                             shifts[0].data_ptr(), shifts[1].data_ptr(),
+                             mc.data_ptr() if last else None, ms.data_ptr() if last else None,
+                             stream)
             _build.check(err, "gram accumulate")
             counts["accumulate"] += 1
     return mirror_upper(gcc), gcs, mirror_upper(gss), mc, ms
 
 
-def rff_gram_stream(x, omega, ell):
+def rff_gram_stream(x, omega, ell, *, counters=None):
     """Five outputs from X (p, n), Omega (N, p) and ell (n,); moments (N, 2).
 
     CUDA tensors launch the kernels (Omega read from the operand); CPU tensors
-    run the plain version.
+    run the plain version.  ``counters`` (CUDA only): as
+    :func:`repro_torch.kernels.rff.counter_ptr` says, of which the featurize
+    adds to the phases recomputed only (nothing is drawn).
     """
     if _check_operands("rff_gram_stream", x, ell) and omega.device.type == "cpu":
         return rff_gram_stream_plain(x, omega, ell)
@@ -202,14 +195,16 @@ def rff_gram_stream(x, omega, ell):
     nf = omega.shape[0]
     f = _build.fn("rff_gram_stream_fused", "rt_operand_featurize",
                   [_build.VP, _build.I64, _build.VP, _build.I64] + [_build.I32] * 5
-                  + [_build.F32, _build.VP, _build.VP, _build.VP])
+                  + [_build.F32] + [_build.VP] * 4)
     scale = feature_scale(nf, 1)
+    xr, omr = tma_rows(x), tma_rows(omega)
+    stats = counter_ptr(counters)
 
     def featurize(c0, n_valid, block, ws_c, ws_s, stream):
-        return f(omega.data_ptr(), p, x.data_ptr(), x.shape[1], c0, nf, p, n_valid, block,
-                 scale, ws_c.data_ptr(), ws_s.data_ptr(), stream)
+        return f(omr.data_ptr(), omr.shape[1], xr.data_ptr(), xr.shape[1], c0, nf, p, n_valid,
+                 block, scale, ws_c.data_ptr(), ws_s.data_ptr(), stats, stream)
 
-    return _stream(x, ell, nf, 1, featurize, OPERAND_LAUNCHES, fused=False)
+    return _stream(x, ell, nf, 1, featurize, OPERAND_LAUNCHES)
 
 
 def rff_gram_stream_fused(x, ell, *, n_features, seed, ensemble=1, sigma=1.0,
@@ -244,4 +239,4 @@ def rff_gram_stream_fused(x, ell, *, n_features, seed, ensemble=1, sigma=1.0,
                  c0, n_features, p, n_valid, block, ensemble, scale, ws_c.data_ptr(),
                  ws_s.data_ptr(), stats, stream)
 
-    return _stream(x, ell, n_features, ensemble, featurize, LAUNCHES, fused=True)
+    return _stream(x, ell, n_features, ensemble, featurize, LAUNCHES)

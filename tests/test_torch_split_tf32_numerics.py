@@ -1,8 +1,9 @@
-"""The numerics of the seed-fused featurize and Gram on the tensor cores, modelled on the CPU.
+"""The numerics of the featurize and the Grams on the tensor cores, modelled on the CPU.
 
-``csrc/featurize_tf32.cuh`` (K7, K5/K6's first stage) and
-``csrc/gram_tf32.cuh`` (K5/K6's Gram) run on the card only, so their
-arithmetic is modelled here in plain torch: every operand value is split into
+``csrc/featurize_tf32.cuh`` (K7, the first stage of K5/K6 and of K2/K3) and
+``csrc/gram_tf32.cuh`` (the Gram of K5/K6 and K2/K3, and the centered Gram
+K8) run on the card only, so their arithmetic is modelled here in plain
+torch: every operand value is split into
 ``hi = tf32(v)`` and ``lo = tf32(v - hi)`` (tf32 rounded to nearest, ties
 away from zero: ``cvt.rna.tf32.f32``), and each k-step of 8 adds three
 products into one fp32 accumulator in the kernel's order, the two small terms
@@ -14,22 +15,29 @@ that way, recomputes phases of |z| >= 64 as fp32's FMA chain over k in
 order, and takes cos/sin; the Gram takes ``C C^T``, ``C S^T`` and
 ``S S^T`` over the chunk's columns, each draw's block padded to a whole
 k-step as the workspace is, each row of its first operand less that
-draw's mean (added back as ``a (B 1)^T``).  Both fold their wgmma
-accumulator into a sum with fp32's rounding to nearest every stage of 32 of
-k.  The moments keep their fp32 FFMA kernel.
+draw's mean (added back as ``a (B 1)^T``).  The operand path (K2/K3) is
+the same with the reference's Omega in place of the draws.  The centered
+Gram takes both operands less the row mean and masks the columns past n
+(TMA's zero fill up to a whole k-tile of 32) after that shift.  All fold
+their wgmma accumulator into a sum with fp32's rounding to nearest every
+stage of 32 of k.  The moments keep their fp32 FFMA kernel.
 
 The model is held to the kernels' gates (``chip_smoke.py`` phases 4 and 5,
 ``tests/test_torch_cuda.py``): atol 2e-5 on Sigma, and on G_H / max|G_H| and
-u, against the port's plain versions and against the reference's Pallas
-kernels in interpret mode.  Four cases record the design: a single tf32
+u (G / max|G| at 1e-5 for K8), against the port's plain versions and
+against the reference's Pallas kernels in interpret mode.  Six cases record
+the design: a single tf32
 product keeps 10 mantissa bits and misses both gates; without the fold the
 truncations of one accumulator over a chunk's k of 2048 come to ~1e-5 of a
 positive diagonal, half the gate; and on Cauchy phases up to ~1e4
-(``tests/test_torch_cuda.py``'s laplace Gram case) no product that rounds
+(``tests/test_torch_cuda.py``'s laplace Gram cases, Omega drawn or an
+operand) no product that rounds
 otherwise than fp32's FMA chain holds the gate, the float64 phase rounded
 once included, so such phases are recomputed as that chain; and at phases
 under ~0.2 the unshifted Gram lands farther from the float64 answer than
-plain, the shifted one closer.
+plain, the shifted one closer; and on rows whose mean is far above their
+spread the centered Gram holds 1e-5 only with both operands shifted and the
+padding masked after the shift.
 """
 import numpy as np
 import pytest
@@ -41,6 +49,8 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import kernels_math as jkm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core.kernels_math import assemble_streamed_gram_ensemble  # noqa: E402
+from repro_torch.core.rff import draw_omega  # noqa: E402
+from repro_torch.kernels import centered_gram as tcg  # noqa: E402
 from repro_torch.kernels import rff as tkrff  # noqa: E402
 from repro_torch.kernels import rff_gram_stream as tgram  # noqa: E402
 from repro_torch.kernels.prng import fused_omega_block_plain  # noqa: E402
@@ -117,17 +127,22 @@ def featurize_model(x, om, scale, parts=3, exact_phase=EXACT_PHASE, fold=FOLD):
     return torch.cos(z) * scale, torch.sin(z) * scale
 
 
-def fused_gram_model(x, ell, *, n_features, seed, ensemble, sigma, rf_kernel, parts=3,
-                     fold=FOLD, exact_phase=EXACT_PHASE, shift=True):
+def fused_gram_model(x, ell, *, n_features, seed, ensemble, sigma, rf_kernel, **model_kw):
     """The five outputs of ``rff_gram_stream_fused`` with both products
-    modelled, the Gram's first operand shifted by its rows' means
-    (``shift``)."""
-    scale = tgram.feature_scale(n_features, ensemble)
+    modelled (:func:`gram_model` on the drawn Omega)."""
+    oms = [fused_omega_block_plain(seed, n_features, x.shape[0], ensemble_index=e, sigma=sigma,
+                                   rf_kernel=rf_kernel, device="cpu") for e in range(ensemble)]
+    return gram_model(x, ell, oms, tgram.feature_scale(n_features, ensemble), **model_kw)
+
+
+def gram_model(x, ell, oms, scale, parts=3, fold=FOLD, exact_phase=EXACT_PHASE, shift=True):
+    """The five outputs of the streamed Gram over the draws ``oms`` (one
+    Omega for the operand path) with both products modelled, the Gram's
+    first operand shifted by its rows' means (``shift``)."""
+    ensemble = len(oms)
     pad = (-x.shape[1]) % KSTEP
     cs, ss, mc, ms = [], [], [], []
-    for e in range(ensemble):
-        om = fused_omega_block_plain(seed, n_features, x.shape[0], ensemble_index=e, sigma=sigma,
-                                     rf_kernel=rf_kernel, device="cpu")
+    for om in oms:
         c, s = featurize_model(x, om, scale, parts, exact_phase)
         mc += [c @ ell, c.sum(dim=1)]
         ms += [s @ ell, s.sum(dim=1)]
@@ -334,3 +349,114 @@ def test_gram_shift_holds_small_phases(nf, ens, p, n, seed):
             *fused_gram_model(x, ell, shift=sh, **kw), n=n, ensemble=ens)[0])
         for sh in (True, False))
     assert shifted <= from_exact(g_p) / 1.5 and unshifted > 1.5 * shifted
+
+
+# (p, n, N, tile): the reference's untiled kernel (tile 0, K2) and its tiled
+# form (K3); p = 5 and 7 are not multiples of 4 (the card copies such an
+# Omega for TMA), N = 77 and 130 not of a 128-feature tile
+OPERAND_CASES = [(40, 300, 96, 0), (7, 257, 130, 128), (5, 97, 77, 0), (256, 517, 200, 128)]
+
+
+@pytest.mark.parametrize("p,n,nf,tile", OPERAND_CASES)
+def test_split_operand_gram_holds_the_gate(p, n, nf, tile):
+    """K2/K3: the reference's Omega operand split into hi and lo as the
+    producers split it, through the same featurize and shifted Gram."""
+    rng = np.random.default_rng(p * n + nf)
+    x, ell = _x(p, n, seed=p + n, scale=p ** -0.5), _ell(n)
+    om = rng.normal(size=(nf, p)).astype(np.float32)
+    xt, et, omt = map(torch.from_numpy, (x, ell, om))
+    g_m, u_m = assemble_streamed_gram_ensemble(
+        *gram_model(xt, et, [omt], tgram.feature_scale(nf, 1)), n=n, ensemble=1)
+    g_p, u_p = assemble_streamed_gram_ensemble(*tgram.rff_gram_stream_plain(xt, omt, et), n=n,
+                                               ensemble=1)
+    g_j, u_j = jops.rff_gram_stream(jnp.asarray(x), jnp.asarray(om), jnp.asarray(ell), block=64,
+                                    tile=tile, interpret=True)
+    assert _gram_err(g_p, u_p, g_m, u_m) <= ATOL
+    assert _gram_err(g_j, u_j, g_m, u_m) <= ATOL
+
+
+def test_split_operand_gram_takes_the_fma_chain_on_large_phases():
+    """K2/K3 with a Cauchy Omega operand (``draw_omega``'s laplace) on
+    unscaled X, as the card's laplace operand case: phases up to ~1e4, 11 %
+    of them at |z| >= 64.  Recomputed from the operand as fp32's FMA chain
+    they hold the gate against plain and the reference's kernels (untiled
+    and tiled, interpret mode); the split products alone miss it."""
+    nf, p, n = 200, 40, 700
+    x, ell = _x(p, n, seed=nf, scale=1.0), _ell(n)
+    om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device="cpu")
+    xt, et = torch.from_numpy(x), torch.from_numpy(ell)
+    scale = tgram.feature_scale(nf, 1)
+    g_p, u_p = assemble_streamed_gram_ensemble(*tgram.rff_gram_stream_plain(xt, om, et), n=n,
+                                               ensemble=1)
+    g_m, u_m = assemble_streamed_gram_ensemble(*gram_model(xt, et, [om], scale), n=n,
+                                               ensemble=1)
+    assert _gram_err(g_p, u_p, g_m, u_m) <= ATOL / 5
+    for tile in (0, 128):
+        g_j, u_j = jops.rff_gram_stream(jnp.asarray(x), jnp.asarray(om.numpy()),
+                                        jnp.asarray(ell), block=64, tile=tile, interpret=True)
+        assert _gram_err(g_j, u_j, g_m, u_m) <= ATOL / 5
+    g_s, u_s = assemble_streamed_gram_ensemble(
+        *gram_model(xt, et, [om], scale, exact_phase=None), n=n, ensemble=1)
+    assert _gram_err(g_p, u_p, g_s, u_s) > ATOL
+
+
+CENTERED_ATOL = 1e-5  # tests/test_kernels.py:41, on G / max|G|
+CENTERED_KT = 32  # gram_tf32.cuh GX_BK: TMA fills a k-tile of 32 past n with zeros
+
+
+def centered_gram_model(sig, shift="both", mask=True, parts=3, fold=FOLD):
+    """K8 as the kernel takes it: Sigma with zero columns up to a whole
+    k-tile (TMA's fill), A and (``shift="both"``) B less the row mean mu
+    (the wrapper's fp32 reduction), the columns past n set to 0 after the
+    shift (``mask``), the product modelled; mirrored from the upper tiles."""
+    n = sig.shape[1]
+    mu = sig.mean(dim=1, keepdim=True)
+    padded = torch.nn.functional.pad(sig, (0, (-n) % CENTERED_KT))
+    a = padded - mu
+    if mask:
+        a[:, n:] = 0.0
+    b = a if shift == "both" else padded
+    return tgram.mirror_upper(tf32_product(a, b, parts, fold))
+
+
+def _sigma(rows, n, kind, seed):
+    """Sigma (rows, n): normal rows about 0.3, or K1's map at sigma 28 on 7
+    rows of the smoke's scale (phases under ~0.2: nearly constant rows)."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return (rng.normal(size=(rows, n)) + 0.3).astype(np.float32)
+    x = torch.from_numpy((0.44 * rng.normal(size=(7, n))).astype(np.float32))
+    om = torch.from_numpy((rng.normal(size=(rows // 2, 7)) / 28.0).astype(np.float32))
+    return tkrff.rff_plain(x, om).numpy()
+
+
+def _centered_err(g_ref, g):
+    g_ref = np.asarray(g_ref, np.float64)
+    return float(np.abs(np.asarray(g, np.float64) - g_ref).max() / np.abs(g_ref).max())
+
+
+@pytest.mark.parametrize("rows,n,kind", [(64, 128, "normal"), (130, 257, "normal"),
+                                         (40, 795, "normal"), (130, 795, "rff28")])
+def test_split_centered_gram_holds_the_gate(rows, n, kind):
+    """K8: both operands shifted, the padding masked after the shift, against
+    plain and the reference's kernel (interpret mode, at block 32 and 128)."""
+    sig = _sigma(rows, n, kind, seed=rows + n)
+    g_m = centered_gram_model(torch.from_numpy(sig)).numpy()
+    assert _centered_err(tcg.centered_gram_plain(torch.from_numpy(sig)), g_m) <= CENTERED_ATOL
+    for block in (32, 128):
+        g_j = jops.centered_gram(jnp.asarray(sig), block=block, interpret=True)
+        assert _centered_err(g_j, g_m) <= CENTERED_ATOL
+
+
+def test_centered_gram_needs_both_shifts_and_the_mask():
+    """Why K8 shifts both operands and masks after the shift: on rows whose
+    mean (100) is far above their spread (0.01), a shift of A alone leaves
+    ((Sigma - mu 1^T) 1) mu^T, mu times the rounding residue of the mean,
+    and padding that is shifted but not masked adds pad mu_i mu_j; each
+    misses 1e-5 of max|G| by orders of magnitude, the kernel's form holds it."""
+    rng = np.random.default_rng(4)
+    sig = torch.from_numpy((100.0 + 0.01 * rng.normal(size=(96, 795))).astype(np.float32))
+    plain = tcg.centered_gram_plain(sig)
+    assert _centered_err(plain, centered_gram_model(sig)) <= CENTERED_ATOL
+    assert _centered_err(plain, centered_gram_model(sig, shift="a")) > 100 * CENTERED_ATOL
+    assert _centered_err(plain, centered_gram_model(sig, mask=False)) > 100 * CENTERED_ATOL
