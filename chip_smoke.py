@@ -14,8 +14,17 @@ Phases (any failed check raises, and the run exits non-zero):
   1. build every kernel of ``src/repro_torch/kernels/csrc`` (one nvcc each);
   2. K4: threefry bits equal to the plain int64 version on the card, Omega
      floats within 8 ULP (gauss and laplace, sigma != 1, seed >= 2^32, e > 0);
-  3. K1 at N in {1000, 4096}, p = 2048, n = 3612: max abs error <= 2e-5;
-     timed there and at a request's width (n = 300);
+  3. K1 (the operand featurize on the tensor cores) at N in {1000, 4096},
+     p = 2048, n = 3612 and at a transform request's widths n in {64, 300,
+     512} (split over p there where the output tiles are fewer than the
+     SMs; ``rff.split_plan``): max abs error <= 2e-5, each timed beside its
+     split-TF32 bound and ``torch.matmul(Omega, X)``; K1 with a Cauchy Omega
+     (``draw_omega``'s laplace) at N = 1000, n = 3612, timed: within 2e-5 of
+     plain, or, where plain itself is past that from the float64 answer,
+     no farther from it than plain, and every element within 2e-5 plus
+     2^-20 of sum_k |omega_k x_k| / sqrt(N) of plain (the split products'
+     rounding where a phase cancels), with the share of phases recomputed
+     as fp32's FMA chain counted by the kernel (``counters=``);
   4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}, and
      the tensor-core tiles' edges ``FUSED_GRAM_EDGES``: N 65, p 7 and 40,
      n 795, each at the data's sigma and at the slice's own): atol 2e-5 on
@@ -183,7 +192,8 @@ PEAK_INT_OPS = PEAK_FLOPS / 4
 PEAK_SPLIT_TF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 THREEFRY_INT_OPS = 82  # 20 rounds x (add, rotate, xor) + 5 key injections x 4 + 2
-REQUEST_COLS = 300  # K1 timed at a transform request's width as well
+# K1 at a transform request's widths (phase 7's requests take 64-512 columns)
+K1_REQUEST_COLS = (64, 300, 512)
 # the tensor-core featurize / Gram tiles' edges on the data: (N, p, n) for K7,
 # (N, S, p, n) for K5/K6 (N past a 128-feature block, p under and over a
 # k-tile of 32, n ragged (copied to a multiple of 4 for TMA) and n = 1), each
@@ -415,41 +425,92 @@ def main() -> int:
     log(f"[K4] (4096, {P}) kernel {k4_ms:.4f} ms, plain {k4_plain:.4f} ms")
 
     # ---- 3. K1 ------------------------------------------------------------
-    k1 = {}
+    n = x.shape[1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k1_row(xk, om):
+        """K1 on (xk, om): its error from plain (gated), its time beside plain,
+        torch.matmul and its bounds, and the split it ran with."""
+        nf, w = om.shape[0], xk.shape[1]
+        err = float((rff.rff(xk, om) - rff.rff_plain(xk, om)).abs().max())
+        if not err <= RFF_ATOL:
+            raise AssertionError(f"K1 N={nf} n={w}: max abs err {err} > {RFF_ATOL}")
+        work = (2 * nf * P * w, (nf * P + P * w + 2 * nf * w) * 4)
+        b_ms, b_by = bound_ms(*work, peak_flops=PEAK_SPLIT_TF32_FLOPS)
+        row = dict(max_abs_err=err, ms=cuda_ms(torch, lambda: rff.rff(xk, om), 20),
+                   plain_ms=cuda_ms(torch, lambda: rff.rff_plain(xk, om), 20),
+                   library_ms=cuda_ms(torch, lambda: torch.matmul(om, xk), 20),
+                   bound_ms=b_ms, bound_by=b_by, **product_bounds(*work),
+                   slices=rff.split_plan(nf, P, w, sms=sms)["slices"])
+        log(f"[K1] N={nf} p={P} n={w}: max abs err {err:.3g}; kernel {row['ms']:.4f} ms "
+            f"({row['slices']} slices of p), plain {row['plain_ms']:.4f} ms, torch.matmul "
+            f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms split-TF32 "
+            f"({row['bound_fp32_ms']:.4f} fp32)")
+        return row
+
+    k1, k1_req = {}, {}
     for nf in (1000, 4096):
         om = prng.fused_omega(SEED, nf, P, sigma=sigma, device=dev)
-        err = float((rff.rff(x, om) - rff.rff_plain(x, om)).abs().max())
-        if not err <= RFF_ATOL:
-            raise AssertionError(f"K1 N={nf}: max abs err {err} > {RFF_ATOL}")
-        k1[nf] = (om, err)
-        log(f"[K1] N={nf} p={P} n={x.shape[1]}: max abs err {err:.3g}")
-    om4 = k1[4096][0]
-    n = x.shape[1]
-    xr = xt[:, :REQUEST_COLS].contiguous()
-    req = {}
-    for nf, (om, _) in k1.items():
-        rb, _ = bound_ms(2 * nf * P * REQUEST_COLS,
-                         (nf * P + P * REQUEST_COLS + 2 * nf * REQUEST_COLS) * 4)
-        req[str(nf)] = dict(ms=cuda_ms(torch, lambda: rff.rff(xr, om), 20), bound_ms=rb)
-        log(f"[K1] request N={nf} p={P} n={REQUEST_COLS}: kernel {req[str(nf)]['ms']:.4f} ms,"
-            f" bound {rb:.4f} ms")
-    k1_work = (2 * 4096 * P * n, (4096 * P + P * n + 2 * 4096 * n) * 4)
-    b_ms, b_by = bound_ms(*k1_work)
+        k1[nf] = k1_row(x, om)
+        for w in K1_REQUEST_COLS:
+            k1_req[f"N={nf} n={w}"] = k1_row(xt[:, :w].contiguous(), om)
+        del om
     report["K1"] = dict(
         name="rff", route="cuda", source="src/repro_torch/kernels/csrc/rff.cu",
-        headers=["src/repro_torch/kernels/csrc/featurize.cuh"],
-        replaces="src/repro/kernels/rff.py:48", max_abs_err=max(e for _, e in k1.values()),
-        tolerance=f"atol {RFF_ATOL}",
-        ms=cuda_ms(torch, lambda: rff.rff(x, om4), 10),
-        plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x, om4), 10),
-        bound_ms=b_ms, bound_by=b_by, **product_bounds(*k1_work),
-        library_ms=cuda_ms(torch, lambda: torch.matmul(om4, x), 10),
-        shape=f"N=4096 p={P} n={n}",
-        request_shape=f"p={P} n={REQUEST_COLS}", request=req,
+        headers=["src/repro_torch/kernels/csrc/featurize_tf32.cuh",
+                 "src/repro_torch/kernels/csrc/hopper.cuh"],
+        replaces="src/repro/kernels/rff.py:48", tolerance=f"atol {RFF_ATOL}",
+        shape=f"N=4096 p={P} n={n}", **k1[4096],
+        max_abs_err_all=max(r["max_abs_err"] for r in (*k1.values(), *k1_req.values())),
+        n1000=k1[1000], requests=k1_req,
     )
-    log(f"[K1] N=4096: kernel {report['K1']['ms']:.3f} ms, plain {report['K1']['plain_ms']:.3f}"
-        f" ms, torch.matmul {report['K1']['library_ms']:.3f} ms")
-    del k1
+    # a Cauchy Omega at the data's sigma: about half the phases reach |z| >= 64
+    # and are recomputed as fp32's FMA chain from the operand
+    nf = 1000
+    om = draw_omega(SEED, nf, P, sigma=sigma, kernel="laplace", device=dev)
+    cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+    sig_k = rff.rff(x, om, counters=cnt)
+    drawn, recomputed, redrawn = cnt.tolist()
+    if drawn or redrawn or not recomputed:
+        raise AssertionError(f"K1 laplace: counters {cnt.tolist()}, expected only recomputed "
+                             "phases")
+    sig_p = rff.rff_plain(x, om)
+    diff = (sig_k - sig_p).abs()
+    res = dict(max_abs_err=float(diff.max()))
+    z = om.double() @ x.double()
+    sig_x = torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf)
+    del z
+    plain_x = (sig_p.double() - sig_x).abs()
+    res.update(kernel_vs_exact=float((sig_k.double() - sig_x).abs().max()),
+               plain_vs_exact=float(plain_x.max()))
+    # a phase under 64 summed from large terms cancels: there the split
+    # products round at 2^-20 of sum_k |omega_k x_k| (tests/test_torch_cuda.py)
+    terms = (om.abs() @ x.abs()) * (rff.inv_sqrt(nf) * 2.0 ** -20)
+    past = diff > RFF_ATOL
+    res.update(past_gate=int(past.sum()),
+               past_gate_plain_within_gate_of_exact=int((past & (plain_x <= RFF_ATOL)).sum()),
+               past_gate_and_rounding_bound=int((diff > RFF_ATOL + torch.cat([terms, terms]))
+                                                .sum()))
+    del sig_k, sig_p, sig_x, diff, plain_x, terms, past
+    if res["past_gate_and_rounding_bound"]:
+        raise AssertionError(f"K1 laplace: past 2e-5 plus the split products' rounding ({res})")
+    if not res["max_abs_err"] <= RFF_ATOL:
+        if res["plain_vs_exact"] <= RFF_ATOL:
+            raise AssertionError(f"K1 laplace: {res['max_abs_err']} > {RFF_ATOL} from plain, "
+                                 f"where the float64 answer is {res['plain_vs_exact']}")
+        if not res["kernel_vs_exact"] <= res["plain_vs_exact"]:
+            raise AssertionError(f"K1 laplace: farther from float64 than plain ({res})")
+    res.update(ms=cuda_ms(torch, lambda: rff.rff(x, om), 10),
+               plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x, om), 10),
+               recomputed_share=recomputed / (nf * n))
+    report["K1"]["laplace"] = res
+    log(f"[K1] laplace N={nf} p={P} n={n}: kernel {res['ms']:.3f} ms, plain "
+        f"{res['plain_ms']:.3f} ms, {100 * res['recomputed_share']:.2f} % of phases recomputed "
+        f"(kernel's count); max abs err {res['max_abs_err']:.3g}, {res['past_gate']} elements "
+        f"past {RFF_ATOL} ({res['past_gate_plain_within_gate_of_exact']} where plain is within "
+        f"it of float64); from float64: kernel {res['kernel_vs_exact']:.3g}, plain "
+        f"{res['plain_vs_exact']:.3g}")
+    del om
     torch.cuda.synchronize()
 
     # ---- 4. fused Gram ----------------------------------------------------
@@ -794,9 +855,12 @@ def main() -> int:
         small=dict(shape=f"2N=2000 n={n}", **k8[2000]), edges=k8_edges,
     )
     torch.cuda.synchronize()
-    # the tensor-core kernels of K2/K3, K5-K8: registers, spills, HGMMA in the
-    # SASS (featurize_tf32_kernel<false> draws Omega, <true> loads it)
-    for lib, key, entries in (("rff", "K7", ("featurize_tf32_kernel",)),
+    # the tensor-core kernels of K1-K3, K5-K8: registers, spills, HGMMA in the
+    # SASS (featurize_tf32_kernel<false> draws Omega, <true> loads it; K1's
+    # split over p ends in featurize_finish_kernel)
+    for lib, key, entries in (("rff", "K7", ("featurize_tf32_kernelILb0",
+                                             "featurize_tf32_kernelILb1",
+                                             "featurize_finish_kernel")),
                               ("rff_gram_stream_fused", "K5",
                                ("featurize_tf32_kernelILb0", "featurize_tf32_kernelILb1",
                                 "gram_tf32_kernel")),
@@ -817,6 +881,8 @@ def main() -> int:
     for key in ("K6", "K2", "K3"):
         for field in ("ptxas_rff_gram_stream_fused", "hgmma_rff_gram_stream_fused"):
             report[key][field] = report["K5"][field]
+    for field in ("ptxas_rff", "hgmma_rff"):
+        report["K1"][field] = report["K7"][field]
 
     # ---- 6. small fit: card vs the CPU plain path --------------------------
     small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",

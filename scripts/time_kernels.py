@@ -15,6 +15,11 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
               8192 on K1's Sigma), each beside one library call: ``torch.matmul``
               of the same products (Omega X and [cos; sin] [cos; sin]^T; the
               centered Sigma times its transpose).
+  k1          the operand-Omega featurize (K1, Omega from ``fused_omega``)
+              at N = 1000 and 4096 on all 3612 columns and on a transform
+              request's 64, 300 and 512 (the first target columns), and at
+              N = 1000 on all columns with a Cauchy Omega (``draw_omega``'s
+              laplace), each beside ``torch.matmul(Omega, X)``.
 
 It uses only the public entry points, so it runs against any checkout of the
 port: run it from the root of two checkouts in one call to compare them on
@@ -22,6 +27,7 @@ one card.
 
     python3 scripts/time_kernels.py seed_fused
     python3 scripts/time_kernels.py operand
+    python3 scripts/time_kernels.py k1
 
 Prints one JSON object: milliseconds per call (CUDA events, after a warm-up
 call) for each kernel and library call, and the card's name.
@@ -75,9 +81,27 @@ def operand(cs, torch, x, ell, sigma, out) -> None:
     out["K2_laplace_ms"] = cs.cuda_ms(torch, lambda: gram.rff_gram_stream(x, om, ell), 5)
 
 
+def k1(cs, torch, x, ell, sigma, out) -> None:
+    from repro_torch.core.rff import draw_omega
+    from repro_torch.kernels import prng, rff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = x.device
+    xt = x[:, cs.N_S:]
+    for nf in (1000, 4096):
+        om = prng.fused_omega(cs.SEED, nf, cs.P, sigma=sigma, device=dev)
+        for w in (x.shape[1], 64, 300, 512):
+            xk = x if w == x.shape[1] else xt[:, :w].contiguous()
+            out[f"K1_{nf}_{w}_ms"] = cs.cuda_ms(torch, lambda: rff.rff(xk, om), 20)
+            out[f"K1_{nf}_{w}_library_ms"] = cs.cuda_ms(torch, lambda: torch.matmul(om, xk), 20)
+    om = draw_omega(cs.SEED, 1000, cs.P, sigma=sigma, kernel="laplace", device=dev)
+    out["K1_laplace_ms"] = cs.cuda_ms(torch, lambda: rff.rff(x, om), 10)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=("seed_fused", "operand"))
+    ap.add_argument("family", choices=("seed_fused", "operand", "k1"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -98,7 +122,8 @@ def main() -> int:
     ell = ell_vector(cs.N_S, cs.N_T, device=dev)
     sigma = median_sigma(x)
     out = {"device": torch.cuda.get_device_name(0), "root": str(ROOT), "family": args.family}
-    {"seed_fused": seed_fused, "operand": operand}[args.family](cs, torch, x, ell, sigma, out)
+    {"seed_fused": seed_fused, "operand": operand, "k1": k1}[args.family](
+        cs, torch, x, ell, sigma, out)
     print(json.dumps(out))
     return 0
 

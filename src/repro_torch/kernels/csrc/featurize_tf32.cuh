@@ -5,9 +5,9 @@
 // Replaces src/repro/kernels/rff.py:117 (rff_fused_pallas, K7) and the first
 // stage of src/repro/kernels/rff_gram_stream.py:524 and :587
 // (rff_gram_stream_fused_pallas and its tiled form, K5/K6), which draw Omega
-// in the kernel and never store it, and the first stage of :244 and :180
-// (rff_gram_stream_pallas and its tiled form, K2/K3), which read it.  K1
-// (rff.cu) keeps the FFMA tile of featurize.cuh.
+// in the kernel and never store it; and src/repro/kernels/rff.py:48
+// (rff_pallas, K1) and the first stage of rff_gram_stream.py:244 and :180
+// (rff_gram_stream_pallas and its tiled form, K2/K3), which read it.
 //
 // Bound: operations.  The product is fp32-accurate work of 2 N p n FLOP; on
 // the tf32 tensor cores (495 TFLOP/s dense) as three products that is 3 x 2 N
@@ -87,6 +87,16 @@
 //     per element would redraw each Omega element and reload X for every
 //     warp that needs it.
 //     An operand Omega is loaded there by TMA as in the main loop.
+//   - Split over p (operand Omega, K1 at a transform request's width): where
+//     the output tiles are fewer than the SMs (300 columns at N = 1000 are
+//     24 tiles on 132 SMs, each walking 64 k-tiles), the grid's z runs over
+//     slices of the k-tiles (the wrapper's split_plan), and each CTA writes
+//     its folded phase sums to a workspace (slices, nf, ldo) instead of
+//     running the epilogue.  A finishing pass adds the slices in slice order
+//     (no atomics: the sum does not depend on the order the CTAs ran in),
+//     recomputes phases of |z| >= 64 from the whole sum as fp32's FMA chain
+//     over all of p (a slice's partial phase does not say whether the whole
+//     phase reaches 64), then takes cos and sin as the epilogue does.
 //   - With a counter array, the kernel adds the Omega elements its producers
 //     drew, the phases it recomputed and the Omega elements the recompute
 //     drew (chip_smoke.py reads the draws per element and the recomputed
@@ -149,6 +159,11 @@ struct FtArgs {
   // null, or [Omega elements the producers drew, phases recomputed, Omega
   // elements the recompute drew], added to
   unsigned long long* stats;
+  // split over p (operand Omega only): null, or the workspace (slices, nf,
+  // ldo) of the slices' phase sums, blockIdx.z the slice of kt_per_split
+  // k-tiles
+  float* part = nullptr;
+  int kt_per_split = 0;
 };
 
 // kOperand: Omega from the tensor map tom ((N, p), 32 k x 16 row boxes);
@@ -183,6 +198,9 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
   const int col0 = blockIdx.x * FT_COLS;   // sample columns of this CTA
   const int f0 = blockIdx.y * FT_FEATS;    // feature rows of this CTA
   const int n_kt = (a.p + FT_BK - 1) / FT_BK;
+  // this CTA's k-tiles: kt0 .. kt0 + n_it - 1 (all of them unless split)
+  const int kt0 = a.part ? static_cast<int>(blockIdx.z) * a.kt_per_split : 0;
+  const int n_it = a.part ? min(a.kt_per_split, n_kt - kt0) : n_kt;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < FT_STAGES; ++s) {
@@ -218,15 +236,15 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
           hop::tma_load_2d(om_dst + j * FT_OM_BOX_BYTES, &tom, bar, k0, f0 + FT_OM_BOX_ROWS * j);
       };
       if (tp == 0) {
-        for (int kt = 0; kt < n_kt; ++kt) {
+        for (int kt = 0; kt < n_it; ++kt) {
           const int s = kt % FT_STAGES;
           hop::mbar_wait_cluster(empty(s), ((kt / FT_STAGES) & 1) ^ 1);
           hop::fence_proxy_async();
           hop::mbar_expect_tx(landed(s), FT_X_BYTES + FT_OM_BYTES);
-          load(xs(s), om_hi(s), landed(s), kt * FT_BK);
+          load(xs(s), om_hi(s), landed(s), (kt0 + kt) * FT_BK);
         }
       } else if (tp >= 32) {
-        for (int kt = 0; kt < n_kt; ++kt) {
+        for (int kt = 0; kt < n_it; ++kt) {
           const int s = kt % FT_STAGES;
           hop::mbar_wait(landed(s), (kt / FT_STAGES) & 1);
           float4* hi = reinterpret_cast<float4*>(sb + (om_hi(s) - base));
@@ -419,7 +437,7 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       xoff[3] = box + hop::sw128_f32(tq + 4, c + 8);
     }
 
-    for (int kt = 0; kt < n_kt; ++kt) {
+    for (int kt = 0; kt < n_it; ++kt) {
       const int s = kt % FT_STAGES;
       // CTA scope: the stage's bytes land as transactions (TMA, bulk copies
       // from the cluster), the local share behind a CTA-scope release
@@ -453,7 +471,8 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
     // epilogue: the phases through shared memory (the ring is free once
     // every CTA of the cluster is past its products: no bulk copy reads or
     // writes it any more), then cos and sin one element a thread at a time,
-    // each warp writing 32 consecutive columns of a row
+    // each warp writing 32 consecutive columns of a row; a slice of a split
+    // writes its phase sums instead, for the finishing pass
     hop::cluster_sync();
     float* zt = reinterpret_cast<float*>(sb);  // [feature][sample], FT_OUT_LD apart
     bool big = false;  // a phase of this thread's that the recompute must take
@@ -465,7 +484,7 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
         for (int e = 0; e < 2; ++e) {
           const float z = acc[4 * j + 2 * i + e];
           zt[(8 * j + 2 * tq + e) * FT_OUT_LD + m0 + 8 * i] = z;
-          big |= f0 + 8 * j + 2 * tq + e < a.nf && col0 + m0 + 8 * i < a.n_valid &&
+          big |= !a.part && f0 + 8 * j + 2 * tq + e < a.nf && col0 + m0 + 8 * i < a.n_valid &&
                  fabsf(z) >= FT_EXACT_PHASE;
         }
     if (__any_sync(0xffffffffu, big) && lane == 0) hop::red_or_cluster(hop::mapa(flag, 0), 1u);
@@ -549,9 +568,14 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       const int f = f0 + idx / FT_COLS;
       const int c = col0 + idx % FT_COLS;
       if (f >= a.nf || c >= a.ncols_out) continue;
+      const float z = zt[(idx / FT_COLS) * FT_OUT_LD + idx % FT_COLS];
+      if (a.part) {
+        a.part[(int64_t(blockIdx.z) * a.nf + f) * a.ldo + c] = z;
+        continue;
+      }
       float sv = 0.f, cv = 0.f;
       if (c < a.n_valid) {
-        sincosf(zt[(idx / FT_COLS) * FT_OUT_LD + idx % FT_COLS], &sv, &cv);
+        sincosf(z, &sv, &cv);
         sv *= a.scale;
         cv *= a.scale;
       }
@@ -561,9 +585,10 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// grid: sample CTAs (a multiple of the cluster size) x feature blocks x draws.
-// A drawn Omega is shared by a cluster, the least that keeps ceil(columns /
-// 1024) clusters; an operand Omega is loaded by each CTA (a cluster of 1)
+// grid: sample CTAs (a multiple of the cluster size) x feature blocks x draws
+// (an operand Omega split over p: x slices).  A drawn Omega is shared by a
+// cluster, the least that keeps ceil(columns / 1024) clusters; an operand
+// Omega is loaded by each CTA (a cluster of 1)
 template <bool kOperand>
 inline void featurize_tf32_grid(int nf, int ncols_out, int draws, dim3& grid, int& cluster) {
   const int ncta = (ncols_out + FT_COLS - 1) / FT_COLS;
@@ -596,6 +621,73 @@ inline cudaError_t launch_featurize_tf32_kernel(const CUtensorMap& tx, const CUt
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, featurize_tf32_kernel<kOperand>, tx, tom, gen, a);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The finishing pass of a split over p: one warp per (feature row, 32
+// consecutive columns), 8 rows a block.  The slices' phase sums are added in
+// slice order; a phase of |z| >= FT_EXACT_PHASE is recomputed from the
+// operands as fp32's sequential FMA chain over all of p (the epilogue's
+// rule, the same chain), Omega's row read as a broadcast and X's rows
+// coalesced, by every lane of a warp that has such a phase (the others
+// skip the chain); then cos and sin, columns past n_valid written as 0.
+__global__ void __launch_bounds__(256)
+featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float* __restrict__ x,
+                        int64_t ldx, int slices, const FtArgs a) {
+  const int f = blockIdx.y * 8 + threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + threadIdx.x % 32;
+  if (f >= a.nf) return;  // the whole warp
+  const bool valid = c < a.n_valid;
+  const int64_t at = int64_t(f) * a.ldo + c;
+  float z = 0.f;
+  if (c < a.ncols_out) {
+    z = a.part[at];
+    for (int sl = 1; sl < slices; ++sl) z += a.part[int64_t(sl) * a.nf * a.ldo + at];
+  }
+  const bool big = valid && fabsf(z) >= FT_EXACT_PHASE;
+  const uint32_t bigs = __ballot_sync(0xffffffffu, big);
+  if (bigs) {
+    const float* w = om + int64_t(f) * ld_om;
+    const float* xc = x + a.x_col0 + (valid ? c : 0);
+    float r = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < a.p; ++k) r = fmaf(w[k], xc[int64_t(k) * ldx], r);
+    if (big) z = r;
+    if (a.stats && threadIdx.x % 32 == 0) atomicAdd(&a.stats[1], (unsigned long long)__popc(bigs));
+  }
+  if (c < a.ncols_out) {
+    float sv = 0.f, cv = 0.f;
+    if (valid) {
+      sincosf(z, &sv, &cv);
+      sv *= a.scale;
+      cv *= a.scale;
+    }
+    a.out_c[at] = cv;
+    a.out_s[at] = sv;
+  }
+}
+
+// Omega an (nf, p) operand, rows ld_omega apart; x (p, ldx); ld_omega and
+// ldx multiples of 4 and both 16-byte aligned (TMA).  Without a.part, one
+// launch writes C and S; with it, the featurize writes `slices` phase sums
+// of a.kt_per_split k-tiles each to a.part and the finishing pass writes C
+// and S.
+inline cudaError_t launch_featurize_operand(const float* omega, int64_t ld_omega, const float* x,
+                                            int64_t ldx, const FtArgs& a, int slices,
+                                            cudaStream_t stream) {
+  CUtensorMap tx, tom;
+  if (!hop::map_f32_sw128(&tx, x, a.p, ldx, ldx, 32, FT_BK) ||
+      !hop::map_f32_sw128(&tom, omega, a.nf, a.p, ld_omega, FT_BK, FT_OM_BOX_ROWS))
+    return cudaErrorInvalidValue;
+  if (!a.part) return launch_featurize_tf32_kernel<true>(tx, tom, FusedOmega{}, 1, a, stream);
+  const int n_kt = (a.p + FT_BK - 1) / FT_BK;  // every slice has k-tiles, and they cover p
+  if (a.draw_stride != 0 || slices < 1 || a.kt_per_split < 1 ||
+      (slices - 1) * a.kt_per_split >= n_kt || slices * a.kt_per_split < n_kt)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_featurize_tf32_kernel<true>(tx, tom, FusedOmega{}, slices, a, stream);
+  if (err != cudaSuccess) return err;
+  featurize_finish_kernel<<<dim3((a.ncols_out + 31) / 32, (a.nf + 7) / 8), 256, 0, stream>>>(
+      omega, ld_omega, x, ldx, slices, a);
   return cudaGetLastError();
 }
 

@@ -1,22 +1,36 @@
 // K1 on the card: Sigma = [cos(Omega X); sin(Omega X)] / sqrt(N).
 //
 // Replaces src/repro/kernels/rff.py:48 (rff_pallas, _rff_kernel).  The
-// product over p is an fp32 FFMA loop (not TF32: the reference's bound is
-// 2e-5) with the cos/sin epilogue fused, so the (N, n) phase matrix never
-// reaches device memory.  Bound: fp32 operations, 2 N p n FLOP against
-// (N p + p n + 2 N n) * 4 bytes.  The design is the shared featurize tile
-// (featurize.cuh) with Omega read from the operand.
-#include "featurize.cuh"
+// operand featurize of featurize_tf32.cuh, the one K2/K3 run: the product
+// over p as three tf32 wgmma products (fp32-accurate; the reference's bound
+// is 2e-5), Omega loaded by TMA, phases of |z| >= 64 recomputed as fp32's FMA
+// chain, the cos/sin epilogue fused, so the (N, n) phase matrix never reaches
+// device memory.  Bound: operations, 3 x 2 N p n FLOP at the tf32 rate,
+// against (N p + p n + 2 N n) * 4 bytes.  At a transform request's width
+// (64-512 columns) the output tiles are too few to fill the card, so the
+// wrapper splits the k-tiles of p into slices (rff.split_plan): the slices'
+// phase sums go to a workspace and a finishing pass adds them in order and
+// takes cos and sin (featurize_tf32.cuh).
 #include "featurize_tf32.cuh"
 #include "threefry.cuh"
 
-extern "C" int rt_rff(const void* omega, const void* x, int nf, int p, int n,
-                      float inv_sqrt_n, void* out, void* stream) {
-  const rt::OperandOmega gen{static_cast<const float*>(omega), p};
+// omega (nf, ld_omega) with its first p columns the weights; x (p, ldx) with
+// its first n columns the samples; ld_omega and ldx multiples of 4 (TMA; the
+// wrapper pads); out (2 nf, n); part null (one launch into out) or the
+// workspace (slices, nf, n) of a split of kt_per_split k-tiles a slice;
+// stats null or three uint64 counters, of which only the phases recomputed
+// are added to (nothing is drawn)
+extern "C" int rt_rff(const void* omega, int64_t ld_omega, const void* x, int64_t ldx, int nf,
+                      int p, int n, float inv_sqrt_n, void* out, void* part, int slices,
+                      int kt_per_split, void* stats, void* stream) {
   float* o = static_cast<float*>(out);
-  return int(rt::launch_featurize(gen, 1, static_cast<const float*>(x), n, 0, nf, p, n, n,
-                                  inv_sqrt_n, o, o + int64_t(nf) * n, n, 0,
-                                  static_cast<cudaStream_t>(stream)));
+  rt::FtArgs a{0, nf, p, n, n, inv_sqrt_n, o, o + int64_t(nf) * n, n, 0,
+               static_cast<unsigned long long*>(stats)};
+  a.part = static_cast<float*>(part);
+  a.kt_per_split = kt_per_split;
+  return int(rt::launch_featurize_operand(static_cast<const float*>(omega), ld_omega,
+                                          static_cast<const float*>(x), ldx, a, slices,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 // K7 on the card: K1 with Omega drawn in the kernel, no operand.

@@ -93,15 +93,12 @@ extern "C" int rt_operand_featurize(const void* omega, int64_t ld_omega, const v
                                     int64_t ldx, int x_col0, int nf, int p, int n_valid,
                                     int bc, float scale, void* wc, void* ws, void* stats,
                                     void* stream) {
-  CUtensorMap tx, tom;
-  if (!hop::map_f32_sw128(&tx, x, p, ldx, ldx, 32, rt::FT_BK) ||
-      !hop::map_f32_sw128(&tom, omega, nf, p, ld_omega, rt::FT_BK, rt::FT_OM_BOX_ROWS))
-    return int(cudaErrorInvalidValue);
   const rt::FtArgs a{x_col0, nf, p, n_valid, bc, scale, static_cast<float*>(wc),
                      static_cast<float*>(ws), bc, 0,
                      static_cast<unsigned long long*>(stats)};
-  return int(rt::launch_featurize_tf32_kernel<true>(tx, tom, rt::FusedOmega{}, 1, a,
-                                                    static_cast<cudaStream_t>(stream)));
+  return int(rt::launch_featurize_operand(static_cast<const float*>(omega), ld_omega,
+                                          static_cast<const float*>(x), ldx, a, 1,
+                                          static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int rt_gram_moments(const void* wc, const void* ws, int nf, int draws, int bc,

@@ -96,15 +96,4 @@ struct FusedOmega {
   }
 };
 
-// Omega read from an (N, p) row-major operand: the same interface, so the
-// featurize and accumulate kernels take either source as a template argument.
-struct OperandOmega {
-  const float* ptr;
-  int64_t ld;
-  __device__ __forceinline__ float operator()(uint32_t row, uint32_t col) const {
-    return ptr[int64_t(row) * ld + col];
-  }
-  __host__ __device__ OperandOmega draw(int) const { return *this; }
-};
-
 }  // namespace rt

@@ -4,11 +4,12 @@ Port of ``repro.kernels.rff``: ``rff_pallas`` (K1, Omega an operand) and
 ``rff_fused_pallas`` (K7, Omega drawn inside the kernel from the threefry
 stream of ``kernels.prng``).  On CUDA tensors :func:`rff` and
 :func:`rff_fused` launch ``csrc/rff.cu``, the cos/sin epilogue fused into
-the product over p, written by hand: K1 an fp32 FFMA product
-(``csrc/featurize.cuh``), K7 three tf32 products on the tensor cores with
-Omega drawn beside them (``csrc/featurize_tf32.cuh``).  On CPU tensors they
-run :func:`rff_plain` and :func:`rff_fused_plain`.  ``LAUNCHES`` counts the
-kernel launches.
+the product over p, written by hand on the tensor cores as three tf32
+products (``csrc/featurize_tf32.cuh``): K1 with Omega loaded by TMA, split
+over p at narrow widths (:func:`split_plan`), K7 with Omega drawn beside the
+products.  On CPU tensors they run :func:`rff_plain` and
+:func:`rff_fused_plain`.  ``LAUNCHES`` counts the calls that launched the
+kernels (a split K1 call is two launches, counted once).
 """
 from __future__ import annotations
 
@@ -19,6 +20,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.prng import _KINDS, _MASK, _inv_sigma, fused_omega_block_plain
 
 LAUNCHES = {"rff": 0, "rff_fused": 0}
+
+# featurize_tf32.cuh: a CTA's output tile (FT_COLS samples x FT_FEATS
+# features) and its k-tile (FT_BK)
+TILE_COLS, TILE_FEATS, K_TILE = 128, 128, 32
+# a split's slices take at least this many k-tiles; a slice's fixed cost
+# (filling the ring, writing its phase sums) is counted as this many more
+MIN_SPLIT_KT, SLICE_COST_KT = 4, 4
 
 
 def tma_rows(x: torch.Tensor) -> torch.Tensor:
@@ -51,8 +59,34 @@ def _check(t: torch.Tensor, name: str, ndim: int) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def rff(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
-    """Sigma (2N, n) from X (p, n) and Omega (N, p)."""
+def split_plan(nf: int, p: int, n: int, *, sms: int) -> dict:
+    """How :func:`rff` runs on a card of ``sms`` SMs: the k-tiles of p in
+    ``slices`` slices of ``kt_per_split`` each (1: one launch into Sigma).
+
+    The output tiles run one CTA an SM.  Where they are fewer than the SMs,
+    the slices are chosen to fill the card: the least waves x (k-tiles a
+    slice + ``SLICE_COST_KT``), ties to fewer slices.  Returns ``{"slices",
+    "kt_per_split", "tiles", "ctas", "workspace_bytes"}``."""
+    tiles = -(-n // TILE_COLS) * -(-nf // TILE_FEATS)
+    n_kt = -(-p // K_TILE)
+    best, best_cost = 1, None
+    if tiles < sms:
+        for s in range(1, max(1, n_kt // MIN_SPLIT_KT) + 1):
+            kps = -(-n_kt // s)
+            cost = -(-tiles * -(-n_kt // kps) // sms) * (kps + SLICE_COST_KT)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = s, cost
+    kps = -(-n_kt // best)
+    slices = -(-n_kt // kps)
+    return dict(slices=slices, kt_per_split=kps, tiles=tiles, ctas=tiles * slices,
+                workspace_bytes=4 * slices * nf * n if slices > 1 else 0)
+
+
+def rff(x: torch.Tensor, omega: torch.Tensor, *,
+        counters: torch.Tensor | None = None) -> torch.Tensor:
+    """Sigma (2N, n) from X (p, n) and Omega (N, p).  ``counters``: see
+    :func:`counter_ptr` (CUDA tensors only; only the phases recomputed are
+    added to, as nothing is drawn)."""
     if x.device.type == "cpu" and omega.device.type == "cpu":
         return rff_plain(x, omega)
     if not (x.is_cuda and omega.is_cuda) or x.device != omega.device:
@@ -66,11 +100,18 @@ def rff(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     out = torch.empty((2 * nf, n), dtype=torch.float32, device=x.device)
     if n == 0 or nf == 0:
         return out
-    f = _build.fn("rff", "rt_rff", [_build.VP, _build.VP] + [_build.I32] * 3
-                  + [_build.F32, _build.VP, _build.VP])
+    f = _build.fn("rff", "rt_rff", [_build.VP, _build.I64, _build.VP, _build.I64]
+                  + [_build.I32] * 3 + [_build.F32, _build.VP, _build.VP] + [_build.I32] * 2
+                  + [_build.VP, _build.VP])
+    plan = split_plan(nf, p, n, sms=torch.cuda.get_device_properties(x.device)
+                      .multi_processor_count)
+    part = (torch.empty((plan["slices"], nf, n), dtype=torch.float32, device=x.device)
+            if plan["slices"] > 1 else None)
+    xr, omr = tma_rows(x), tma_rows(omega)
     with torch.cuda.device(x.device):
-        err = f(omega.data_ptr(), x.data_ptr(), nf, p, n, inv_sqrt(nf), out.data_ptr(),
-                _build.stream_ptr())
+        err = f(omr.data_ptr(), omr.shape[1], xr.data_ptr(), xr.shape[1], nf, p, n, inv_sqrt(nf),
+                out.data_ptr(), None if part is None else part.data_ptr(), plan["slices"],
+                plan["kt_per_split"], counter_ptr(counters), _build.stream_ptr())
     _build.check(err, "rff")
     LAUNCHES["rff"] += 1
     return out

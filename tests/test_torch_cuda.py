@@ -68,12 +68,38 @@ def test_prng_kernel_matches_plain(card):
             assert _ulps(out, exp) <= 8
 
 
-@pytest.mark.parametrize("nf,p,n", [(96, 40, 300), (1000, 2048, 700)])
+@pytest.mark.parametrize("nf,p,n", [
+    (96, 40, 300), (1000, 2048, 700),
+    # a transform request's widths, split over p where the tiles are few
+    *((nf, 2048, n) for nf in (1000, 4096) for n in (1, 64, 300, 512)),
+    # Omega copied for TMA (p = 7); one k-tile short of a split; full width
+    (65, 7, 795), (1000, 40, 795), (4096, 2048, 3612)])
 def test_rff_kernel_matches_plain(card, nf, p, n):
     rng = np.random.default_rng(0)
     x = torch.tensor((rng.normal(size=(p, n)) / np.sqrt(p)).astype(np.float32), device=card)
     om = torch.tensor(rng.normal(size=(nf, p)).astype(np.float32), device=card)
     out = rff.rff(x, om)
+    assert (out - rff.rff_plain(x, om)).abs().max().item() <= 2e-5
+
+
+def _sms(card) -> int:
+    return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+@pytest.mark.parametrize("n", [300, 3612])
+def test_rff_kernel_one_launch_split_or_not(card, n):
+    """One rff.rff call counts one launch whether it splits p (a request's
+    300 columns at N = 1000: 24 output tiles) or not (3612 columns); a split
+    adds its slices in a fixed order, so two calls agree bit for bit."""
+    rng = np.random.default_rng(n)
+    x = torch.tensor((rng.normal(size=(2048, n)) / 45.0).astype(np.float32), device=card)
+    om = torch.tensor(rng.normal(size=(1000, 2048)).astype(np.float32), device=card)
+    slices = rff.split_plan(1000, 2048, n, sms=_sms(card))["slices"]
+    assert (slices > 1) == (n == 300)
+    before = rff.LAUNCHES["rff"]
+    out = rff.rff(x, om)
+    assert rff.LAUNCHES["rff"] == before + 1
+    assert torch.equal(out, rff.rff(x, om))
     assert (out - rff.rff_plain(x, om)).abs().max().item() <= 2e-5
 
 
@@ -319,6 +345,43 @@ def test_operand_featurize_recomputes_large_phases(card, nf, p, n):
                                                ensemble=1)
     assert ((g_k - g_p).abs().max() / g_p.abs().max()).item() <= 2e-5
     assert (u_k - u_p).abs().max().item() <= 2e-5
+
+
+# a shape that K1 splits over p (32 output tiles, 8 k-tiles: 2 slices)
+SPLIT_CAUCHY = (200, 256, 2048)
+
+
+@pytest.mark.parametrize("nf,p,n", [(200, 40, 700), SPLIT_CAUCHY])
+def test_rff_kernel_recomputes_large_phases(card, monkeypatch, nf, p, n):
+    """K1 with a Cauchy Omega (``draw_omega``'s laplace) on unscaled X, one
+    launch into Sigma (p = 40) and split over p: phases of |z| >= 64 are
+    recomputed as fp32's FMA chain (in the epilogue, or from the whole sum
+    in the finishing pass), counted by the kernel (nothing is drawn), and
+    hold 2e-5 against plain there.  Elsewhere the map holds 2e-5 plus the
+    split products' rounding, 2^-20 of sum_k |omega_k x_k| (times 1/sqrt(N)):
+    a phase under 64 summed from terms of ~1e4 is as far from plain in the
+    split products as 2^-20 of those terms, one launch or split
+    (tests/test_torch_split_tf32_numerics.py models it; chip_smoke.py's K1
+    laplace check counts such elements).  The split run agrees with a
+    one-launch run of the same call within 2e-5."""
+    rng = np.random.default_rng(nf + p)
+    x = torch.tensor(rng.normal(size=(p, n)).astype(np.float32), device=card)
+    om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device=card)
+    assert (rff.split_plan(nf, p, n, sms=_sms(card))["slices"] > 1) == (p > 40)
+    cnt = torch.zeros(3, dtype=torch.int64, device=card)
+    out = rff.rff(x, om, counters=cnt)
+    drawn, recomputed, redrawn = cnt.tolist()
+    z = om @ x
+    big = z.abs() >= 64
+    assert drawn == redrawn == 0 < int(big.sum())
+    assert abs(recomputed - int(big.sum())) <= int(big.sum()) // 100
+    diff = (out - rff.rff_plain(x, om)).abs()
+    assert diff[torch.cat([big, big])].max().item() <= 2e-5
+    terms = (om.abs() @ x.abs()) * rff.inv_sqrt(nf) * 2.0 ** -20
+    assert bool((diff <= 2e-5 + torch.cat([terms, terms])).all())
+    monkeypatch.setattr(rff, "split_plan", lambda nf, p, n, *, sms: dict(
+        slices=1, kt_per_split=-(-p // rff.K_TILE)))
+    assert (out - rff.rff(x, om)).abs().max().item() <= 2e-5
 
 
 @pytest.mark.parametrize("nf,ensemble,p,n", [(65, 1, 40, 795), (96, 2, 16, 600)])

@@ -220,6 +220,28 @@ def test_gram_tile_plan():
         assert plan["chunks"] * plan["block"] - n < tgram.FEATURIZE_COLS * plan["chunks"]
 
 
+@pytest.mark.parametrize("nf,p,n", [(1000, 2048, 1), (1000, 2048, 64), (1000, 2048, 300),
+                                     (4096, 2048, 300), (1000, 2048, 512), (4096, 2048, 3612),
+                                     (65, 7, 795), (1000, 40, 795), (65, 2048, 3612)])
+def test_rff_split_plan(nf, p, n):
+    """K1 on a card of 132 SMs: output tiles fewer than the SMs split the
+    k-tiles of p into slices of at least MIN_SPLIT_KT that cover p, each slice
+    non-empty; a full-width call (928 tiles) and a short p are not split."""
+    plan = tkrff.split_plan(nf, p, n, sms=132)
+    n_kt = -(-p // tkrff.K_TILE)
+    s, kps = plan["slices"], plan["kt_per_split"]
+    assert s * kps >= n_kt > (s - 1) * kps
+    assert plan["tiles"] == -(-n // tkrff.TILE_COLS) * -(-nf // tkrff.TILE_FEATS)
+    assert plan["ctas"] == plan["tiles"] * s
+    if s > 1:
+        assert plan["tiles"] < 132 and kps >= tkrff.MIN_SPLIT_KT
+        assert plan["workspace_bytes"] == 4 * s * nf * n
+    if (nf, n) in ((1000, 300), (1000, 64)):  # a transform request's width at the paper's N
+        assert s > 1 and plan["ctas"] <= 132
+    if plan["tiles"] >= 132 or n_kt < 2 * tkrff.MIN_SPLIT_KT:
+        assert s == 1 and plan["workspace_bytes"] == 0
+
+
 # ---- K2/K3: the streamed Gram with Omega an operand -------------------------
 
 

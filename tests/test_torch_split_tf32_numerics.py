@@ -22,6 +22,10 @@ Gram takes both operands less the row mean and masks the columns past n
 their wgmma accumulator into a sum with fp32's rounding to nearest every
 stage of 32 of k.  The moments keep their fp32 FFMA kernel.
 
+K1 split over p (a request's width) sums each slice's folded phases in
+slice order and recomputes from the whole sum (``featurize_model``'s
+``slices``).
+
 The model is held to the kernels' gates (``chip_smoke.py`` phases 4 and 5,
 ``tests/test_torch_cuda.py``): atol 2e-5 on Sigma, and on G_H / max|G_H| and
 u (G / max|G| at 1e-5 for K8), against the port's plain versions and
@@ -117,11 +121,34 @@ def fma_chain(om: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 FOLD = 4  # both kernels: a stage of 32 of k, 4 k-steps
 
 
-def featurize_model(x, om, scale, parts=3, exact_phase=EXACT_PHASE, fold=FOLD):
+K_TILE = 32  # featurize_tf32.cuh FT_BK: a split over p cuts between k-tiles
+
+
+def slice_k(p, slices):
+    """The k of a slice of a split over p: ceil(k-tiles / slices) k-tiles of
+    32 (fewer slices where that covers p)."""
+    return -(-(-(-p // K_TILE)) // slices) * K_TILE
+
+
+def slice_phases(x, om, slices, parts=3, fold=FOLD):
+    """The phase sums of a split over p, slice by slice: each slice's Z^T =
+    X^T Omega^T on the modelled tensor cores, folded every stage from its
+    own start."""
+    kps = slice_k(om.shape[1], slices)
+    return [tf32_product(x[k0:k0 + kps].T.contiguous(), om[:, k0:k0 + kps], parts, fold).T
+            for k0 in range(0, om.shape[1], kps)]
+
+
+def featurize_model(x, om, scale, parts=3, exact_phase=EXACT_PHASE, fold=FOLD, slices=1):
     """(C, S) of one draw: Z^T = X^T Omega^T on the modelled tensor cores,
     folded every stage, phases of at least ``exact_phase`` recomputed as the
-    FMA chain."""
-    z = tf32_product(x.T.contiguous(), om, parts, fold).T
+    FMA chain.  ``slices`` > 1: split over p (K1 at a request's width), the
+    slices' phase sums added in slice order in fp32, then the recompute from
+    the whole sum, as the finishing pass takes it."""
+    parts_z = slice_phases(x, om, slices, parts, fold)
+    z = parts_z[0]
+    for zs in parts_z[1:]:
+        z = z + zs
     if exact_phase is not None:
         z = torch.where(z.abs() >= exact_phase, fma_chain(om, x), z)
     return torch.cos(z) * scale, torch.sin(z) * scale
@@ -209,6 +236,82 @@ def test_split_featurize_holds_the_gate(nf, p, n, e, sigma, kind, xs):
     pallas = np.asarray(jops.rff_fused(jnp.asarray(x), sigma_rf=sigma, interpret=True, **kw))
     for other in (plain, pallas):
         assert np.abs(model - other).max() <= ATOL
+
+
+# K1 split over p: FEATURIZE_CASES's widths with an operand Omega
+# (``draw_omega``), and Cauchy phases up to ~1e4 on unscaled X (the card's
+# laplace cases), where about half the phases take the FMA chain
+SPLIT_CASES = [
+    (96, 40, 300, 1.0, "gauss", 40 ** -0.5),
+    (160, 256, 700, 1.0, "gauss", 1.0),
+    (200, 128, 517, 4.0, "laplace", 0.3 * 128 ** -0.5),
+    (200, 40, 700, 4.0, "laplace", 1.0),
+]
+
+
+@pytest.mark.parametrize("slices", [1, 2, 8])
+@pytest.mark.parametrize("nf,p,n,sigma,kind,xs", SPLIT_CASES)
+def test_split_over_p_holds_the_gate(nf, p, n, sigma, kind, xs, slices):
+    """K1 at a request's width: each slice's folded phase sums added in
+    slice order, phases of |z| >= 64 recomputed from the whole sum, hold the
+    gate against plain and the reference's K1 (interpret mode) at any number
+    of slices (8 is capped by the k-tiles: 2 at p = 40, 4 at p = 128)."""
+    x = _x(p, n, seed=nf + p, scale=xs)
+    xt = torch.from_numpy(x)
+    om = draw_omega(7, nf, p, sigma=sigma, kernel=kind, device="cpu")
+    model = torch.cat(featurize_model(xt, om, tkrff.inv_sqrt(nf), slices=slices)).numpy()
+    plain = tkrff.rff_plain(xt, om).numpy()
+    pallas = np.asarray(jops.rff(jnp.asarray(x), jnp.asarray(om.numpy()), interpret=True))
+    for other in (plain, pallas):
+        assert np.abs(model - other).max() <= ATOL
+
+
+@pytest.mark.parametrize("nf,p,n,xs,slices", [(200, 40, 700, 1.0, 2), (200, 256, 300, 0.05, 8)])
+def test_split_recomputes_from_the_whole_phase(nf, p, n, xs, slices):
+    """Why the finishing pass, and not a slice, decides which phases take the
+    FMA chain: on Cauchy phases some phases of |z| >= 64 have no slice whose
+    partial sum reaches 64, and some partial sums past 64 add up to less.
+    Recomputing each slice's partial sum as its own chain where it reaches 64,
+    before the sum, misses the gate; the recompute from the whole sum holds it."""
+    x = torch.from_numpy(_x(p, n, seed=nf + p, scale=xs))
+    om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device="cpu")
+    plain = tkrff.rff_plain(x, om)
+    scale = tkrff.inv_sqrt(nf)
+    zs = slice_phases(x, om, slices)
+    whole = zs[0]
+    for z in zs[1:]:
+        whole = whole + z
+    big = whole.abs() >= EXACT_PHASE
+    any_slice = torch.stack([z.abs() >= EXACT_PHASE for z in zs]).any(dim=0)
+    assert (big & ~any_slice).any() and (any_slice & ~big).any()
+    kps = slice_k(p, slices)
+    per_slice = None
+    for z, k0 in zip(zs, range(0, p, kps)):
+        z = torch.where(z.abs() >= EXACT_PHASE, fma_chain(om[:, k0:k0 + kps], x[k0:k0 + kps]), z)
+        per_slice = z if per_slice is None else per_slice + z
+    before = torch.cat([torch.cos(per_slice), torch.sin(per_slice)]) * scale
+    after = torch.cat(featurize_model(x, om, scale, slices=slices))
+    assert float((after - plain).abs().max()) <= ATOL < float((before - plain).abs().max())
+
+
+@pytest.mark.parametrize("slices", [1, 2])
+def test_split_products_under_cancellation(slices):
+    """What the recompute of |z| >= 64 leaves, split over p or not: a phase
+    under 64 summed from Cauchy terms of ~1e4 cancels, and the split
+    products round at 2^-20 of sum_k |omega_k x_k| where fp32's FMA chain
+    rounds at 2^-24.  A few such phases land beyond 2e-5 of the chain (the
+    card's K1 does so against plain: chip_smoke.py's K1 laplace check), none
+    beyond 2e-5 plus 2^-20 of the terms' magnitudes (times 1/sqrt(N))."""
+    nf, p, n = 200, 128, 2048
+    x = torch.from_numpy(np.random.default_rng(nf + p).normal(size=(p, n)).astype(np.float32))
+    om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device="cpu")
+    scale = tkrff.inv_sqrt(nf)
+    zc = fma_chain(om, x)
+    chain = torch.cat([torch.cos(zc), torch.sin(zc)]) * scale
+    diff = (torch.cat(featurize_model(x, om, scale, slices=slices)) - chain).abs()
+    terms = (om.abs().double() @ x.abs().double()) * scale * 2.0 ** -20
+    assert float(diff.max()) > ATOL
+    assert bool((diff.double() <= ATOL + torch.cat([terms, terms])).all())
 
 
 # (N, p, n, S, sigma, kind, x scale)
