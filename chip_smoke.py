@@ -90,9 +90,10 @@ Phases (any failed check raises, and the run exits non-zero):
      edges, beside its plain version and torch.matmul of the weighted
      membership;
  10. FedRF-TCA training (paper Alg. 5) through ``FedRFTCATrainer(...).train()``
-     and ``.evaluate()`` at the width of ``src/repro/configs/fedrf_paper.py``
-     (p = 16, extractor (64, 32), N = 512, m = 32, 5 classes, lambda 2,
-     lr 5e-3, T_C = 50) on ``make_domains(5, 400, shift=1.2, seed=3)``,
+     and ``.evaluate()`` at the width of ``repro_torch.configs.fedrf_paper``
+     (a copy of ``src/repro/configs/fedrf_paper.py``: p = 16, extractor
+     (64, 32), N = 512, m = 32, 5 classes, lambda 2, lr 5e-3, T_C = 50) on
+     ``make_domains(5, 400, shift=1.2, seed=3)``,
      drop setting III, 50 warm-up rounds then 100 rounds, launch counts zeroed
      just before and read just after each run:
        F    batched engine, wire transport, qint8 (K10 in every round), K = 4;
@@ -156,12 +157,42 @@ Phases (any failed check raises, and the run exits non-zero):
        LH   on the card at fp32, a prefill of 128 tokens plus 4 decode steps
             against ``forward`` over 132 (tests/test_models.py:141-161):
             within 1e-4 (prefill) and 1e-3 (decode) of max(1, max|logit|);
- 13. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 13. the asynchronous runtime through ``repro_torch.fedsim.AsyncScheduler(...).run``
+     at phase 10's width, launch counts zeroed just before and read just after
+     each run, flush time on the host clock (each ending in ``synchronize``):
+       AD   H batched's setting under ``AsyncScheduler``: uniform latencies, no
+            churn, buffer = K = 4, 50 warm-up rounds then 100 flushes: every
+            flush a full buffer at staleness 0, the parameters within 1e-4 x
+            max(1, max|leaf|) of phase 10's H batched run;
+       AQ   F's setting (qint8 over the wire, K = 4) asynchronous: heterogeneous
+            links (one slow straggler; 10 % losses, retried), Markov churn at
+            an offline fraction of 0.2 (benchmarks/bench_async.py), buffer 2,
+            polynomial staleness weights, an eval tick every 10 virtual s, 100
+            flushes; K10 at every dispatch and flush, its first launch of each
+            shape held against plain bit for bit;
+       AC   AQ for 10 flushes from one start (a CPU warm-up, checkpointed and
+            restored on each device) on the card and on the CPU, the card
+            drawing the CPU's channel uniforms: the histories (times, members,
+            staleness, weights) equal, the parameters within 1e-4 x max(1,
+            max|leaf|), or, where a qint8 bin flipped, every entry within one
+            quantization step and 99 % within that (Omega seed-fused, K4, as
+            in S: the materialized draw is each device's own); then the same
+            over an identity float32 wire, held to 1e-4 x max(1, max|leaf|)
+            alone;
+       AL   FL's fleet asynchronous: K = 1024 over ``Topology.uniform(1024,
+            64)``, chunk 128, qint8 on both tiers, a buffer of 16 per edge, the
+            merged edge uplinks over ``edge_links``, 10 warm-up rounds, 64
+            server flushes, an edge crash and a server crash restored from the
+            last checkpoint: finite parameters, one recovery, ingress below the
+            flat K-uplink figure, K9 and K10 launched, their first launches
+            held against plain;
+ 14. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches), the card's name and power limit, and the result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import subprocess
@@ -229,6 +260,12 @@ K9_CHECK = tuple((k, d, e) for k, e in ((FL_K, FL_EDGES), (4, 2), (4, 4))
 K9_TIMED = ((FL_K, 32769, FL_EDGES), (FL_K, 1025, FL_EDGES))  # FL's W_RF and moment merges
 K9_RTOL = 1e-5  # on |kernel - plain| / max(1, max|plain|)
 R_WARMUP, R_ROUNDS = 10, 50
+# phase 13, the async runtime: AD (degeneracy against H), AQ (lossy links and
+# churn at an offline fraction of 0.2, benchmarks/bench_async.py), AC (AQ on
+# the card and the CPU from one start), AL (FL's fleet with per-edge buffers)
+AQ_FLUSHES, AQ_BUFFER, AQ_EVAL_S, AQ_HORIZON_S = 100, 2, 10.0, 2000.0
+AC_WARMUP, AC_FLUSHES = 5, 10
+AL_FLUSHES, AL_BUFFER, AL_CKPT_S, AL_CRASH_S, AL_EDGE_CRASH = 64, 16, 1.9, 2.05, (1.55, 5)
 ROBUST_RULES = ("mean", "finite_mean", "trimmed_mean", "geomedian", "norm_clip")
 # K11: tests/test_kernels.py:164-187's sweep (fp32 and bf16, window 0 and 48,
 # causal and not), ragged s, the serve run's shape and internlm2-1.8b's head
@@ -1215,14 +1252,14 @@ def main() -> int:
     # ---- 10. FedRF-TCA training through the trainer's entry points ---------
     from repro_torch.comm import wire
     from repro_torch.comm.netsim import TraceScenario
-    from repro_torch.federated import ClientConfig, FedRFTCATrainer, ProtocolConfig, RoundPlan
+    from repro_torch.configs import fedrf_paper
+    from repro_torch.federated import FedRFTCATrainer, ProtocolConfig, RoundPlan
     from repro_torch.robust import FaultConfig
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    fed_cfg = ClientConfig(input_dim=16, n_classes=5, extractor_widths=(64, 32), n_rff=512, m=32,
-                           lambda_mmd=2.0)
-    fed_kw = dict(n_rounds=FED_ROUNDS, t_c=50, warmup_rounds=FED_WARMUP, lr=5e-3,
-                  drop_setting="III", seed=SEED)
+    fed_cfg = fedrf_paper.CLIENT  # the width of src/repro/configs/fedrf_paper.py
+    fed_kw = dict(n_rounds=FED_ROUNDS, t_c=fedrf_paper.PROTOCOL.t_c, warmup_rounds=FED_WARMUP,
+                  lr=fedrf_paper.PROTOCOL.lr, drop_setting="III", seed=SEED)
     doms5 = make_domains(5, 400, shift=1.2, seed=3)
 
     # The first K10 call of each (shape, qmax) on the main path is kept, in
@@ -1413,6 +1450,7 @@ def main() -> int:
     if runs["FT"]["k9_launches"] <= 0:
         raise AssertionError("run FT: K9 was not launched")
     cross["FT_k9_launch_shapes"] = check_main_path_k9("FT")
+    h_params = [t.detach().clone() for t in params_of(tr_hb)]  # phase 13's AD reads them
     del tr_f, tr_g, tr_hb, tr_hs, tr_ft
     # R: every rule under NaN payload faults; the mean must end non-finite
     nan_faults = FaultConfig(corrupt_moments=0.5, corrupt_w_rf=0.5, corruption="nan")
@@ -1442,9 +1480,8 @@ def main() -> int:
                              f"{fl['flat_ingress_bytes']}")
     cross["FL_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("FL")
     cross["FL_k9_launch_shapes"] = check_main_path_k9("FL")
-    del tr_fl, doms_fl
-    fused_cfg = ClientConfig(input_dim=16, n_classes=5, extractor_widths=(64, 32), n_rff=512, m=32,
-                             lambda_mmd=2.0, rff_impl="fused")
+    del tr_fl  # doms_fl stays for phase 13's AL
+    fused_cfg = dataclasses.replace(fed_cfg, rff_impl="fused")
     short = dict(cfg=fused_cfg, engine="batched", warmup_rounds=5, n_rounds=5, t_c=2)
     tr_sc, runs["S_card"] = train_run("S card", doms5[:4], doms5[4], **short)
     tr_sp, runs["S_cpu"] = train_run("S cpu", doms5[:4], doms5[4], device="cpu", **short)
@@ -1943,6 +1980,239 @@ def main() -> int:
     runs["L"]["phase_12_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 11 (K11) {report['K11']['phase_s']:.1f} s, phase 12 (L, LC, LH) "
         f"{runs['L']['phase_12_s']:.1f} s")
+
+    # ---- 13. the async runtime (fedsim) through AsyncScheduler.run ----------
+    import tempfile
+    from types import SimpleNamespace
+
+    from repro_torch.comm.netsim import LinkModel, LinkScenario
+    from repro_torch.federated.engine import BatchedRoundEngine
+    from repro_torch.fedsim import AsyncConfig, AsyncScheduler, markov_trace
+
+    t_phase = time.perf_counter()
+    quantize.fake_quant = recording_fake_quant
+    seg_k.segment_reduce = recording_segment_reduce
+
+    def history_rows(hist):
+        return [{k: v for k, v in h.to_dict().items() if k != "acc"} for h in hist]
+
+    def leaf_err(tr, ref):
+        """max over leaves of |a - b| / max(1, max|b|), ``ref`` a list of leaves."""
+        return max(float((a.cpu() - b.cpu()).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(params_of(tr), ref))
+
+    def async_run(tag, sources, target, acfg, *, flushes, cfg=fed_cfg, device=dev, start=None,
+                  links=None, availability=None, edge_links=None, **kw):
+        """One ``AsyncScheduler(...).run(flushes)``; ``start`` (a checkpoint
+        directory) gives the trainer its state, and a card trainer started so
+        takes its channel draws from the CPU's generator (the card's draws
+        other numbers)."""
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        on_card = torch.device(device).type == "cuda"
+        base = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = FedRFTCATrainer(sources, target, cfg, ProtocolConfig(**{**fed_kw, **kw}),
+                             device=device)
+        if start is not None:
+            tr.restore_state(start)
+            if on_card and tr._engine.channel:
+                shim = SimpleNamespace(channel_seed=tr._engine.channel_seed,
+                                       device=torch.device("cpu"))
+                tr._engine.channel_uniforms = lambda *a: BatchedRoundEngine.channel_uniforms(
+                    shim, *a).to(device)
+        if on_card:
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        acc_warm = tr.evaluate()
+        flat_ingress = {"moments": 0, "w_rf": 0, "classifier": 0}
+        if tr.topology is not None:
+            ingress = tr.account_ingress
+
+            def counting_ingress(kind, members):
+                members = list(members)
+                flat_ingress[kind] += len(members) * wire.serialized_size(
+                    kind, tr._specs[kind], tr.transport.codecs[kind])
+                ingress(kind, members)
+
+            tr.account_ingress = counting_ingress
+        sched = AsyncScheduler(tr, acfg, availability=availability, links=links,
+                               edge_links=edge_links)
+        lat = []
+        flush = sched._flush
+
+        def timed_flush(t, entries):
+            t1 = time.perf_counter()
+            row = flush(t, entries)
+            if on_card:
+                torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+            return row
+
+        sched._flush = timed_flush
+        t1 = time.perf_counter()
+        hist = sched.run(flushes)
+        if on_card:
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        acc = tr.evaluate()
+        launches = {k: dict(c) for k, c in counters.items()}
+        if not all(bool(torch.isfinite(x).all()) for x in params_of(tr)):
+            raise AssertionError(f"run {tag}: parameters not all finite")
+        if sched.flushes != flushes:
+            raise AssertionError(f"run {tag}: {sched.flushes} flushes of {flushes}")
+        staleness = [s for h in hist if "flush" in h for s in h["staleness"]]
+        row = dict(
+            engine=tr.proto.engine, transport=tr.proto.transport, codec=tr.resolved_codec,
+            k=tr.k, warmup_rounds=tr.proto.warmup_rounds, buffer_size=acfg.buffer_size,
+            staleness_mode=acfg.staleness, flushes=sched.flushes, flush_executions=len(lat),
+            warmup_s=warm_s, run_s=run_s, flush_ms_p50=float(np.percentile(lat, 50)),
+            flush_ms_p99=float(np.percentile(lat, 99)), virtual_time_s=sched.clock.now,
+            dispatches=sched.dispatches, max_staleness=max(staleness),
+            mean_staleness=float(np.mean(staleness)), giveups=sched.giveups,
+            recoveries=[r.to_dict() for r in sched.recoveries],
+            edge_crashes=[h.to_dict() for h in hist if h.get("crash") == "edge"],
+            eval_ticks=sum(1 for h in hist if "eval" in h), acc_after_warmup=acc_warm,
+            acc_end=acc, bytes_by_kind=dict(tr.comm.bytes_by_kind),
+            messages_by_kind=dict(tr.comm.messages_by_kind),
+            k10_launches=launches["quantize"]["fake_quant"],
+            k9_launches=launches["segment_reduce"]["segment_reduce"],
+            peak_bytes=(int(torch.cuda.max_memory_allocated()) - base) if on_card else None,
+            launches=launches, device=str(device))
+        if tr.topology is not None:
+            row.update(edges=tr.topology.n_edges, edge_codec=tr.proto.edge_codec,
+                       ingress_bytes=dict(tr.ingress_bytes), flat_ingress_bytes=flat_ingress)
+        log(f"[run {tag}] {row['engine']}/{row['transport']}/{row['codec']} K={tr.k} on "
+            f"{row['device']}: {row['flushes']} flushes ({row['flush_executions']} run, buffer "
+            f"{acfg.buffer_size}, {acfg.staleness}) in {run_s:.3f} s, flush p50 "
+            f"{row['flush_ms_p50']:.3f} ms p99 {row['flush_ms_p99']:.3f} ms, virtual time "
+            f"{row['virtual_time_s']:.4f} s, staleness max {row['max_staleness']} mean "
+            f"{row['mean_staleness']:.3f}, give-ups {row['giveups']}, recoveries "
+            f"{len(row['recoveries'])}, edge crashes {len(row['edge_crashes'])}, eval ticks "
+            f"{row['eval_ticks']}, target acc {acc_warm:.4f} -> {acc:.4f}, bytes "
+            f"{row['bytes_by_kind']}, K10 launches {row['k10_launches']}, K9 launches "
+            f"{row['k9_launches']}, peak {(row['peak_bytes'] or 0) / 2**20:.1f} MiB above the "
+            f"run's start")
+        if tr.topology is not None:
+            log(f"[run {tag}] E={row['edges']}: server ingress {row['ingress_bytes']} against "
+                f"{flat_ingress} with K uplinks")
+        return tr, hist, row
+
+    # AD: uniform latencies, no churn, buffer = K: every flush a full buffer at
+    # staleness 0, the parameters those of phase 10's H batched run
+    uniform = LinkScenario(links=[LinkModel(latency_s=0.25) for _ in range(4)])
+    tr_ad, hist_ad, runs["AD"] = async_run(
+        "AD", doms5[:4], doms5[4], AsyncConfig(buffer_size=4, staleness="polynomial"),
+        flushes=FED_ROUNDS, links=uniform, engine="batched", scenario=full)
+    if not all(h["members"] == [0, 1, 2, 3] and h["staleness"] == [0] * 4 for h in hist_ad):
+        raise AssertionError("run AD: a flush was not a full buffer at staleness 0")
+    ad_err = leaf_err(tr_ad, h_params)
+    cross["AD_vs_H_batched_max_leaf_err_over_max1_leaf"] = ad_err
+    if not ad_err <= FED_LEAF_TOL:
+        raise AssertionError(f"run AD: differs from H batched by {ad_err} of max(1, max|leaf|) "
+                             f"> {FED_LEAF_TOL}")
+    del tr_ad, hist_ad, h_params
+    # AQ: qint8 over heterogeneous links (one slow straggler, losses retried)
+    # under Markov churn at an offline fraction of 0.2 (mean on 10 s, off 2.5 s)
+    aq_links = LinkScenario(links=[
+        LinkModel(latency_s=0.1 * (i + 1), jitter_s=0.05, bandwidth_bps=1e6, drop=0.1)
+        for i in range(3)] + [LinkModel(latency_s=8.0, bandwidth_bps=2e4, drop=0.1)])
+    aq_avail = markov_trace(4, AQ_HORIZON_S, mean_on=10.0, mean_off=2.5, seed=17)
+    aq_cfg = AsyncConfig(buffer_size=AQ_BUFFER, staleness="polynomial", eval_interval=AQ_EVAL_S)
+    aq_kw = dict(links=aq_links, availability=aq_avail, engine="batched", **wire_kw)
+    _, _, runs["AQ"] = async_run("AQ", doms5[:4], doms5[4], aq_cfg, flushes=AQ_FLUSHES, **aq_kw)
+    if runs["AQ"]["k10_launches"] <= 0:
+        raise AssertionError("run AQ: K10 was not launched")
+    cross["AQ_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AQ")
+    # AC: AQ's setting from one start (a CPU warm-up, checkpointed) on the card
+    # and on the CPU: equal histories, parameters within FED_LEAF_TOL.  Omega
+    # from the seed-fused stream (K4), as S: the materialized draw comes from
+    # each device's own generator
+    with tempfile.TemporaryDirectory() as ac_dir:
+        tr_ws = FedRFTCATrainer(doms5[:4], doms5[4], fused_cfg, ProtocolConfig(**{
+            **fed_kw, "warmup_rounds": AC_WARMUP, "engine": "batched", **wire_kw}), device="cpu")
+        tr_ws.save_state(ac_dir, step=0)
+        del tr_ws
+        ac_kw = dict(aq_kw, cfg=fused_cfg, warmup_rounds=0, start=ac_dir, flushes=AC_FLUSHES)
+        tr_acc, hist_acc, runs["AC_card"] = async_run("AC card", doms5[:4], doms5[4], aq_cfg,
+                                                      **ac_kw)
+        tr_acp, hist_acp, runs["AC_cpu"] = async_run("AC cpu", doms5[:4], doms5[4], aq_cfg,
+                                                     device="cpu", **ac_kw)
+        # the same start and events over an identity float32 wire: no bin to
+        # flip, so the strict gate alone
+        f32_kw = dict(ac_kw, transport="identity", codec="float32")
+        tr_fc, hist_fc, runs["AC_f32_card"] = async_run("AC f32 card", doms5[:4], doms5[4],
+                                                        aq_cfg, **f32_kw)
+        tr_fp, hist_fp, runs["AC_f32_cpu"] = async_run("AC f32 cpu", doms5[:4], doms5[4],
+                                                       aq_cfg, device="cpu", **f32_kw)
+    ac_f32_err = leaf_err(tr_fc, params_of(tr_fp))
+    cross["AC_f32_card_vs_cpu_max_leaf_err_over_max1_leaf"] = ac_f32_err
+    if history_rows(hist_fc) != history_rows(hist_fp) or not ac_f32_err <= FED_LEAF_TOL:
+        raise AssertionError(f"run AC f32: card and CPU differ by {ac_f32_err} of max(1, "
+                             f"max|leaf|), or their histories differ")
+    del tr_fc, tr_fp, hist_fc, hist_fp
+    if history_rows(hist_acc) != history_rows(hist_acp):
+        raise AssertionError("run AC: the card's and the CPU's histories differ")
+    ac_err = leaf_err(tr_acc, params_of(tr_acp))
+    # a qint8 bin can flip where the card's and the CPU's payloads part by one
+    # rounding (tests/test_torch_federated.py's qint8 parity rule): then every
+    # entry must be within one quantization step of its leaf and 99 % within
+    # FED_LEAF_TOL of max(1, max|leaf|)
+    within, total, step_ok = 0, 0, True
+    for a, b in zip(params_of(tr_acc), params_of(tr_acp)):
+        d = (a.cpu() - b).abs()
+        within += int((d <= FED_LEAF_TOL * max(1.0, float(b.abs().max()))).sum())
+        total += d.numel()
+        step_ok &= float(d.max()) <= max(float(b.abs().max()) / 127, FED_LEAF_TOL)
+    cross["AC_card_vs_cpu_max_leaf_err_over_max1_leaf"] = ac_err
+    cross["AC_card_vs_cpu_share_within_tol"] = within / total
+    cross["AC_history_rows_equal"] = True
+    if not (ac_err <= FED_LEAF_TOL or (step_ok and within >= 0.99 * total)):
+        raise AssertionError(f"run AC: card and CPU differ by {ac_err} of max(1, max|leaf|), "
+                             f"{within} of {total} entries within {FED_LEAF_TOL}")
+    cross["AC_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AC card")
+    del tr_acc, tr_acp, hist_acc, hist_acp
+    # AL: FL's fleet asynchronous, one buffer of 16 per edge, merged edge
+    # uplinks over a backhaul, an edge crash and a server crash restored from
+    # the last checkpoint
+    al_links = LinkScenario(links=[LinkModel(latency_s=0.2 + 0.01 * (i % 37), jitter_s=0.1)
+                                   for i in range(FL_K)])
+    al_edges = LinkScenario(links=[LinkModel(latency_s=0.3 + 0.01 * e, jitter_s=0.05)
+                                   for e in range(FL_EDGES)])
+    with tempfile.TemporaryDirectory() as al_dir:
+        al_cfg = AsyncConfig(buffer_size=AL_BUFFER, staleness="polynomial",
+                             server_crash_times=(AL_CRASH_S,), checkpoint_interval_s=AL_CKPT_S,
+                             edge_crash_times=(AL_EDGE_CRASH,), restart_delay_s=0.5,
+                             ckpt_dir=al_dir)
+        tr_al, _, runs["AL"] = async_run(
+            "AL", doms_fl[:FL_K], doms_fl[FL_K], al_cfg, flushes=AL_FLUSHES, links=al_links,
+            edge_links=al_edges, engine="batched", warmup_rounds=FL_WARMUP,
+            topology=Topology.uniform(FL_K, FL_EDGES), client_chunk=FL_CHUNK,
+            edge_codec="qint8", **wire_kw)
+    al = runs["AL"]
+    if al["k9_launches"] <= 0 or al["k10_launches"] <= 0:
+        raise AssertionError(f"run AL: K9 {al['k9_launches']}, K10 {al['k10_launches']} launches")
+    if len(al["recoveries"]) != 1 or len(al["edge_crashes"]) != 1:
+        raise AssertionError(f"run AL: {al['recoveries']} recoveries, {al['edge_crashes']}")
+    if not sum(al["ingress_bytes"].values()) < sum(al["flat_ingress_bytes"].values()):
+        raise AssertionError(f"run AL: ingress {al['ingress_bytes']} not below the flat "
+                             f"{al['flat_ingress_bytes']}")
+    cross["AL_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AL")
+    cross["AL_k9_launch_shapes"] = check_main_path_k9("AL")
+    del tr_al, doms_fl
+    quantize.fake_quant = k10_launch
+    seg_k.segment_reduce = k9_launch
+    torch.cuda.synchronize()
+    runs["AL"]["phase_13_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 13 (AD, AQ, AC, AL) {runs['AL']['phase_13_s']:.1f} s")
+    log(f"[cross] AD vs H batched {ad_err:.3g}, AC card vs CPU {ac_err:.3g} ("
+        f"{cross['AC_card_vs_cpu_share_within_tol']:.6f} of entries within {FED_LEAF_TOL}), "
+        f"AC over float32 {ac_f32_err:.3g}")
 
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     report["K4"]["launches"] = sum(la[t]["prng"]["fused_omega"] for t in la)

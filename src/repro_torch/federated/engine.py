@@ -33,9 +33,16 @@ a time (``fleet.sharding.chunked_vmap``).  Robustness (``robust``): the
 ``rule`` owns every weighted merge, and a ``faults`` plan corrupts the
 stacked uplinks after the channel (its draws under paths (7,), (8,), (9,)).
 
-Not ported yet, each raising ``NotImplementedError``: the asynchronous
-flush (``fedsim``, ROADMAP queue 1 step 8) and the health probes (``obs``,
-step 10).
+Besides the round, the engine runs the asynchronous runtime's data plane
+(:meth:`BatchedRoundEngine.flush`, driven by ``fedsim.AsyncScheduler``): a
+FedBuff-style buffered aggregation in which only the buffered clients keep
+their local steps, each against the target broadcast of its own dispatch,
+and every merge is weighted by ``buf * weights`` (staleness).  It goes
+through the same merge methods as the round, so the two-tier plane (K9),
+the robust rule and the fault plan apply to it unchanged.
+
+Not ported yet, raising ``NotImplementedError``: the health probes
+(``obs``, ROADMAP queue 1 step 10).
 """
 from __future__ import annotations
 
@@ -130,37 +137,47 @@ class BatchedRoundEngine:
 
     def _src_local_steps(self, src_p, src_o, xs, ys, mmd_mask, tgt_msg, bmask=None):
         """Local steps of every client: xs (L, K, p, b), ys (L, K, b),
-        mmd_mask (K,) 0/1, ``tgt_msg`` one (2N,) broadcast, ``bmask`` (K, b)
-        0/1 or None."""
+        mmd_mask (K,) 0/1, ``bmask`` (K, b) 0/1 or None.  ``tgt_msg`` is one
+        (2N,) broadcast (the round) or a (K, 2N) stack, row k the broadcast
+        client k was handed at its dispatch (the flush)."""
         cfg, omega = self.cfg, self.omega
 
-        def one_client(p, o, x, y, gate, sm):
+        def one_client(p, o, x, y, gate, sm, tm):
             return self._step(
-                lambda pp: source_loss(pp, omega, x, y, tgt_msg, cfg, mmd_gate=gate,
+                lambda pp: source_loss(pp, omega, x, y, tm, cfg, mmd_gate=gate,
                                        sample_mask=sm), p, o)
 
-        mapped = chunked_vmap(one_client, (0, 0, 0, 0, 0, 0 if bmask is not None else None),
+        mapped = chunked_vmap(one_client, (0, 0, 0, 0, 0, 0 if bmask is not None else None,
+                                           0 if tgt_msg.ndim == 2 else None),
                               chunk=self.client_chunk)
         for x, y in zip(xs, ys):
-            src_p, src_o = mapped(src_p, src_o, x, y, mmd_mask, bmask)
+            src_p, src_o = mapped(src_p, src_o, x, y, mmd_mask, bmask, tgt_msg)
         return src_p, src_o
 
-    def channel_uniforms(self, chan_key: int, path: tuple[int, ...], n_rows: int | None,
-                         shape: tuple[int, ...]) -> torch.Tensor:
+    def channel_uniforms(self, chan_key: int | tuple[int, ...], path: tuple[int, ...],
+                         n_rows: int | None, shape: tuple[int, ...]) -> torch.Tensor:
         """The uniforms in [0, 1) of one channel draw: (n_rows, *shape), or
         ``shape`` for a single payload (``n_rows=None``).
 
-        ``path`` names the draw as the reference's key chain does, from the
-        round key ``fold_in(chan_base, t)``: (0,) the target downlink,
-        (1,) the K moment uplinks, (2,) the K + 1 W_RF uplinks (the target's
-        last), (3, i) classifier leaf i (JAX leaf order: ``b``, then ``w``);
-        the tier-2 edge uplinks: (4,) moments, (5,) W_RF, (6, i) classifier
-        leaf i.
+        ``chan_key`` is the round index t (a flush's index f; the reference's
+        ``fold_in(chan_base, t)``) or a key of two levels, (0x00A5, d) for
+        the async runtime's d-th dispatch downlink (``fold_in(fold_in(
+        chan_base, 0x00A5), d)``, drawn with ``path=()``).  ``path`` names the
+        draw as the reference's key chain does from there: (0,) the target
+        downlink, (1,) the K moment uplinks, (2,) the K + 1 W_RF uplinks (the
+        target's last), (3, i) classifier leaf i (JAX leaf order: ``b``, then
+        ``w``); the tier-2 edge uplinks: (4,) moments, (5,) W_RF, (6, i)
+        classifier leaf i.
         The port draws each from a ``torch.Generator`` seeded from
         (channel_seed, chan_key, path), so a round's draws do not depend on
-        what ran before it."""
-        words = [self.channel_seed & 0xFFFFFFFF, int(chan_key) & 0xFFFFFFFF, *path]
-        seed = int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0]) >> 1
+        what ran before it.  A two-level key seeds a ``SeedSequence`` spawn
+        (``spawn_key=(2,)``): its words are padded and extended past any
+        round key's, so no round draws what a dispatch draws."""
+        key = tuple(chan_key) if isinstance(chan_key, tuple) else (chan_key,)
+        words = [self.channel_seed & 0xFFFFFFFF, *(int(k) & 0xFFFFFFFF for k in key), *path]
+        spawn = () if len(key) == 1 else (len(key),)
+        seq = np.random.SeedSequence(words, spawn_key=spawn)
+        seed = int(seq.generate_state(1, np.uint64)[0]) >> 1
         gen = torch.Generator(device=self.device).manual_seed(seed)
         full = tuple(shape) if n_rows is None else (n_rows, *shape)
         return torch.rand(full, generator=gen, device=self.device)
@@ -326,9 +343,56 @@ class BatchedRoundEngine:
                                                   chan_key, 1.0)
         return src_p, src_o, tgt_p, tgt_o
 
-    def flush(self, *args, **kwargs):
-        """The asynchronous runtime's buffered aggregation."""
-        raise _not_ported("the buffered async flush (fedsim)", "step 8, fedsim/")
+    # -- async buffered flush (fedsim.AsyncScheduler's data plane) ----------
+
+    @staticmethod
+    def _select_clients(mask, new, old):
+        """Leafwise per-client where: row k of ``new`` iff mask[k] > 0."""
+        return tree_map(lambda a, b: torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)) > 0,
+                                                 a, b), new, old)
+
+    def flush(self, src_p, src_o, tgt_p, tgt_o, batch, masks, chan_key=None):
+        """One FedBuff-style buffered aggregation.  ``batch``: the
+        dispatch-time draws ``xs`` (L, K, p, b), ``ys`` (L, K, b), ``x_msg``
+        (K, p, mb) (rows outside the buffer are finite dummies), the
+        flush-time ``xt_steps`` (L, p, b), ``tgt_msgs`` (K, 2N) (row k the
+        broadcast client k received at its dispatch), optional ``bmask`` and
+        ``msg_mask``.  ``masks``: ``buf`` (K,) 0/1 (the buffered clients),
+        ``weights`` (K,) staleness weights, ``do_clf`` (bool: every T_C-th
+        flush).  ``chan_key`` (the flush index) keys the channel's uniforms.
+
+        Every client runs its local steps; only the buffered rows keep their
+        parameters and Adam states.  Every merge (the moments into the target
+        steps, W_RF, the classifier with a 1e-9 floor) is weighted by
+        ``buf * weights``.  With a full buffer at staleness 0 every
+        expression reduces to :meth:`round`'s: the sync/async degeneracy."""
+        if chan_key is None:
+            if self.channel:
+                raise ValueError("channel distortion is set: pass a per-flush chan_key")
+            chan_key = 0
+        buf, do_clf = masks["buf"], masks["do_clf"]
+        wsel = buf * masks["weights"]
+        bmask, msg_mask = batch.get("bmask"), batch.get("msg_mask")
+
+        # local source training at the dispatch inputs; keep the buffered rows
+        gates = buf if self.exchange_messages else torch.zeros_like(buf)
+        new_p, new_o = self._src_local_steps(src_p, src_o, batch["xs"], batch["ys"], gates,
+                                             batch["tgt_msgs"], bmask)
+        src_p = self._select_clients(buf, new_p, src_p)
+        src_o = self._select_clients(buf, new_o, src_o)
+
+        # the target trains on the buffered moments, staleness-weighted
+        if self.exchange_messages:
+            msgs = self._uplinked_msgs(src_p, batch["x_msg"], msg_mask, chan_key)
+            merged, tgt_w = self._merge_msgs(msgs, wsel, chan_key)
+            tgt_p, tgt_o = self._target_steps(tgt_p, tgt_o, batch["xt_steps"], merged, tgt_w,
+                                              torch.sum(buf) > 0)
+        if self.aggregate_w_rf and not self.freeze_w_rf:
+            src_p, tgt_p = self._merge_w_rf(src_p, tgt_p, buf, wsel, chan_key)
+        if self.aggregate_classifier:
+            src_p, tgt_p = self._merge_classifier(src_p, tgt_p, buf, wsel, do_clf, chan_key,
+                                                  1e-9)
+        return src_p, src_o, tgt_p, tgt_o
 
     # -- warm-up (emulated pretraining, FedAvg over sources) -----------------
 

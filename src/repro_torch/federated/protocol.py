@@ -35,8 +35,14 @@ per-client working set.  Robustness (``robust``): ``rule`` owns every
 weighted merge of the batched engine; ``faults`` corrupts the stacked uplinks
 (batched) or the serialized frames (serial, ``transport="wire"``).
 
-Not ported yet (each raises ``NotImplementedError``): the asynchronous
-plane's hooks (ROADMAP queue 1 step 8) and probes (step 10).
+The asynchronous runtime (``repro_torch.fedsim.AsyncScheduler``) drives the
+batched engine's ``flush`` through three hooks that draw from the same
+streams as a round, in the same order: :meth:`FedRFTCATrainer.
+draw_client_dispatch`, :meth:`~FedRFTCATrainer.draw_target_steps` and
+:meth:`~FedRFTCATrainer.target_message`.
+
+Not ported yet (raises ``NotImplementedError``): the health probes
+(ROADMAP queue 1 step 10).
 """
 from __future__ import annotations
 
@@ -339,22 +345,54 @@ class FedRFTCATrainer:
         return self._dev(xs), self._dev(ys)
 
     def _round_batch(self) -> dict:
-        """One round's batches for the batched engine."""
-        L, p = self.proto.local_steps, self.sources[0].x.shape[0]
-        xs = np.zeros((L, self.k, p, self._b_max), np.float32)
-        ys = np.zeros((L, self.k, self._b_max), np.int64)
-        for i in range(self.k):
-            for s in range(L):
-                x, y = next(self.src_iters[i])
-                xs[s, i], ys[s, i] = _cycle_pad(x, y, self._b_max)
-        x_msg = np.zeros((self.k, p, self._mb_max), np.float32)
-        for i in range(self.k):
-            x_msg[i], _ = _cycle_pad(next(self._msg_iters[i])[0], None, self._mb_max)
-        xt_steps = np.stack([next(self.tgt_iter)[0] for _ in range(L)])
+        """One round's batches for the batched engine: every client's
+        dispatch draws, stacked on the K axis."""
+        draws = [self.draw_client_dispatch(i) for i in range(self.k)]
+        xs, ys = (np.stack([d[j] for d in draws], axis=1) for j in (0, 1))
+        x_msg = np.stack([d[2] for d in draws])
+        xt_steps = self.draw_target_steps()
         xt_msg = next(self._tgt_msg_iter)[0]
         return {"xs": self._dev(xs), "ys": self._dev(ys), "x_msg": self._dev(x_msg),
                 "xt_steps": self._dev(xt_steps), "xt_msg": self._dev(xt_msg),
                 "bmask": self._bmask, "msg_mask": self._msg_mask}
+
+    # ---- the draws of a round and of the async runtime -----------------------
+    # The async runtime (repro_torch.fedsim.AsyncScheduler) draws each client's
+    # batches at its dispatch and the target's at each flush; a round draws
+    # them all at once through the same two functions.  Each client's stream
+    # is its own iterator, so a no-churn, uniform-latency async run consumes
+    # the same batches as the rounds.
+
+    def draw_client_dispatch(self, i: int):
+        """Client i's dispatch draws, host numpy: (L, p, b_max) / (L, b_max)
+        training batches and the (p, mb_max) message batch, cycle-padded like
+        :meth:`_round_batch`."""
+        L, p = self.proto.local_steps, self.sources[0].x.shape[0]
+        xs = np.zeros((L, p, self._b_max), np.float32)
+        ys = np.zeros((L, self._b_max), np.int64)
+        for s in range(L):
+            x, y = next(self.src_iters[i])
+            xs[s], ys[s] = _cycle_pad(x, y, self._b_max)
+        x_msg, _ = _cycle_pad(next(self._msg_iters[i])[0], None, self._mb_max)
+        return xs, ys, x_msg
+
+    def draw_target_steps(self) -> np.ndarray:
+        """(L, p, b) target training batches for one flush (host numpy)."""
+        return np.stack([next(self.tgt_iter)[0] for _ in range(self.proto.local_steps)])
+
+    @torch.no_grad()
+    def target_message(self, chan_key=None) -> torch.Tensor:
+        """The target's Sigma-ell broadcast at the current parameters, what
+        the server hands a client at dispatch, through the moments codec of
+        the batched engine's channel when one is set (K10 under the qint
+        codecs).  ``chan_key`` keys its uniforms (the scheduler passes
+        ``(0x00A5, d)`` for its d-th dispatch; ``channel_uniforms``)."""
+        msg = self._msg_of(self.tgt_params, next(self._tgt_msg_iter)[0], -1.0)
+        if self._engine is None or self._engine.channel.get("moments") is None:
+            return msg
+        if chan_key is None:
+            raise ValueError("channel distortion is set: pass a chan_key")
+        return self._engine._channel("moments", msg[None], chan_key, (), single=True)[0]
 
     def _mask_of(self, ids: list[int]) -> torch.Tensor:
         m = np.zeros((self.k,), np.float32)

@@ -14,10 +14,13 @@ constant rows, or no farther from the float64 answer than plain where plain
 itself misses that); the fit's eigenvalues to rtol 1e-2 and its
 subspace to 1e-3; K10 bit for bit; K9 within 1e-5 * max(1, max|plain|) with
 equal non-finite positions; the trainers' parameters, card against CPU, to
-1e-4; K11 within 2e-5 at fp32 and one bf16 ULP of its plain output plus
-2e-5 at bf16 (at most 3e-2), with equal non-finite positions, at every head
-width (d 20 to 640, dv 12 to 288); a two-layer LM's logits,
-card against CPU at fp32, to 1e-3 of max(1, max|logit|).
+1e-4 (under qint8, where a bin flips between the devices: every entry
+within one quantization step and 99 % within 1e-4); the async runtime's
+histories, card against CPU, equal; K11 within 2e-5 at fp32 and one bf16
+ULP of its plain output plus 2e-5 at bf16 (at most 3e-2), with equal
+non-finite positions, at every head width (d 20 to 640, dv 12 to 288); a
+two-layer LM's logits, card against CPU at fp32, to 1e-3 of max(1,
+max|logit|).
 """
 import numpy as np
 import pytest
@@ -597,6 +600,83 @@ def test_two_tier_trainer_on_card_matches_cpu(card):
     for x, y in zip(tree_leaves((a.tgt_params, a._src_stack)),
                     tree_leaves((b.tgt_params, b._src_stack))):
         assert (x - y.cpu()).abs().max().item() < 1e-4
+
+
+def _async_run(dev, kw, acfg, *, cpu_uniforms=False, edge_links=None):
+    """An ``AsyncScheduler`` run at a test's width on ``dev``: churn and
+    heterogeneous links; with ``cpu_uniforms`` the channel draws the CPU
+    generator's uniforms (the card's generator draws other numbers)."""
+    from types import SimpleNamespace
+
+    from repro_torch.comm.netsim import LinkModel, LinkScenario
+    from repro_torch.federated.engine import BatchedRoundEngine
+    from repro_torch.fedsim import AsyncScheduler, markov_trace
+
+    doms = make_domains(5, 120, shift=0.5, seed=1, dim=8, n_classes=3)
+    cfg = ClientConfig(input_dim=8, n_classes=3, n_rff=32, m=8, extractor_widths=(16, 8),
+                       rff_impl="fused")
+    tr = FedRFTCATrainer(doms[:4], doms[4], cfg, ProtocolConfig(**kw), device=dev)
+    if cpu_uniforms and tr._engine.channel:
+        shim = SimpleNamespace(channel_seed=tr._engine.channel_seed, device=torch.device("cpu"))
+        tr._engine.channel_uniforms = lambda *a: BatchedRoundEngine.channel_uniforms(
+            shim, *a).to(dev)
+    links = LinkScenario(links=[LinkModel(latency_s=0.3 * (i + 1), jitter_s=0.2, drop=0.1)
+                                for i in range(4)])
+    avail = markov_trace(4, 4000.0, mean_on=12.0, mean_off=3.0, seed=5)
+    sched = AsyncScheduler(tr, acfg, availability=avail, links=links, edge_links=edge_links)
+    hist = sched.run(8, eval_every=4)
+    return tr, [{k: v for k, v in h.to_dict().items() if k != "acc"} for h in hist]
+
+
+def _close_or_one_bin(a_tree, b_tree):
+    """Within 1e-4 of max(1, max|leaf|); where a qint8 bin flipped between
+    the devices, every entry within one quantization step (max|leaf| / 127)
+    and 99 % within 1e-4 (tests/test_torch_federated.py's qint8 rule)."""
+    within = total = 0
+    for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+        d = (a.cpu() - b.cpu()).abs()
+        scale = max(1.0, b.abs().max().item())
+        assert d.max().item() <= max(b.abs().max().item() / 127, 1e-4 * scale)
+        within += int((d <= 1e-4 * scale).sum())
+        total += d.numel()
+    assert within >= 0.99 * total
+
+
+def test_async_scheduler_on_card_matches_cpu(card):
+    """The async runtime's flush on the card (flat, identity): the CPU's
+    history and parameters within 1e-4."""
+    from repro_torch.fedsim import AsyncConfig
+
+    kw = dict(n_rounds=0, t_c=4, warmup_rounds=2, batch_size=32, seed=0)
+    acfg = AsyncConfig(buffer_size=2, staleness="polynomial", eval_interval=3.0)
+    cpu, h_cpu = _async_run("cpu", kw, acfg)
+    gpu, h_gpu = _async_run(card, kw, acfg)
+    assert h_gpu == h_cpu
+    for x, y in zip(tree_leaves((cpu.tgt_params, cpu._src_stack)),
+                    tree_leaves((gpu.tgt_params, gpu._src_stack))):
+        assert (x - y.cpu()).abs().max().item() < 1e-4
+
+
+def test_async_fleet_flush_on_card_launches_k9_and_k10(card):
+    """Per-edge buffers over edge links, qint8 on both tiers, client_chunk 2:
+    the flush launches K9 and K10 on the card; the history equals the CPU's
+    and the parameters agree as ``_close_or_one_bin`` says."""
+    from repro_torch.comm.netsim import LinkModel, LinkScenario
+    from repro_torch.fedsim import AsyncConfig
+
+    kw = dict(n_rounds=0, t_c=2, warmup_rounds=2, batch_size=32, seed=0, transport="wire",
+              codec="qint8", edge_codec="qint8", topology=Topology.of_groups([[0, 1], [2, 3]]),
+              client_chunk=2)
+    acfg = AsyncConfig(buffer_size=2, staleness="polynomial")
+    edges = LinkScenario(links=[LinkModel(latency_s=0.7), LinkModel(latency_s=0.2)])
+    cpu, h_cpu = _async_run("cpu", kw, acfg, edge_links=edges)
+    k9, k10 = segment_reduce.LAUNCHES["segment_reduce"], quantize.LAUNCHES["fake_quant"]
+    gpu, h_gpu = _async_run(card, kw, acfg, cpu_uniforms=True, edge_links=edges)
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce"] > k9
+    assert quantize.LAUNCHES["fake_quant"] > k10
+    assert h_gpu == h_cpu
+    _close_or_one_bin((gpu.tgt_params, gpu._src_stack), (cpu.tgt_params, cpu._src_stack))
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:

@@ -219,9 +219,12 @@ def test_paths_left_out_of_the_training_slice_raise(field, value, step):
 
 def test_engine_seams_left_out_raise():
     """Of the engine seams the training slice left out, topology,
-    client_chunk and faults now build; the probes (step 10) and the async
-    flush (step 8) still raise."""
-    from repro_torch.federated import BatchedRoundEngine, ClientConfig, aggregation
+    client_chunk and faults now build, and the async flush (step 8) runs
+    under ``fedsim.AsyncScheduler``; the probes (step 10) still raise."""
+    from repro_torch.federated import (
+        BatchedRoundEngine, ClientConfig, FedRFTCATrainer, ProtocolConfig, aggregation,
+    )
+    from repro_torch.fedsim import AsyncConfig, AsyncScheduler
     from repro_torch.kernels import segment_reduce
     from repro_torch.optim import adam
     from repro_torch.robust import build_fault_plan, get_rule
@@ -234,8 +237,12 @@ def test_engine_seams_left_out_raise():
         assert getattr(eng, next(iter(kw))) is kw[next(iter(kw))]
     with pytest.raises(NotImplementedError, match="step 10"):
         BatchedRoundEngine(cfg, adam(1e-2), omega, probe=True)
-    with pytest.raises(NotImplementedError, match="step 8"):
-        BatchedRoundEngine(cfg, adam(1e-2), omega).flush()
+    sources, target, fed_cfg = _fed()
+    tr = FedRFTCATrainer(sources, target, fed_cfg, ProtocolConfig(warmup_rounds=0, t_c=2,
+                                                                  batch_size=16), device="cpu")
+    hist = AsyncScheduler(tr, AsyncConfig(buffer_size=1)).run(2)
+    assert [h["flush"] for h in hist] == [1, 2] and tr.model_version == 2
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(tr.tgt_params))
     # the K9 seam: the plain version on CPU tensors, no kernel launch
     launches = segment_reduce.LAUNCHES["segment_reduce"]
     out = aggregation.edge_weighted_sums(torch.ones((5, 4)), torch.tensor([0, 1, 2, 0, 1]),
