@@ -59,7 +59,9 @@ Phases (any failed check raises, and the run exits non-zero):
      ``centered_gram`` libraries (K2/K3, K5-K8) and their HGMMA count
      (``cuobjdump -sass``): no spills, HGMMA present;
   6. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
-     1e-2, subspace projector within 1e-3);
+     1e-2, subspace projector within 1e-3); ``draw_omega`` (the materialized
+     Omega, gauss and laplace, sigma != 1) gives the card the CPU's Omega
+     bit for bit;
   7. the main path through the public entry points, each run followed by 16
      transform requests of 64-512 target columns checked against one
      transform of the same columns concatenated; launch counts are zeroed
@@ -176,9 +178,10 @@ Phases (any failed check raises, and the run exits non-zero):
             staleness, weights) equal, the parameters within 1e-4 x max(1,
             max|leaf|), or, where a qint8 bin flipped, every entry within one
             quantization step and 99 % within that (Omega seed-fused, K4, as
-            in S: the materialized draw is each device's own); then the same
-            over an identity float32 wire, held to 1e-4 x max(1, max|leaf|)
-            alone;
+            in S); then the same over an identity float32 wire, held to 1e-4
+            x max(1, max|leaf|) alone;
+       AC-mat AC with the default materialized Omega (``draw_omega``, one
+            draw on every device) under AC's gates, Omega equal bit for bit;
        AL   FL's fleet asynchronous: K = 1024 over ``Topology.uniform(1024,
             64)``, chunk 128, qint8 on both tiers, a buffer of 16 per edge, the
             merged edge uplinks over ``edge_links``, 10 warm-up rounds, 64
@@ -186,9 +189,49 @@ Phases (any failed check raises, and the run exits non-zero):
             last checkpoint: finite parameters, one recovery, ingress below the
             flat K-uplink figure, K9 and K10 launched, their first launches
             held against plain;
- 14. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 14. the aligner server through ``repro_torch.serve.AlignerServer`` at fit A's
+     width (N = 1000, m = 32, S = 1, seed-fused, sigma by the median
+     heuristic, gamma = 1e-2) on four pairs ``make_domains(2, 2817, dim=2048,
+     seed=s)``, s in 0..3, each target cut to 795 columns (requests take the
+     columns past them), launch counts zeroed just before and read just after
+     each run:
+       SV   ``AlignerServer(capacity=3, min_bucket=8, max_bucket=512)``: four
+            pairs for three slots, so LRU misses refit in the request path;
+            ``run_open_loop`` at 250, 1000 and 4000 requests/s
+            (benchmarks/bench_serve.py), 400 transform requests of 4-64
+            columns a level: every served output within 1e-5 of max|whole| of
+            W_RF^T times K1's plain version on its columns, by the state that
+            served it (so K1 at each bucket width is held to plain), each bucket's
+            plane one sentinel signature over the warm-up and the levels, K1
+            once per dispatch (and once per refit: the target mean), K4 once
+            per pair (the transform Omega's memo); latency p50 / p99,
+            throughput, requests per dispatch, buckets, hit rate, refits;
+       SM   a new target device admitted over ``WireTransport`` (float32 and
+            qint8): no version change, no refit, its transforms within 1e-3 of
+            a from-scratch refit over float32; over qint8 its W_RF within one
+            quantization step of the served one and its transforms within a
+            step times sum_k |sigma_k(x)| plus 1e-3;
+       SD   bench_serve.py's drift monitor (alpha 0.15, window 4, k 2) on 200
+            calm then 110 shifted requests (every coordinate + 3 standard
+            deviations) of 8-24 columns at 800 requests/s: the first fire
+            after the shift, each fire one ``refresh_from_moments`` and one
+            version bump (bench_serve.py's contract), at most two fires, a
+            second one within SD_REFIRE_EVALS evaluations of the first (the
+            first refresh pools batches from before the shift; the second
+            pools only shifted ones), the drifted target's discrepancy lower
+            under the refreshed aligner than the stale one; detection latency
+            and the fires;
+       SO   two servers behind one fitted state, telemetry off and on
+            (``RequestTracer(rate=0.1)``, an ``SloEngine``, the drift monitor's
+            probed planes), 96-224 columns at 400 requests/s: outputs equal
+            bit for bit; the wall-clock overhead ratio (reported);
+       HP   phase 10's H batched for 10 rounds with ``probe=True`` against
+            the same rounds without: parameters bit for bit, ``engine.round``
+            one signature, ``last_probes`` finite;
+ 15. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
-     launches), the card's name and power limit, and the result line.
+     launches, K1, K4 and K5 with the serve runs' launches by run), the
+     card's name and power limit, and the result line.
 """
 from __future__ import annotations
 
@@ -223,8 +266,9 @@ PEAK_INT_OPS = PEAK_FLOPS / 4
 PEAK_SPLIT_TF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 THREEFRY_INT_OPS = 82  # 20 rounds x (add, rotate, xor) + 5 key injections x 4 + 2
-# K1 at a transform request's widths (phase 7's requests take 64-512 columns)
-K1_REQUEST_COLS = (64, 300, 512)
+# K1 at a transform request's widths: phase 7's requests (64-512 columns) and
+# every bucket width of phase 14's serving (8-512), each with its own split plan
+K1_REQUEST_COLS = (8, 16, 32, 64, 128, 256, 300, 512)
 # the tensor-core featurize / Gram tiles' edges on the data: (N, p, n) for K7,
 # (N, S, p, n) for K5/K6 (N past a 128-feature block, p under and over a
 # k-tile of 32, n ragged (copied to a multiple of 4 for TMA) and n = 1), each
@@ -300,6 +344,25 @@ LH_EXTRA, LH_PREFILL_RTOL, LH_DECODE_RTOL = 4, 1e-4, 1e-3
 # torch.cuda._sleep spins cycles: 5e9 a second outlasts the host by 2.5x at
 # the H100's highest clock (1.98 GHz)
 SLEEP_CYCLES_PER_S = 5e9
+# phase 14, the aligner server at fit A's width (benchmarks/bench_serve.py's
+# rates, request mix and drift monitor): four domain pairs for three store
+# slots, so LRU misses refit in the request path
+SV_PAIRS, SV_CAPACITY, SV_BUCKETS = 4, 3, (8, 512)
+SV_RATES, SV_REQUESTS, SV_COLS = (250.0, 1000.0, 4000.0), 400, (4, 64)
+SV_FIT = dict(n_features=1000, m=32, ensemble=1)
+SERVE_REQ_RTOL = 1e-5  # phase 7's request gate, on max|whole|
+ADMIT_ATOL = 1e-3  # benchmarks/bench_serve.py's admission gate (float32 downlink)
+SD_CALM, SD_SHIFTED, SD_COLS, SD_RATE = 200, 110, (8, 24), 800.0
+# the drift: every coordinate moved by 3 of its standard deviations, as the
+# bench's requests move from +0.9 to +3.9 on unit-variance data
+SD_SHIFT_STD = 3.0
+# SD's monitor (bench_serve.py's): after a refresh re-pins the reference it
+# discards SD_BURNIN evaluations and fires after k = 2 more above threshold, so
+# a second fire comes 4 evaluations after the first at the earliest; it must
+# come within two such spans, and no third fire is allowed
+SD_BURNIN, SD_MAX_FIRES, SD_REFIRE_EVALS = 2, 2, 8
+SO_REQUESTS, SO_DEGENERACY, SO_COLS, SO_RATE, SO_PAIRS, SO_SAMPLE = 40, 16, (96, 224), 400.0, 7, 0.1
+HP_ROUNDS = 10
 
 
 def log(*a) -> None:
@@ -375,6 +438,364 @@ def ptxas_entries(log_text: str, names=("",)) -> list[str]:
     return out
 
 
+def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
+    """Phase 14: the aligner server (``repro_torch.serve``) and the telemetry
+    (``repro_torch.obs``) on ``dev`` through their entry points; returns
+    (runs, cross).  ``doms0`` is phase 7's pair (seed 0), ``counters`` the
+    kernels' launch counters, ``fed`` phase 10's trainer settings."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.comm.transport import WireTransport, resolve_codecs
+    from repro_torch.core import rf_tca
+    from repro_torch.core.kernels_math import median_sigma
+    from repro_torch.core.rff import rff_features
+    from repro_torch.data import make_domains
+    from repro_torch.kernels import prng, rff
+    from repro_torch.obs import sentinel
+    from repro_torch.serve import AlignerServer, Request, poisson_arrivals, run_open_loop
+
+    runs, cross = {}, {}
+    t_phase = time.perf_counter()
+
+    def zero():
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+
+    def launches():
+        return {k: dict(c) for k, c in counters.items()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # four (source, target) pairs at the Office-31 A->W size; requests take
+    # columns of each target's distribution that its fit did not see
+    pairs = {}
+    for s in range(SV_PAIRS):
+        d = doms0 if s == SEED else make_domains(2, N_S, dim=P, seed=s)
+        xs = torch.tensor(np.ascontiguousarray(d[0].x), device=dev)
+        xt = torch.tensor(np.ascontiguousarray(d[1].x[:, :N_T]), device=dev)
+        held = np.ascontiguousarray(d[1].x[:, N_T:])
+        fit_kw = dict(SV_FIT, gamma=GAMMA, sigma=median_sigma(torch.cat([xs, xt], dim=1)),
+                      seed=SEED)
+        pairs[("src", f"tgt{s}")] = (xs, xt, held, fit_kw)
+    keys = list(pairs)
+    log(f"[serve] {len(pairs)} pairs of p={P} n_S={N_S} n_T={N_T} ("
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    rng = np.random.default_rng(SEED + 14)
+
+    def requests(n, cols, pool=None, offset=0.0):
+        out = []
+        for _ in range(n):
+            key = keys[int(rng.integers(len(keys)))] if pool is None else pool
+            held = pairs[key][2]
+            c = rng.choice(held.shape[1] - 40, size=int(rng.integers(cols[0], cols[1] + 1)),
+                           replace=False)
+            out.append(Request(x=np.ascontiguousarray(held[:, c] + offset), key=key))
+        return out
+
+    def recorder(srv):
+        """Every served (request, state, output) of ``srv`` from here on."""
+        served, dispatch = [], srv.dispatcher._dispatch
+
+        def recording(entry, batch):
+            outs = dispatch(entry, batch)
+            served.extend((r, entry.state, o) for r, o in zip(batch, outs))
+            return outs
+
+        srv.dispatcher._dispatch = recording
+        return served
+
+    def check_served(tag, served):
+        """Each output against W_RF^T of K1's plain version on its columns,
+        by the state that served it (an LRU refit's state may part from an
+        earlier one by K5's split-k order), relative to max|whole| (phase 7's
+        gate): every bucket width and split plan K1 ran at is held to plain."""
+        worst, scale = 0.0, 0.0
+        for r, state, out in served:
+            x = torch.as_tensor(r.x, dtype=torch.float32, device=dev)
+            ref = state.w_rf.T @ rff.rff_plain(x, rf_tca.fused_transform_omega(state, P))
+            if tuple(ref.shape) != out.shape or not bool(torch.isfinite(ref).all()):
+                raise AssertionError(f"run {tag}: output {out.shape}, transform {ref.shape}")
+            worst = max(worst, float((torch.as_tensor(out, device=dev) - ref).abs().max()))
+            scale = max(scale, float(ref.abs().max()))
+        err = worst / scale
+        if not err <= SERVE_REQ_RTOL:
+            raise AssertionError(f"run {tag}: served outputs differ from the plain transform by "
+                                 f"{err} of max|whole| > {SERVE_REQ_RTOL}")
+        return err
+
+    def hist_delta(after, before):
+        return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+    # SV: open-loop Poisson load over four pairs and three slots
+    zero()
+    t0 = time.perf_counter()
+    srv = AlignerServer(capacity=SV_CAPACITY, min_bucket=SV_BUCKETS[0], max_bucket=SV_BUCKETS[1],
+                        device=dev)
+    regen0 = rf_tca.fused_omega_cache_info()["regenerations"]
+    for key, (xs, xt, _, fit_kw) in pairs.items():
+        srv.fit_domain(key, xs, xt, **fit_kw)
+    sync()
+    fits_s = time.perf_counter() - t0
+    rungs, b = [], SV_BUCKETS[0]
+    while b <= SV_BUCKETS[1]:
+        rungs.append(b)
+        b *= 2
+    planes = tuple(f"serve.transform.b{b}" for b in rungs)
+    before = sentinel.counts()
+    srv.warmup(keys[0])
+    served = recorder(srv)
+    sv = dict(fits_s=fits_s, pairs=len(pairs), capacity=SV_CAPACITY, buckets=rungs, levels={})
+    by_level = []
+    for li, rate in enumerate(SV_RATES):
+        reqs = requests(SV_REQUESTS, SV_COLS)
+        served.clear()
+        st, disp = srv.store, srv.dispatcher
+        h0, m0, d0, r0 = st.hits, st.misses, disp.dispatches, srv.refits
+        rq0, bw0 = dict(disp.batch_requests), dict(disp.batch_columns)
+        k1_0 = rff.LAUNCHES["rff"]
+        t1 = time.perf_counter()
+        res = run_open_loop(srv, reqs, rate=rate, seed=20 + li, service_scale=1.0)
+        wall_s = time.perf_counter() - t1
+        k1 = rff.LAUNCHES["rff"] - k1_0
+        dispatches, refits = disp.dispatches - d0, srv.refits - r0
+        if k1 != dispatches + refits:
+            raise AssertionError(f"run SV {rate:g}: K1 launched {k1} times for {dispatches} "
+                                 f"dispatches and {refits} refits (one each)")
+        hits, misses = st.hits - h0, st.misses - m0
+        per_dispatch = hist_delta(disp.batch_requests, rq0)
+        level = dict(res.summary(), wall_s=wall_s, dispatches=dispatches, refits=refits,
+                     hit_rate=hits / max(hits + misses, 1), k1_launches=k1,
+                     requests_per_dispatch={str(k): v for k, v in sorted(per_dispatch.items())},
+                     mean_requests_per_dispatch=sum(k * v for k, v in per_dispatch.items())
+                     / max(dispatches, 1),
+                     bucket_widths={str(k): v for k, v in sorted(
+                         hist_delta(disp.batch_columns, bw0).items())})
+        if level["completed"] != SV_REQUESTS:
+            raise AssertionError(f"run SV {rate:g}: {level['completed']} of {SV_REQUESTS} done")
+        sv["levels"][f"{rate:g}"] = level
+        by_level.append(list(served))
+        log(f"[run SV] {rate:g} req/s: p50 {level['p50_ms']:.3f} ms p99 {level['p99_ms']:.3f} ms, "
+            f"throughput {level['throughput_rps']:.1f} req/s, {dispatches} dispatches "
+            f"({level['mean_requests_per_dispatch']:.2f} requests each), buckets "
+            f"{level['bucket_widths']}, hit rate {level['hit_rate']:.3f}, {refits} refits, "
+            f"wall {wall_s:.2f} s")
+    sv["launches"] = launches()
+    sentinel.assert_stable(before, planes, expect=1)
+    regens = rf_tca.fused_omega_cache_info()["regenerations"] - regen0
+    for rate, done in zip(SV_RATES, by_level):  # after the counts (the Omega memo's hits)
+        sv["levels"][f"{rate:g}"]["served_rel_err"] = check_served(f"SV {rate:g}", done)
+    if regens != SV_PAIRS or sv["launches"]["prng"]["fused_omega"] != SV_PAIRS:
+        raise AssertionError(f"run SV: Omega regenerated {regens} times, K4 launched "
+                             f"{sv['launches']['prng']['fused_omega']}, for {SV_PAIRS} pairs")
+    sv.update(omega_regenerations=regens, total_refits=srv.refits,
+              planes_one_signature=list(planes), store=srv.store.snapshot())
+    runs["SV"] = sv
+    cross["SV_served_vs_plain_rel_err"] = max(
+        lv["served_rel_err"] for lv in sv["levels"].values())
+    log(f"[run SV] planes {list(planes)}: one signature each; Omega regenerated {regens} "
+        f"times for {SV_PAIRS} pairs; served vs the plain transform "
+        f"{cross['SV_served_vs_plain_rel_err']:.3g} of max|whole|; launches "
+        f"{sv['launches']}")
+    del srv, served, by_level
+
+    # SM: a new target device admitted over the wire, float32 and qint8
+    key = keys[0]
+    xs, xt, held, fit_kw = pairs[key]
+    x_new, probe = held[:, -40:-15], held[:, -15:]
+    for codec in ("float32", "qint8"):
+        zero()
+        srv = AlignerServer(capacity=2, transport=WireTransport(resolve_codecs(codec), seed=SEED),
+                            sentinel_prefix=f"serve.admit.{codec}", device=dev)
+        srv.fit_domain(key, xs, xt, **fit_kw)
+        v0, refits0 = srv.store.latest_version(key), srv.refits
+        served_w = srv.store.get(key).state.w_rf
+        t1 = time.perf_counter()
+        res = srv.admit(key, x_new, role="target", sender=42)
+        sync()
+        admit_ms = (time.perf_counter() - t1) * 1e3
+        counts = launches()
+        if not res.delivered or srv.store.latest_version(key) != v0 or srv.refits != refits0:
+            raise AssertionError(f"run SM {codec}: delivered {res.delivered}, version "
+                                 f"{v0} -> {srv.store.latest_version(key)}, refits "
+                                 f"{srv.refits - refits0}")
+        scratch = rf_tca.rf_tca_fit(xs, xt, w_rf=f"fused:{srv.fused_seed}", device=dev, **fit_kw)
+        got = rf_tca.rf_tca_transform(res.state, probe)
+        want = rf_tca.rf_tca_transform(scratch, probe)
+        div = float((got - want).abs().max())
+        row = dict(codec=codec, admit_ms=admit_ms, bytes_up=res.bytes_up,
+                   bytes_down=res.bytes_down, max_divergence_vs_refit=div,
+                   store_version_changed=False, refit_ran=False, launches=counts)
+        if codec == "float32":
+            if not div <= ADMIT_ATOL:
+                raise AssertionError(f"run SM {codec}: admitted vs refit {div} > {ADMIT_ATOL}")
+        else:
+            # the downlink rounds each entry of W_RF within one step of its bin,
+            # so a transform moves by at most a step times sum_k |sigma_k(x)|
+            step = float(served_w.abs().max()) / 127
+            w_err = float((res.state.w_rf - served_w).abs().max())
+            feats = rff_features(torch.as_tensor(probe, device=dev),
+                                 rf_tca.fused_transform_omega(scratch, P))
+            bound = step * feats.abs().sum(dim=0) + ADMIT_ATOL
+            row.update(w_rf_step=step, w_rf_max_err=w_err,
+                       max_divergence_over_bound=float(((got - want).abs() / bound).max()))
+            if not (w_err <= step * (1 + 1e-6) and row["max_divergence_over_bound"] <= 1.0):
+                raise AssertionError(f"run SM {codec}: W_RF {w_err} from served (step {step}), "
+                                     f"transforms at {row['max_divergence_over_bound']} of the "
+                                     f"codec's bound")
+        runs[f"SM_{codec}"] = row
+        log(f"[run SM] {codec}: admitted in {admit_ms:.2f} ms, {res.bytes_up} bytes up, "
+            f"{res.bytes_down} down, transforms vs a refit {div:.3g}, no version change, no "
+            f"refit; launches {row['launches']}")
+        del srv, scratch
+
+    # SD: a covariate shift mid-stream -> detection -> a moment-space refresh
+    zero()
+    key = keys[1]
+    xs, xt, held, fit_kw = pairs[key]
+    mon = obs.DriftMonitor(alpha=0.15, window=4, k_consecutive=2, calibration_windows=3,
+                           threshold_scale=4.0, burnin_windows=SD_BURNIN)
+    srv = AlignerServer(capacity=2, min_bucket=8, max_bucket=64, sentinel_prefix="serve.drift",
+                        device=dev)
+    srv.fit_domain(key, xs, xt, **fit_kw)
+    srv.attach(drift=mon)
+    srv.warmup(key)
+    srv.rearm_drift()
+    stale = srv.store.get(key).state
+    offset = SD_SHIFT_STD * held.std(axis=1, keepdims=True)
+    reqs = requests(SD_CALM, SD_COLS, pool=key) + requests(SD_SHIFTED, SD_COLS, pool=key,
+                                                           offset=offset)
+    injection_t = float(poisson_arrivals(SD_RATE, SD_CALM + SD_SHIFTED, seed=52)[SD_CALM])
+    v0 = srv.store.latest_version(key)
+    res = run_open_loop(srv, reqs, rate=SD_RATE, seed=52)
+    counts = launches()
+    fired = [r for r in mon.history if r.fired]
+    fire_evals = [i for i, r in enumerate(mon.history) if r.fired]
+    refire_evals = fire_evals[-1] - fire_evals[0] if fire_evals else None
+    bumps = srv.store.latest_version(key) - v0
+    # bench_serve.py's contract: detection after the shift (no calm false
+    # fire), and every fire one moment-space refresh and one version bump.
+    # The first refresh re-pins the reference to the recent window's pooled
+    # moment, which still holds batches from before the shift, so one second
+    # fire may follow it (the monitor's own logic, tests/test_torch_obs.py
+    # holds it against the reference's); the second refresh pools only
+    # shifted batches, and no third fire is allowed
+    if not (fired and fired[0].t >= injection_t and len(fired) <= SD_MAX_FIRES
+            and refire_evals <= SD_REFIRE_EVALS
+            and bumps == len(fired) == mon.fires == srv.moment_refreshes):
+        raise AssertionError(f"run SD: fires at {[r.t for r in fired]} (shift at "
+                             f"{injection_t}; at most {SD_MAX_FIRES}, within "
+                             f"{SD_REFIRE_EVALS} evaluations: {refire_evals}), {bumps} "
+                             f"version bumps, {srv.moment_refreshes} moment refreshes")
+    probe_drift = torch.as_tensor(np.ascontiguousarray(held[:, -40:] + offset), device=dev)
+
+    def disc(state):
+        zs = rf_tca.rf_tca_transform(state, xs).mean(dim=1)
+        zt = rf_tca.rf_tca_transform(state, probe_drift).mean(dim=1)
+        return float(((zs - zt) ** 2).sum())
+
+    sd = dict(res.summary(), injection_t=injection_t, detection_t=fired[0].t,
+              detection_latency_s=fired[0].t - injection_t, fires=mon.fires,
+              fire_times=[r.t for r in fired], refire_evaluations=refire_evals,
+              evaluations_after_first_fire=len(mon.history) - 1 - fire_evals[0],
+              mmd_over_threshold_after_last_fire=max(
+                  (r.mmd / r.threshold for r in mon.history[fire_evals[-1] + 1:]),
+                  default=None),
+              threshold=mon.pair_threshold(key), version_bumps=bumps,
+              moment_refreshes=srv.moment_refreshes, disc_stale=disc(stale),
+              disc_refreshed=disc(srv.store.get(key).state), launches=counts)
+    if not sd["disc_refreshed"] < sd["disc_stale"]:
+        raise AssertionError(f"run SD: the refreshed aligner leaves the drifted target at "
+                             f"{sd['disc_refreshed']}, the stale one at {sd['disc_stale']}")
+    runs["SD"] = sd
+    log(f"[run SD] shift at {injection_t:.4f} s, detected at {sd['detection_t']:.4f} s "
+        f"(latency {sd['detection_latency_s'] * 1e3:.2f} ms virtual), fires at "
+        f"{sd['fire_times']} ({refire_evals} evaluations apart; after the last, RF-MMD at most "
+        f"{sd['mmd_over_threshold_after_last_fire']} of the threshold), {bumps} version bumps; "
+        f"discrepancy of the drifted target {sd['disc_stale']:.4g} stale -> "
+        f"{sd['disc_refreshed']:.4g} refreshed; launches {sd['launches']}")
+    del srv, stale
+
+    # SO: telemetry off and on behind one fitted state: bit for bit, and the
+    # wall-clock overhead of the request tracer, an SLO engine and the drift
+    # monitor (its probed planes)
+    zero()
+    key = keys[2]
+    xs, xt, held, fit_kw = pairs[key]
+    off = AlignerServer(capacity=2, min_bucket=64, max_bucket=256, sentinel_prefix="serve.off",
+                        device=dev)
+    on = AlignerServer(capacity=2, min_bucket=64, max_bucket=256, sentinel_prefix="serve.on",
+                       device=dev)
+    off.fit_domain(key, xs, xt, **fit_kw)
+    on.fit_domain(key, xs, xt, **fit_kw)
+    # one state behind both: two fits may part by a rounding (K5's split-k order)
+    on.store.put(key, off.store.get(key))
+    on.attach(request_tracer=obs.RequestTracer(rate=SO_SAMPLE),
+              slo=obs.SloEngine([obs.Slo("serve.latency", target=0.9, bound=10.0,
+                                         window_fast_s=0.05, window_slow_s=0.5)]),
+              drift=obs.DriftMonitor(alpha=0.15, window=4, k_consecutive=2, threshold=0.5))
+    off.warmup(key)
+    on.warmup(key)
+    on.rearm_drift()
+    deg = requests(SO_DEGENERACY, SO_COLS, pool=key)
+    outs_off = [o for _, o in off.serve(deg)]
+    with obs.use_registry(obs.MetricsRegistry()), obs.use_tracer(obs.Tracer()):
+        outs_on = [o for _, o in on.serve(deg)]
+    if not all(np.array_equal(a, b) for a, b in zip(outs_off, outs_on)):
+        raise AssertionError("run SO: telemetry on changed a served output")
+    reqs = requests(SO_REQUESTS, SO_COLS, pool=key)
+    ratios = []
+    for _ in range(SO_PAIRS):
+        t1 = time.perf_counter()
+        run_open_loop(off, reqs, rate=SO_RATE, seed=32)
+        t_off = time.perf_counter() - t1
+        with obs.use_registry(obs.MetricsRegistry()), obs.use_tracer(obs.Tracer()):
+            t1 = time.perf_counter()
+            run_open_loop(on, reqs, rate=SO_RATE, seed=32)
+            t_on = time.perf_counter() - t1
+        ratios.append(t_on / t_off)
+    so = dict(bitwise_equal=True, overhead_ratio_median=float(np.median(ratios)),
+              overhead_ratio_min=min(ratios), overhead_ratios=ratios,
+              drift_fires=on.drift.fires, traced_requests=on.reqtrace.emitted,
+              launches=launches())
+    runs["SO"] = so
+    log(f"[run SO] {SO_DEGENERACY} requests bit for bit with telemetry on; wall-clock "
+        f"on/off {so['overhead_ratio_median']:.3f} (median of {SO_PAIRS}, min "
+        f"{so['overhead_ratio_min']:.3f}); {so['traced_requests']} request trees")
+    del off, on
+
+    # HP: phase 10's H batched for HP_ROUNDS rounds with and without probes
+    zero()
+    kw = dict(fed["fed_kw"], n_rounds=HP_ROUNDS, engine="batched", scenario=fed["full"])
+    trainer, proto = fed["FedRFTCATrainer"], fed["ProtocolConfig"]
+    sources, target = fed["doms5"][:4], fed["doms5"][4]
+    tr_off = trainer(sources, target, fed["fed_cfg"], proto(**kw), device=dev)
+    tr_off.train()
+    tr_on = trainer(sources, target, fed["fed_cfg"], proto(**kw, probe=True), device=dev)
+    before = sentinel.counts()
+    tr_on.train()
+    sync()
+    sentinel.assert_stable(before, ("engine.round",), expect=1)
+    same = all(torch.equal(a, b) for a, b in zip(fed["params_of"](tr_off),
+                                                 fed["params_of"](tr_on)))
+    probes = tr_on.last_probes
+    need = ("moment_mass", "update_norm", "tgt_update_norm")
+    if not same or not all(k in probes and np.isfinite(probes[k]).all() for k in need):
+        raise AssertionError(f"run HP: parameters bit for bit {same}, probes "
+                             f"{ {k: probes.get(k) for k in need} }")
+    runs["HP"] = dict(rounds=HP_ROUNDS, bit_identical=True,
+                      probes={k: np.asarray(v).tolist() for k, v in probes.items()},
+                      launches=launches())
+    log(f"[run HP] {HP_ROUNDS} probed rounds bit for bit the unprobed; engine.round one "
+        f"signature; last probes {runs['HP']['probes']}")
+    runs["HP"]["phase_14_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 14 (SV, SM, SD, SO, HP) {runs['HP']['phase_14_s']:.1f} s")
+    return runs, cross
+
+
 def main() -> int:
     import torch
 
@@ -406,6 +827,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
+    log(f"[card] {smi}")
 
     # ---- 1. build ---------------------------------------------------------
     secs = _build.build_all()
@@ -937,6 +1359,17 @@ def main() -> int:
     if not (ev_err <= 1e-2 and sub <= 1e-3):
         raise AssertionError(f"small fit: eigvals rel {ev_err}, subspace {sub}")
     log(f"[small] card vs CPU plain: eigvals rel err {ev_err:.3g}, subspace {sub:.3g}")
+    # the materialized Omega: one seed, one draw on every device
+    for kind in ("gauss", "laplace"):
+        for nf, s_om in ((1000, sigma), (4096, 0.7)):
+            om_card = draw_omega(SEED, nf, P, sigma=s_om, kernel=kind, device=dev)
+            if not torch.equal(om_card.cpu(), draw_omega(SEED, nf, P, sigma=s_om, kernel=kind,
+                                                         device="cpu")):
+                raise AssertionError(f"draw_omega {kind} N={nf}: the card's Omega differs from "
+                                     f"the CPU's")
+    del om_card
+    log("[small] draw_omega (gauss, laplace; N 1000, 4096; sigma != 1): the card's Omega "
+        "equals the CPU's bit for bit")
     torch.cuda.synchronize()
 
     # ---- 7. main path: fits + requests through the public entry points ---
@@ -2131,8 +2564,8 @@ def main() -> int:
     cross["AQ_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AQ")
     # AC: AQ's setting from one start (a CPU warm-up, checkpointed) on the card
     # and on the CPU: equal histories, parameters within FED_LEAF_TOL.  Omega
-    # from the seed-fused stream (K4), as S: the materialized draw comes from
-    # each device's own generator
+    # from the seed-fused stream (K4), as S; AC-mat below runs the same with
+    # the materialized Omega
     with tempfile.TemporaryDirectory() as ac_dir:
         tr_ws = FedRFTCATrainer(doms5[:4], doms5[4], fused_cfg, ProtocolConfig(**{
             **fed_kw, "warmup_rounds": AC_WARMUP, "engine": "batched", **wire_kw}), device="cpu")
@@ -2177,6 +2610,36 @@ def main() -> int:
                              f"{within} of {total} entries within {FED_LEAF_TOL}")
     cross["AC_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AC card")
     del tr_acc, tr_acp, hist_acc, hist_acp
+    # AC-mat: AC again with the default materialized Omega (draw_omega), which
+    # one seed draws the same on the card and the CPU; AC's gates
+    with tempfile.TemporaryDirectory() as ac_dir:
+        tr_ws = FedRFTCATrainer(doms5[:4], doms5[4], fed_cfg, ProtocolConfig(**{
+            **fed_kw, "warmup_rounds": AC_WARMUP, "engine": "batched", **wire_kw}), device="cpu")
+        tr_ws.save_state(ac_dir, step=0)
+        del tr_ws
+        mat_kw = dict(aq_kw, cfg=fed_cfg, warmup_rounds=0, start=ac_dir, flushes=AC_FLUSHES)
+        tr_mc, hist_mc, runs["AC_mat_card"] = async_run("AC-mat card", doms5[:4], doms5[4],
+                                                        aq_cfg, **mat_kw)
+        tr_mp, hist_mp, runs["AC_mat_cpu"] = async_run("AC-mat cpu", doms5[:4], doms5[4],
+                                                       aq_cfg, device="cpu", **mat_kw)
+    if not torch.equal(tr_mc.omega.cpu(), tr_mp.omega):
+        raise AssertionError("run AC-mat: the card's and the CPU's Omega differ")
+    if history_rows(hist_mc) != history_rows(hist_mp):
+        raise AssertionError("run AC-mat: the card's and the CPU's histories differ")
+    mat_err = leaf_err(tr_mc, params_of(tr_mp))
+    within, total, step_ok = 0, 0, True
+    for a, b in zip(params_of(tr_mc), params_of(tr_mp)):
+        d = (a.cpu() - b).abs()
+        within += int((d <= FED_LEAF_TOL * max(1.0, float(b.abs().max()))).sum())
+        total += d.numel()
+        step_ok &= float(d.max()) <= max(float(b.abs().max()) / 127, FED_LEAF_TOL)
+    cross["AC_mat_card_vs_cpu_max_leaf_err_over_max1_leaf"] = mat_err
+    cross["AC_mat_card_vs_cpu_share_within_tol"] = within / total
+    if not (mat_err <= FED_LEAF_TOL or (step_ok and within >= 0.99 * total)):
+        raise AssertionError(f"run AC-mat: card and CPU differ by {mat_err} of max(1, "
+                             f"max|leaf|), {within} of {total} entries within {FED_LEAF_TOL}")
+    cross["AC_mat_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AC-mat card")
+    del tr_mc, tr_mp, hist_mc, hist_mp
     # AL: FL's fleet asynchronous, one buffer of 16 per edge, merged edge
     # uplinks over a backhaul, an edge crash and a server crash restored from
     # the last checkpoint
@@ -2212,14 +2675,28 @@ def main() -> int:
     log(f"[time] phase 13 (AD, AQ, AC, AL) {runs['AL']['phase_13_s']:.1f} s")
     log(f"[cross] AD vs H batched {ad_err:.3g}, AC card vs CPU {ac_err:.3g} ("
         f"{cross['AC_card_vs_cpu_share_within_tol']:.6f} of entries within {FED_LEAF_TOL}), "
-        f"AC over float32 {ac_f32_err:.3g}")
+        f"AC over float32 {ac_f32_err:.3g}, AC-mat {mat_err:.3g} ("
+        f"{cross['AC_mat_card_vs_cpu_share_within_tol']:.6f} within)")
+
+    # ---- 14. the aligner server (serve) and the telemetry (obs) -------------
+    serve_runs, serve_cross = serve_phase(torch, dev, doms, counters, dict(
+        fed_kw=fed_kw, full=full, fed_cfg=fed_cfg, doms5=doms5, params_of=params_of,
+        FedRFTCATrainer=FedRFTCATrainer, ProtocolConfig=ProtocolConfig))
+    runs.update(serve_runs)
+    cross.update(serve_cross)
 
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
-    report["K4"]["launches"] = sum(la[t]["prng"]["fused_omega"] for t in la)
-    report["K1"]["launches"] = sum(la[t]["rff"]["rff"] for t in la)
+    served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}
+    for key, runs_of, count in (
+            ("K4", {**la, **served}, lambda c: c["prng"]["fused_omega"]),
+            ("K1", {**la, **served}, lambda c: c["rff"]["rff"]),
+            ("K5", {"A": la["A"], **served}, lambda c: sum(c["gram"].values()))):
+        report[key]["launches_by_run"] = {t: count(c) for t, c in runs_of.items() if count(c)}
+        report[key]["launches"] = sum(report[key]["launches_by_run"].values())
     report["K7"]["launches"] = sum(la[t]["rff"]["rff_fused"] for t in la)
-    for key, tag, group in (("K5", "A", "gram"), ("K6", "B", "gram"),
-                            ("K2", "C", "operand_gram"), ("K3", "D", "operand_gram")):
+    report["K5"]["parts"] = la["A"]["gram"]
+    for key, tag, group in (("K6", "B", "gram"), ("K2", "C", "operand_gram"),
+                            ("K3", "D", "operand_gram")):
         report[key]["launches"] = sum(la[tag][group].values())
         report[key]["parts"] = la[tag][group]
     report["K8"]["launches"] = la["E"]["centered_gram"]["centered_gram"]

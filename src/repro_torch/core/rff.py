@@ -24,17 +24,20 @@ def draw_omega(seed: int, n_features: int, dim: int, sigma: float = 1.0,
     gauss: N(0, 1/sigma^2); laplace: Cauchy(0, 1/sigma).  The stream is
     PyTorch's, so it is NOT bit-equal to ``repro.core.rff.draw_omega``
     (``jax.random``); the portable seed-defined draw is
-    ``kernels.prng.fused_omega``.
+    ``kernels.prng.fused_omega``.  It is drawn on a CPU generator and then
+    moved to ``device``, so one seed gives one Omega on every device (as the
+    reference's draw does on every backend): a state fitted on one device
+    and used on another pairs its W_RF with the same Omega.
     """
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator().manual_seed(seed)
     if kernel == "gauss":
-        om = torch.randn((n_features, dim), generator=gen, device=dev)
+        om = torch.randn((n_features, dim), generator=gen)
     elif kernel == "laplace":
-        om = torch.empty((n_features, dim), device=dev).cauchy_(generator=gen)
+        om = torch.empty((n_features, dim)).cauchy_(generator=gen)
     else:
         raise ValueError(f"unknown kernel {kernel!r}")
-    return om / sigma
+    return (om / sigma).to(dev)
 
 
 def rff_features(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:

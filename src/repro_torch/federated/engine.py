@@ -41,8 +41,14 @@ and every merge is weighted by ``buf * weights`` (staleness).  It goes
 through the same merge methods as the round, so the two-tier plane (K9),
 the robust rule and the fault plan apply to it unchanged.
 
-Not ported yet, raising ``NotImplementedError``: the health probes
-(``obs``, ROADMAP queue 1 step 10).
+Observability: with ``probe=True`` the round and the flush also return a
+dict of health probes computed beside the merges (``moment_mass``,
+``attribution_moments``, ``attribution_w_rf``, per-client ``update_norm``,
+``tgt_update_norm``; ``obs.probes`` brings them to the host).  They never
+feed back into the parameters, so a probed run is bit for bit an unprobed
+one.  ``round``, ``flush`` and ``warmup`` are wrapped in the sentinels
+``engine.round``, ``engine.flush`` and ``engine.warmup`` (``obs.sentinel``:
+one argument signature each in a stable run).
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from torch.func import grad_and_value
 from repro_torch.federated.model import ClientConfig, client_message, source_loss, target_loss
 from repro_torch.fleet import hierarchy
 from repro_torch.fleet.sharding import chunked_vmap
+from repro_torch.obs import sentinel
 from repro_torch.optim import apply_updates
 from repro_torch.robust.rules import MeanRule
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like, tree_where
@@ -61,8 +68,17 @@ from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like, t
 _MASS_EPS = 1e-12
 
 
-def _not_ported(what: str, step: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1 {step})")
+def client_delta_norms(new, old) -> torch.Tensor:
+    """Per-client L2 norm of a stacked parameter tree's delta: (K,)."""
+    sq = sum(torch.sum((a - b) ** 2, dim=tuple(range(1, a.ndim)))
+             for a, b in zip(tree_leaves(new), tree_leaves(old)))
+    return torch.sqrt(sq)
+
+
+def tree_delta_norm(new, old) -> torch.Tensor:
+    """Whole-tree L2 norm of a parameter delta: () scalar."""
+    return torch.sqrt(sum(torch.sum((a - b) ** 2)
+                          for a, b in zip(tree_leaves(new), tree_leaves(old))))
 
 
 def local_step(opt, loss_fn, p, o, *, freeze_w_rf: bool = False):
@@ -108,9 +124,8 @@ class BatchedRoundEngine:
         ``edge_channel`` the tier-2 codecs; ``client_chunk`` bounds the
         per-client ``vmap``; ``rule`` (default ``MeanRule``) owns every
         weighted merge; ``faults`` (a ``robust.FaultPlan`` or None) corrupts
-        the stacked uplinks after the channel."""
-        if probe:
-            raise _not_ported("in-graph health probes", "step 10, obs/")
+        the stacked uplinks after the channel; ``probe`` makes the round and
+        the flush return a fifth output, the probes dict."""
         self.cfg, self.opt, self.omega = cfg, opt, omega
         self.device = omega.device
         self.rule = rule if rule is not None else MeanRule()
@@ -124,11 +139,15 @@ class BatchedRoundEngine:
         self.edge_channel = edge_channel or {}
         self.client_chunk = client_chunk
         self.faults = faults
+        self.probe = probe
         if topology is not None:
             self._seg_ids = torch.as_tensor(topology.segment_ids, device=self.device)
             self._n_edges = topology.n_edges
         else:
             self._seg_ids, self._n_edges = None, 0
+        self.round = sentinel.wrap("engine.round", self.round)
+        self.flush = sentinel.wrap("engine.flush", self.flush)
+        self.warmup = sentinel.wrap("engine.warmup", self.warmup)
 
     # -- building blocks ----------------------------------------------------
 
@@ -222,15 +241,19 @@ class BatchedRoundEngine:
         msgs = self._channel("moments", msgs, chan_key, (1,))
         return self._fault("moments", msgs, chan_key, (7,))
 
-    def _merge_msgs(self, msgs, weights, chan_key):
+    def _merge_msgs(self, msgs, weights, chan_key, probes=None):
         """What the target trains on: the rule's moment merge of the K client
         messages (flat), or of the E per-edge pooled moments and their masses
-        (two-tier)."""
-        if self._seg_ids is None:
-            return self.rule.merge_moments(msgs, weights)
-        pooled, masses = hierarchy.edge_moment_merge(
-            msgs, weights, self._seg_ids, self._n_edges, self._edge_fn("moments", chan_key, (4,)))
-        return self.rule.merge_moments(pooled, masses)
+        (two-tier).  ``probes`` (a dict or None) takes the delivered moment
+        mass and the rule's per-row (client, or edge) attribution."""
+        if self._seg_ids is not None:
+            msgs, weights = hierarchy.edge_moment_merge(
+                msgs, weights, self._seg_ids, self._n_edges,
+                self._edge_fn("moments", chan_key, (4,)))
+        if probes is not None:
+            probes["moment_mass"] = torch.sum(weights)
+            probes["attribution_moments"] = self.rule.attribution(msgs, weights)
+        return self.rule.merge_moments(msgs, weights)
 
     def _server_merge(self, sums, masses):
         """Tier-2 combine of per-edge (weighted sum, mass) partials: pure
@@ -241,13 +264,21 @@ class BatchedRoundEngine:
         shaped = masses.reshape((-1,) + (1,) * (sums.ndim - 1))
         return self.rule.weighted_sum(sums / torch.clamp_min(shaped, _MASS_EPS), masses)
 
-    def _merged_sum(self, kind, values, wsel, chan_key, path):
+    def _merged_sum(self, kind, values, wsel, chan_key, path, probes=None):
         """(sum, mass) of a (K, ...) payload stack: the rule's contraction
-        (flat) or the edge partials and the server merge (two-tier)."""
+        (flat) or the edge partials and the server merge (two-tier).
+        ``probes`` takes the rule's attribution of the rows it merged (the
+        uplinks, or the edge partial means) as ``attribution_<kind>``."""
         if self._seg_ids is None:
+            if probes is not None:
+                probes[f"attribution_{kind}"] = self.rule.attribution(values, wsel)
             return self.rule.weighted_sum(values, wsel)
         sums, masses = hierarchy.edge_param_merge(values, wsel, self._seg_ids, self._n_edges,
                                                   self._edge_fn(kind, chan_key, path))
+        if probes is not None:
+            shaped = masses.reshape((-1,) + (1,) * (sums.ndim - 1))
+            probes[f"attribution_{kind}"] = self.rule.attribution(
+                sums / torch.clamp_min(shaped, _MASS_EPS), masses)
         return self._server_merge(sums, masses)
 
     def _target_steps(self, tgt_p, tgt_o, xt_steps, msgs, weights, any_gate):
@@ -260,14 +291,14 @@ class BatchedRoundEngine:
                 lambda pp: target_loss(pp, omega, x, msgs, cfg, weights=weights), new_p, new_o)
         return tree_where(any_gate, new_p, tgt_p), tree_where(any_gate, new_o, tgt_o)
 
-    def _merge_w_rf(self, src_p, tgt_p, sel, wsel, chan_key):
+    def _merge_w_rf(self, src_p, tgt_p, sel, wsel, chan_key, probes=None):
         """Weighted W_RF merge over the participants and the target (Alg. 4)."""
         k_clients = sel.shape[0]
         have_w = torch.sum(sel) > 0
         ups = torch.cat([src_p["w_rf"], tgt_p["w_rf"][None]])
         ups = self._channel("w_rf", ups, chan_key, (2,))
         w_up, w_tgt_up = self._fault("w_rf", ups[:k_clients], chan_key, (8,)), ups[k_clients]
-        w_sum, mass = self._merged_sum("w_rf", w_up, wsel, chan_key, (5,))
+        w_sum, mass = self._merged_sum("w_rf", w_up, wsel, chan_key, (5,), probes)
         w_avg = (w_sum + w_tgt_up) / (mass + 1.0)
         src_p = {**src_p, "w_rf": torch.where((sel > 0)[:, None, None] & have_w, w_avg[None],
                                               src_p["w_rf"])}
@@ -309,12 +340,15 @@ class BatchedRoundEngine:
         (p, mb), optional ``bmask`` (K, b) and ``msg_mask`` (K, mb).
         ``masks``: ``mmd``, ``w``, ``c`` (K,) 0/1 and ``do_clf`` (bool:
         t % T_C == 0 this round).
-        ``chan_key`` (the round index) keys the channel's uniforms."""
+        ``chan_key`` (the round index) keys the channel's uniforms.  With
+        ``probe`` the probes dict comes back as a fifth output."""
         if chan_key is None:
             if self.channel:
                 # a fixed default would replay the same channel noise every round
                 raise ValueError("channel distortion is set: pass a per-round chan_key")
             chan_key = 0
+        probes = {} if self.probe else None
+        src_p0, tgt_p0 = src_p, tgt_p
         omega = self.omega
         mmd_mask, w_mask, c_mask = masks["mmd"], masks["w"], masks["c"]
         bmask, msg_mask = batch.get("bmask"), batch.get("msg_mask")
@@ -331,17 +365,26 @@ class BatchedRoundEngine:
         # local target training (Alg. 3) on the messages that arrived
         if self.exchange_messages:
             msgs = self._uplinked_msgs(src_p, batch["x_msg"], msg_mask, chan_key)
-            merged, tgt_w = self._merge_msgs(msgs, mmd_mask, chan_key)
+            merged, tgt_w = self._merge_msgs(msgs, mmd_mask, chan_key, probes)
             tgt_p, tgt_o = self._target_steps(tgt_p, tgt_o, batch["xt_steps"], merged, tgt_w,
                                               torch.sum(mmd_mask) > 0)
 
         # global aggregation (Alg. 4); frozen W (seed replay) skips it
         if self.aggregate_w_rf and not self.freeze_w_rf:
-            src_p, tgt_p = self._merge_w_rf(src_p, tgt_p, w_mask, w_mask, chan_key)
+            src_p, tgt_p = self._merge_w_rf(src_p, tgt_p, w_mask, w_mask, chan_key, probes)
         if self.aggregate_classifier:
             src_p, tgt_p = self._merge_classifier(src_p, tgt_p, c_mask, c_mask, masks["do_clf"],
                                                   chan_key, 1.0)
-        return src_p, src_o, tgt_p, tgt_o
+        return self._out(src_p, src_o, tgt_p, tgt_o, probes, src_p0, tgt_p0)
+
+    @staticmethod
+    def _out(src_p, src_o, tgt_p, tgt_o, probes, src_p0, tgt_p0):
+        """The round's or flush's outputs, with the probes dict when probing."""
+        if probes is None:
+            return src_p, src_o, tgt_p, tgt_o
+        probes["update_norm"] = client_delta_norms(src_p, src_p0)
+        probes["tgt_update_norm"] = tree_delta_norm(tgt_p, tgt_p0)
+        return src_p, src_o, tgt_p, tgt_o, probes
 
     # -- async buffered flush (fedsim.AsyncScheduler's data plane) ----------
 
@@ -365,11 +408,14 @@ class BatchedRoundEngine:
         parameters and Adam states.  Every merge (the moments into the target
         steps, W_RF, the classifier with a 1e-9 floor) is weighted by
         ``buf * weights``.  With a full buffer at staleness 0 every
-        expression reduces to :meth:`round`'s: the sync/async degeneracy."""
+        expression reduces to :meth:`round`'s: the sync/async degeneracy.
+        With ``probe`` the probes dict comes back as a fifth output."""
         if chan_key is None:
             if self.channel:
                 raise ValueError("channel distortion is set: pass a per-flush chan_key")
             chan_key = 0
+        probes = {} if self.probe else None
+        src_p0, tgt_p0 = src_p, tgt_p
         buf, do_clf = masks["buf"], masks["do_clf"]
         wsel = buf * masks["weights"]
         bmask, msg_mask = batch.get("bmask"), batch.get("msg_mask")
@@ -384,15 +430,15 @@ class BatchedRoundEngine:
         # the target trains on the buffered moments, staleness-weighted
         if self.exchange_messages:
             msgs = self._uplinked_msgs(src_p, batch["x_msg"], msg_mask, chan_key)
-            merged, tgt_w = self._merge_msgs(msgs, wsel, chan_key)
+            merged, tgt_w = self._merge_msgs(msgs, wsel, chan_key, probes)
             tgt_p, tgt_o = self._target_steps(tgt_p, tgt_o, batch["xt_steps"], merged, tgt_w,
                                               torch.sum(buf) > 0)
         if self.aggregate_w_rf and not self.freeze_w_rf:
-            src_p, tgt_p = self._merge_w_rf(src_p, tgt_p, buf, wsel, chan_key)
+            src_p, tgt_p = self._merge_w_rf(src_p, tgt_p, buf, wsel, chan_key, probes)
         if self.aggregate_classifier:
             src_p, tgt_p = self._merge_classifier(src_p, tgt_p, buf, wsel, do_clf, chan_key,
                                                   1e-9)
-        return src_p, src_o, tgt_p, tgt_o
+        return self._out(src_p, src_o, tgt_p, tgt_o, probes, src_p0, tgt_p0)
 
     # -- warm-up (emulated pretraining, FedAvg over sources) -----------------
 

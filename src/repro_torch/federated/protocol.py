@@ -41,8 +41,14 @@ streams as a round, in the same order: :meth:`FedRFTCATrainer.
 draw_client_dispatch`, :meth:`~FedRFTCATrainer.draw_target_steps` and
 :meth:`~FedRFTCATrainer.target_message`.
 
-Not ported yet (raises ``NotImplementedError``): the health probes
-(ROADMAP queue 1 step 10).
+Observability (``obs``): with ``probe=True`` the batched engine returns its
+health probes beside each round or flush, and the trainer emits them one
+step late (:meth:`FedRFTCATrainer.stash_probes`): a round's probes are
+copied to the host after the next round has been enqueued, so the copy does
+not sit between two rounds.  The serial plane's steps are wrapped in the
+sentinels ``serial.src_step_mmd``, ``serial.src_step_plain``,
+``serial.tgt_step`` and ``serial.msg_of``; they count one signature per
+client batch width, so they inform and are never gated.
 """
 from __future__ import annotations
 
@@ -73,6 +79,7 @@ from repro_torch.federated.model import (
     target_loss,
     w_rf_key,
 )
+from repro_torch.obs import sentinel
 from repro_torch.optim import adam
 from repro_torch.robust import ByteFaultInjector, build_fault_plan, get_rule
 from repro_torch.utils.tree import stack_trees, tree_map, tree_mean, unstack_tree
@@ -111,7 +118,9 @@ class ProtocolConfig:
     # rules need the batched engine); ``faults`` a robust.FaultConfig
     rule: Any = "mean"
     faults: Any = None
-    probe: bool = False  # not ported yet (ROADMAP queue 1 step 10)
+    # the batched engine's health probes (``trainer.last_probes``), emitted
+    # into the active metrics registry one round late
+    probe: bool = False
     seed: int = 0
 
 
@@ -155,9 +164,6 @@ class FedRFTCATrainer:
                  proto: ProtocolConfig, *, device=None):
         if proto.engine not in ("serial", "batched"):
             raise ValueError(f"unknown engine {proto.engine!r}")
-        if proto.probe:
-            raise NotImplementedError("ProtocolConfig.probe is not ported yet "
-                                      "(ROADMAP queue 1 step 10, obs/)")
         self.device = resolve_device(device)
         engine = proto.engine if sources else "serial"
         self.sources, self.target = sources, target
@@ -226,6 +232,11 @@ class FedRFTCATrainer:
         self.rng = np.random.default_rng(proto.seed)
         self.model_version = 0
         self.client_versions = np.zeros(self.k, dtype=np.int64)
+        # the probes' one-step pipeline: the last emitted (host numpy) and the
+        # queued (plane, device tensors) of the latest round or flush
+        self._last_probes: dict | None = None
+        self._pending_probes: tuple[str, dict] | None = None
+        self._build_serial_planes()
         client_ns = [d.x.shape[1] for d in sources]
         self._batch_sizes = _per_client_sizes(proto.batch_size, self.k, client_ns, "batch_size")
         self._msg_sizes = _per_client_sizes(proto.message_batch_size, self.k, client_ns,
@@ -255,6 +266,7 @@ class FedRFTCATrainer:
                 topology=self.topology,
                 edge_channel=self.edge_transport.channel_fns() if self.edge_transport else None,
                 client_chunk=proto.client_chunk, rule=self.rule, faults=self._fault_plan,
+                probe=proto.probe,
             )
             self._src_stack = stack_trees(src_params)
             self._src_opt_stack = stack_trees([self.opt.init(p) for p in src_params])
@@ -287,29 +299,48 @@ class FedRFTCATrainer:
         return self.src_params[i]
 
     # ---- serial-plane local steps -------------------------------------------
+    def _build_serial_planes(self) -> None:
+        """The serial plane's four steps as functions of their arguments, each
+        wrapped in its sentinel (``serial.*``, informative: ragged clients
+        step at their own batch widths)."""
+        cfg, omega, opt, frozen = self.cfg, self.omega, self.opt, self._frozen_w
+
+        def src_step_mmd(params, opt_state, x, y, tgt_msg):
+            return local_step(opt, lambda p: source_loss(p, omega, x, y, tgt_msg, cfg),
+                              params, opt_state, freeze_w_rf=frozen)
+
+        def src_step_plain(params, opt_state, x, y):
+            zeros = torch.zeros((2 * cfg.n_rff,), device=self.device)
+            return local_step(opt, lambda p: source_loss(p, omega, x, y, zeros, cfg,
+                                                         with_mmd=False),
+                              params, opt_state, freeze_w_rf=frozen)
+
+        def tgt_step(params, opt_state, x, src_msgs):
+            return local_step(opt, lambda p: target_loss(p, omega, x, src_msgs, cfg),
+                              params, opt_state, freeze_w_rf=frozen)
+
+        @torch.no_grad()
+        def msg_of(params, x, sign: float) -> torch.Tensor:
+            return client_message(params, omega, self._dev(x), sign)
+
+        self._src_step_mmd = sentinel.wrap("serial.src_step_mmd", src_step_mmd)
+        self._src_step_plain = sentinel.wrap("serial.src_step_plain", src_step_plain)
+        self._tgt_step_plane = sentinel.wrap("serial.tgt_step", tgt_step)
+        self._msg_of = sentinel.wrap("serial.msg_of", msg_of)
+
     def _src_step(self, i: int, x, y, tgt_msg=None) -> None:
         """One step of source i: CE + lambda MMD against ``tgt_msg``, or CE
         alone when ``tgt_msg`` is None (Alg. 2)."""
-        cfg, omega = self.cfg, self.omega
         x, y = self._dev(x), self._dev(y).long()
-        msg = tgt_msg if tgt_msg is not None else torch.zeros((2 * cfg.n_rff,),
-                                                              device=self.device)
-
-        def loss(p):
-            return source_loss(p, omega, x, y, msg, cfg, with_mmd=tgt_msg is not None)
-
-        self.src_params[i], self.src_opt[i] = local_step(
-            self.opt, loss, self.src_params[i], self.src_opt[i], freeze_w_rf=self._frozen_w)
+        p, o = self.src_params[i], self.src_opt[i]
+        if tgt_msg is None:
+            self.src_params[i], self.src_opt[i] = self._src_step_plain(p, o, x, y)
+        else:
+            self.src_params[i], self.src_opt[i] = self._src_step_mmd(p, o, x, y, tgt_msg)
 
     def _tgt_step(self, x, src_msgs) -> None:
-        cfg, omega, x = self.cfg, self.omega, self._dev(x)
-        self.tgt_params, self.tgt_opt = local_step(
-            self.opt, lambda p: target_loss(p, omega, x, src_msgs, cfg), self.tgt_params,
-            self.tgt_opt, freeze_w_rf=self._frozen_w)
-
-    @torch.no_grad()
-    def _msg_of(self, params, x, sign: float) -> torch.Tensor:
-        return client_message(params, self.omega, self._dev(x), sign)
+        self.tgt_params, self.tgt_opt = self._tgt_step_plane(self.tgt_params, self.tgt_opt,
+                                                             self._dev(x), src_msgs)
 
     # ---- warm-up (emulated pretraining: FedAvg, CE only, whole model) --------
     def _warmup(self, rounds: int) -> None:
@@ -456,6 +487,28 @@ class FedRFTCATrainer:
             self.client_versions[list(plan.w_clients)] = self.model_version
         return {"plan": plan}
 
+    # ---- health probes: emitted one step late -------------------------------
+    def stash_probes(self, plane: str, probes: dict) -> None:
+        """Queue a round's or flush's probes (device tensors) for emission,
+        first emitting whatever was queued before: by the time the next round
+        is enqueued the previous one's probes are ready, so their copy to the
+        host does not hold the card between two rounds."""
+        self.flush_probes()
+        self._pending_probes = (plane, probes)
+
+    def flush_probes(self) -> dict | None:
+        """Drain the pipeline: copy and emit any queued probes."""
+        if self._pending_probes is not None:
+            plane, dev = self._pending_probes
+            self._pending_probes = None
+            self._last_probes = obs.emit_probes(dev, plane=plane)
+        return self._last_probes
+
+    @property
+    def last_probes(self) -> dict | None:
+        """The latest round's or flush's probes as host numpy (drains the queue)."""
+        return self.flush_probes()
+
     def _round_batched(self, t: int, plan: network.RoundPlan) -> None:
         masks = {
             "mmd": self._mask_of(plan.msg_clients if self.proto.exchange_messages else []),
@@ -463,9 +516,12 @@ class FedRFTCATrainer:
             "c": self._mask_of(plan.c_clients),
             "do_clf": t % self.proto.t_c == 0,
         }
-        self._src_stack, self._src_opt_stack, self.tgt_params, self.tgt_opt = self._engine.round(
+        out = self._engine.round(
             self._src_stack, self._src_opt_stack, self.tgt_params, self.tgt_opt,
             self._round_batch(), masks, chan_key=t)
+        self._src_stack, self._src_opt_stack, self.tgt_params, self.tgt_opt = out[:4]
+        if self._engine.probe:
+            self.stash_probes("round", out[4])
 
     def _round_serial(self, t: int, plan: network.RoundPlan) -> None:
         proto = self.proto
@@ -565,6 +621,7 @@ class FedRFTCATrainer:
             self.round(t)
             if eval_every and t % eval_every == 0:
                 accs.append(self.evaluate())
+        self.flush_probes()
         return accs
 
     # ---- checkpoint / restore --------------------------------------------------

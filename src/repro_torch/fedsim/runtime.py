@@ -330,6 +330,7 @@ class SyncScheduler(_SchedulerBase):
             reg = obs.metrics()
             reg.counter("fedsim.rounds").inc()
             reg.histogram("fedsim.round_s").observe(self.clock.now - start)
+        tr.flush_probes()  # drain the one-step probe pipeline
         return self.history
 
 
@@ -676,10 +677,13 @@ class AsyncScheduler(_SchedulerBase):
             "weights": torch.as_tensor(wts, device=dev),
             "do_clf": f % tr.proto.t_c == 0,
         }
-        tr._src_stack, tr._src_opt_stack, tr.tgt_params, tr.tgt_opt = tr._engine.flush(
+        out = tr._engine.flush(
             tr._src_stack, tr._src_opt_stack, tr.tgt_params, tr.tgt_opt, batch, masks,
             chan_key=f,
         )
+        tr._src_stack, tr._src_opt_stack, tr.tgt_params, tr.tgt_opt = out[:4]
+        if tr._engine.probe:
+            tr.stash_probes("flush", out[4])
         # host-side accounting, same message counts as the sync round body;
         # the ingress leg collapses to one merged uplink per active edge in
         # the two-tier plane (here: the one edge whose buffer flushed)
@@ -846,4 +850,5 @@ class AsyncScheduler(_SchedulerBase):
                 if self.flushes >= n_flushes:
                     break
                 self._dispatch(row["members"], t)
+        tr.flush_probes()  # drain the one-step probe pipeline
         return self.history

@@ -6,8 +6,7 @@ network simulator its retries and uplink times (``comm.netsim``), and the
 trainer its round counters.  The default registry is the no-op
 :data:`NULL`, so a run that collects nothing pays one attribute lookup and
 one empty call per instrument; :func:`use_registry` installs a collecting
-one for a scope.  The rest of the reference's ``obs`` (tracing, sentinels,
-probes, SLOs, drift) is not ported yet.
+one for a scope.
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ histories, card against CPU, equal; K11 within 2e-5 at fp32 and one bf16
 ULP of its plain output plus 2e-5 at bf16 (at most 3e-2), with equal
 non-finite positions, at every head width (d 20 to 640, dv 12 to 288); a
 two-layer LM's logits, card against CPU at fp32, to 1e-3 of max(1,
-max|logit|).
+max|logit|); the materialized Omega equal to the CPU's bit for bit; a
+serving dispatch one K1 launch, within 1e-5 of max|whole| of the transform;
+telemetry on and off, and a probed and an unprobed round, bit for bit.
 """
 import numpy as np
 import pytest
@@ -439,13 +441,10 @@ def test_operand_and_fused_paths_keep_their_kernels(card, monkeypatch):
 
 @pytest.mark.parametrize("mode,solver", [("stream", "eigh"), ("stream", "lobpcg"),
                                          ("dense", "eigh"), ("dense", "cholesky")])
-def test_omega_fit_on_card_matches_cpu(card, monkeypatch, mode, solver):
+def test_omega_fit_on_card_matches_cpu(card, mode, solver):
     """The w_rf=None fits (K2/K3, or K1 + K8) on the card against the plain
-    path on the CPU; Omega is drawn on the CPU for both, so they share it.
-    LOBPCG's subspace is held to the reference's LOBPCG bound."""
-    draw = trf.draw_omega
-    monkeypatch.setattr(trf, "draw_omega",
-                        lambda *a, device=None, **k: draw(*a, device="cpu", **k).to(device))
+    path on the CPU; ``draw_omega`` gives both one Omega.  LOBPCG's subspace
+    is held to the reference's LOBPCG bound."""
     rng = np.random.default_rng(8)
     xs = rng.normal(size=(12, 160)).astype(np.float32)
     xt = (rng.normal(size=(12, 120)) + 0.5).astype(np.float32)
@@ -460,6 +459,88 @@ def test_omega_fit_on_card_matches_cpu(card, monkeypatch, mode, solver):
         assert torch.linalg.svdvals(q_c.T @ q_g).min().item() > 1 - 1e-3  # test_streaming_solver:70
     else:
         assert torch.linalg.matrix_norm(q_c @ q_c.T - q_g @ q_g.T, ord=2).item() <= 1e-3
+
+
+@pytest.mark.parametrize("kernel", ["gauss", "laplace"])
+@pytest.mark.parametrize("nf,p,sigma", [(96, 40, 3.0), (4096, 2048, 0.7)])
+def test_draw_omega_on_card_equals_cpu(card, kernel, nf, p, sigma):
+    """The materialized Omega is one draw on every device, bit for bit."""
+    om = draw_omega(11, nf, p, sigma=sigma, kernel=kernel, device=card)
+    assert om.device.type == "cuda"
+    assert torch.equal(om.cpu(), draw_omega(11, nf, p, sigma=sigma, kernel=kernel, device="cpu"))
+
+
+def _served_pair(card, capacity=2, **server_kw):
+    from repro_torch.serve import AlignerServer
+
+    rng = np.random.default_rng(21)
+    xs = rng.normal(size=(64, 300)).astype(np.float32)
+    xt = (rng.normal(size=(64, 200)) + 0.5).astype(np.float32)
+    srv = AlignerServer(capacity=capacity, min_bucket=8, max_bucket=256, device=card,
+                        **server_kw)
+    srv.fit_domain(("s", "t"), xs, xt, n_features=500, m=16, gamma=1e-2, sigma=8.0)
+    return srv, rng
+
+
+def test_dispatch_launches_k1_once_and_matches_transform(card):
+    """One serving dispatch of a burst: one K1 launch, outputs within 1e-5 of
+    max|whole| of one rf_tca_transform of the same columns."""
+    from repro_torch.serve import Request
+
+    srv, rng = _served_pair(card)
+    reqs = [Request(x=rng.normal(size=(64, n)).astype(np.float32), key=("s", "t"))
+            for n in (3, 64, 17, 100)]
+    srv.warmup(("s", "t"))
+    before, d0 = rff.LAUNCHES["rff"], srv.dispatcher.dispatches
+    done = srv.serve(reqs)
+    torch.cuda.synchronize()
+    assert srv.dispatcher.dispatches - d0 == 1 and rff.LAUNCHES["rff"] - before == 1
+    state = srv.store.get(("s", "t")).state
+    whole = trf.rf_tca_transform(state, np.concatenate([r.x for r in reqs], axis=1)).cpu()
+    got = torch.from_numpy(np.concatenate([o for _, o in done], axis=1))
+    assert float((got - whole).abs().max() / whole.abs().max()) <= 1e-5
+
+
+def test_serving_telemetry_off_and_on_bit_for_bit(card):
+    """Telemetry on (request tracer, SLO engine, the drift monitor's probed
+    planes, a registry and a tracer) serves the same bits as off."""
+    from repro_torch import obs
+    from repro_torch.serve import synth_requests
+
+    off, _ = _served_pair(card, sentinel_prefix="cuda.off")
+    on, _ = _served_pair(card, sentinel_prefix="cuda.on")
+    on.store.put(("s", "t"), off.store.get(("s", "t")))  # one state behind both
+    on.attach(request_tracer=obs.RequestTracer(rate=1.0),
+              slo=obs.SloEngine([obs.Slo("serve.latency", target=0.9, bound=10.0,
+                                         window_fast_s=0.05, window_slow_s=0.5)]),
+              drift=obs.DriftMonitor(window=2, threshold=1e9))
+    reqs = synth_requests([("s", "t")], dim=64, n_requests=12, seed=3, cols_lo=4, cols_hi=120)
+    plain = [o for _, o in off.serve(reqs)]
+    with obs.use_registry(obs.MetricsRegistry()), obs.use_tracer(obs.Tracer()):
+        wired = [o for _, o in on.serve(reqs)]
+    assert on.drift.history and all(np.array_equal(a, b) for a, b in zip(plain, wired))
+
+
+def test_probed_round_on_card_is_bit_for_bit_unprobed(card):
+    from repro_torch.comm.netsim import TraceScenario
+    from repro_torch.federated import RoundPlan
+    from repro_torch.obs import sentinel
+
+    doms = make_domains(4, 120, shift=0.5, seed=1, dim=8, n_classes=3)
+    cfg = ClientConfig(input_dim=8, n_classes=3, n_rff=32, m=8, extractor_widths=(16, 8))
+    full = TraceScenario([RoundPlan([0, 1, 2], [0, 1, 2], [0, 1, 2])], cycle=True)
+    kw = dict(n_rounds=4, t_c=2, warmup_rounds=2, batch_size=32, seed=0, scenario=full)
+    off = FedRFTCATrainer(doms[:3], doms[3], cfg, ProtocolConfig(**kw), device=card)
+    on = FedRFTCATrainer(doms[:3], doms[3], cfg, ProtocolConfig(probe=True, **kw), device=card)
+    off.train()
+    before = sentinel.counts()
+    on.train()
+    sentinel.assert_stable(before, ("engine.round",), expect=1)
+    for a, b in zip(tree_leaves((off.tgt_params, off._src_stack)),
+                    tree_leaves((on.tgt_params, on._src_stack))):
+        assert torch.equal(a, b)
+    probes = on.last_probes
+    assert float(probes["moment_mass"]) == 3.0 and np.isfinite(probes["update_norm"]).all()
 
 
 @pytest.mark.parametrize("rows,d", [(1, 1024), (4, 1024), (65, 32768), (4, 160), (7, 13),

@@ -682,8 +682,13 @@ def test_async_validation_matches_reference(doms, proto, cfg, extra, match):
 
 
 def test_probes_stay_out_of_the_port(doms):
-    with pytest.raises(NotImplementedError, match="step 10"):
-        TTrainer(*doms, TCFG, TProto(warmup_rounds=0, probe=True), device="cpu")
+    """The probes are ported now: an async run with ``probe=True`` emits the
+    flush's probes, the reference's keys, and drains them at its end."""
+    tr = TTrainer(*doms, TCFG, TProto(warmup_rounds=0, batch_size=32, probe=True), device="cpu")
+    fedsim.AsyncScheduler(tr, fedsim.AsyncConfig(buffer_size=2)).run(2)
+    assert tr._pending_probes is None
+    assert set(tr.last_probes) == {"moment_mass", "attribution_moments", "attribution_w_rf",
+                                   "update_norm", "tgt_update_norm"}
     assert not math.isnan(fedsim.AsyncConfig().restart_delay_s)
 
 

@@ -193,13 +193,13 @@ def _two_edges():
     ("topology", _two_edges, None),
     ("client_chunk", lambda: 1, None),
     ("faults", _fault_config, None),
-    ("probe", lambda: True, "step 10"),
+    ("probe", lambda: True, None),
     ("rule", lambda: "trimmed_mean:0.2", None),
     ("rule", lambda: "geomedian", None),
 ])
 def test_paths_left_out_of_the_training_slice_raise(field, value, step):
-    """The training slice left fleet, robust rules and faults out; they now
-    build and take a round on the CPU.  Only the probes (step 10) raise."""
+    """The training slice left fleet, robust rules, faults and the probes
+    out; they now build and take a round on the CPU."""
     from repro_torch.federated import FedRFTCATrainer, ProtocolConfig
 
     sources, target, cfg = _fed()
@@ -215,12 +215,15 @@ def test_paths_left_out_of_the_training_slice_raise(field, value, step):
     if field == "rule":
         assert not tr.rule.is_mean and all(bool(torch.isfinite(x).all())
                                             for x in tree_leaves(tr.tgt_params))
+    if field == "probe":
+        assert set(tr.last_probes) == {"moment_mass", "attribution_moments", "attribution_w_rf",
+                                       "update_norm", "tgt_update_norm"}
 
 
 def test_engine_seams_left_out_raise():
     """Of the engine seams the training slice left out, topology,
-    client_chunk and faults now build, and the async flush (step 8) runs
-    under ``fedsim.AsyncScheduler``; the probes (step 10) still raise."""
+    client_chunk, faults and the probes now build, and the async flush
+    (step 8) runs under ``fedsim.AsyncScheduler``."""
     from repro_torch.federated import (
         BatchedRoundEngine, ClientConfig, FedRFTCATrainer, ProtocolConfig, aggregation,
     )
@@ -235,9 +238,14 @@ def test_engine_seams_left_out_raise():
                dict(faults=build_fault_plan(_fault_config(), 2))):
         eng = BatchedRoundEngine(cfg, adam(1e-2), omega, **kw)
         assert getattr(eng, next(iter(kw))) is kw[next(iter(kw))]
-    with pytest.raises(NotImplementedError, match="step 10"):
-        BatchedRoundEngine(cfg, adam(1e-2), omega, probe=True)
     sources, target, fed_cfg = _fed()
+    probed = FedRFTCATrainer(sources, target, fed_cfg,
+                             ProtocolConfig(warmup_rounds=0, t_c=2, batch_size=16, probe=True),
+                             device="cpu")
+    assert probed._engine.probe
+    AsyncScheduler(probed, AsyncConfig(buffer_size=1)).run(1)
+    assert set(probed.last_probes) == {"moment_mass", "attribution_moments", "attribution_w_rf",
+                                       "update_norm", "tgt_update_norm"}
     tr = FedRFTCATrainer(sources, target, fed_cfg, ProtocolConfig(warmup_rounds=0, t_c=2,
                                                                   batch_size=16), device="cpu")
     hist = AsyncScheduler(tr, AsyncConfig(buffer_size=1)).run(2)
