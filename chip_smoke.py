@@ -228,7 +228,34 @@ Phases (any failed check raises, and the run exits non-zero):
        HP   phase 10's H batched for 10 rounds with ``probe=True`` against
             the same rounds without: parameters bit for bit, ``engine.round``
             one signature, ``last_probes`` finite;
- 15. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 15. training, with K11's backward K11b:
+       K11b at the K11_CHECK shapes (phase 11's), the forward's lse within
+            2e-5 of plain's and dq, dk, dv within 1e-4 x max(1, max|plain|)
+            of autograd through the plain forward on the fp32 inputs (fp32),
+            plus one bf16 ULP of it (bf16); timed at smollm-135m's and
+            internlm2-1.8b's training shapes beside the plain backward and
+            scaled_dot_product_attention's backward, and K11's forward with
+            and without the lse store;
+       T    smollm-135m as src/repro/configs/smollm_135m.py gives it (30
+            layers, bf16, remat, the FDA head N = 512, m = 64, lambda 0.1)
+            through ``launch.train.build_train_step``: TokenStream(49152, 8,
+            2048, seed=1), 2 clients, AdamW(cosine(3e-4, 10, 30), wd 0.01),
+            clip 1, 30 steps: loss, ce and mmd finite, the last 10 steps'
+            mean loss below the first 10's + 0.5 (tests/test_launch.py:55),
+            K11 60 launches a step (remat runs each forward twice) and K11b
+            30, Omega's gradient 0 and W_RF's not; step p50 / p99, tokens/s,
+            peak memory;
+       TC   its width at 2 layers, fp32, 2 x 128 tokens: one step's loss, ce,
+            mmd and every gradient leaf, card against CPU from one state,
+            within 1e-4 x max(1, max|leaf|) plus four times what a 1e-7
+            relative nudge of the weights moves the CPU's own gradient (the
+            random-init stack is ill-conditioned in fp32);
+       BL   tests/test_baselines.py's suite (make_domains(3, 250, shift=1.0,
+            seed=5)) on the card and the CPU from one start: TCA, R-TCA,
+            CORAL, JDA equal; source-only, RF-TCA, DaNN, FedAvg within 0.02;
+            all in [0, 1], TCA above 5-class chance + 0.05; then RF-TCA at
+            phase 7's Office-31 width (N = 1000, m = 32), K1 and K2 counted;
+ 16. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches, K1, K4 and K5 with the serve runs' launches by run), the
      card's name and power limit, and the result line.
@@ -363,6 +390,20 @@ SD_SHIFT_STD = 3.0
 SD_BURNIN, SD_MAX_FIRES, SD_REFIRE_EVALS = 2, 2, 8
 SO_REQUESTS, SO_DEGENERACY, SO_COLS, SO_RATE, SO_PAIRS, SO_SAMPLE = 40, 16, (96, 224), 400.0, 7, 0.1
 HP_ROUNDS = 10
+# phase 15, training: K11b at phase 11's K11_CHECK shapes (the sweep, the wide
+# head widths, ragged s, smollm-135m's and internlm2-1.8b's shapes), timed at
+# the two training shapes; T (smollm-135m as its config gives it: 30 layers,
+# bf16, remat, the FDA head N = 512, m = 64, lambda 0.1) on
+# TokenStream(49152, 8, 2048, seed=1) with 2 clients, AdamW(cosine(3e-4,
+# warmup 10, total 30), wd 0.01), clip 1.0, 30 steps; TC (its width at 2
+# layers, fp32, 2 x 128 tokens, card vs CPU); BL (tests/test_baselines.py's
+# suite on the card and the CPU, RF-TCA at phase 7's width)
+K11B_TIMED = (K11_SERVE, K11_HD128)
+K11B_RTOL, K11B_LSE_ATOL = 1e-4, 2e-5  # on max(1, max|plain|); lse absolute
+T_BATCH, T_SEQ, T_CLIENTS, T_STEPS, T_LR, T_WARMUP = 8, 2048, 2, 30, 3e-4, 10
+TC_LAYERS, TC_BATCH, TC_SEQ, TC_RTOL = 2, 2, 128, 1e-4
+BL_MLP_ATOL = 0.02  # MLP-trained accuracies, card vs CPU
+BL_WIDE_N, BL_WIDE_M = 1000, 32
 
 
 def log(*a) -> None:
@@ -794,6 +835,343 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
     runs["HP"]["phase_14_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 14 (SV, SM, SD, SO, HP) {runs['HP']['phase_14_s']:.1f} s")
     return runs, cross
+
+
+def k11b_rows(torch, dev, shapes, timed_shapes) -> dict:
+    """Phase 15a, K11b: the backward kernels against the plain version and
+    the forward's lse against plain's, at ``shapes`` (b, h, kv, s, d, dv,
+    dtype, causal, window); times at ``timed_shapes`` (bf16 causal) beside
+    the plain backward and ``scaled_dot_product_attention``'s backward.
+    Returns the kernels line's K11b entry and the forward's re-timing."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def bf16_ulp(x):
+        return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0**-126))) - 7)
+
+    def inputs(b, h, kv, s, d, dv, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype) for shape in
+                     ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
+
+    worst = {"float32": 0.0, "bfloat16": 0.0, "lse": 0.0, "gate_units": 0.0}
+    for b, h, kv, s, d, dv, dt, causal, window in shapes:
+        what = f"({b}, {h}, {kv}, {s}, {d}, {dv}) {dt} causal={causal} window={window}"
+        q, k, v, do = inputs(b, h, kv, s, d, dv, getattr(torch, dt), b * h * s + d + window)
+        _, lse, o_acc = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+        _, lse_p, _ = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                               return_lse=True)
+        lse_err = float((lse - lse_p).abs().max())
+        if not lse_err <= K11B_LSE_ATOL:
+            raise AssertionError(f"K11 lse {what}: {lse_err} > {K11B_LSE_ATOL}")
+        worst["lse"] = max(worst["lse"], lse_err)
+        got = fa.flash_attention_backward(q, k, v, o_acc, lse, do, causal=causal, window=window)
+        # plain: autograd through the plain forward on the inputs' fp32
+        # values, rounded once to their dtype (autograd through the bf16
+        # plain rounds each query head's dK, dV to bf16 before the GQA sum)
+        leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        plain = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal=causal,
+                                                             window=window),
+                                    leaves, do.float())
+        del leaves
+        for name, a, p in zip(("dq", "dk", "dv"), got, plain):
+            p = p.to(a.dtype).float()
+            err = (a.float() - p).abs()
+            cap = K11B_RTOL * max(1.0, float(p.abs().max()))
+            gate = bf16_ulp(p) + cap if a.dtype == torch.bfloat16 else torch.full_like(p, cap)
+            units = float((err / gate).max())
+            if not units <= 1.0:
+                raise AssertionError(f"K11b {what} {name}: {units:.3g} gate units from plain")
+            worst[dt] = max(worst[dt], float(err.max()))
+            worst["gate_units"] = max(worst["gate_units"], units)
+        del q, k, v, do, got, plain, lse, o_acc
+    log(f"[K11b] {len(shapes)} shapes: lse within {K11B_LSE_ATOL} of plain (max "
+        f"{worst['lse']:.3g}); dq, dk, dv within {K11B_RTOL} x max(1, max|plain|) at fp32 "
+        f"(max abs err {worst['float32']:.3g}) and one bf16 ULP of plain plus that at bf16 "
+        f"(max abs err {worst['bfloat16']:.3g}); worst {worst['gate_units']:.3f} gate units")
+
+    def causal_pairs(s):
+        return s * (s + 1) // 2
+
+    timed_rows, fwd = {}, {}
+    for b, h, kv, s, d, dv in timed_shapes:
+        nbytes = (2 * b * h * s * (d + dv) + 2 * b * kv * s * (d + dv)) * 2 + (
+            b * h * s * dv + b * h * s) * 4  # q, do, dq; k, v, dk, dv; o_acc, lse
+        copies = []
+        for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes))):
+            q, k, v, do = inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
+            _, lse, o_acc = fa.flash_attention(q, k, v, return_lse=True)
+            copies.append((q, k, v, o_acc, lse, do))
+        turn = itertools.cycle(copies)
+        flops = 2 * (3 * d + 2 * dv) * b * h * causal_pairs(s)
+        b_ms, b_by = bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS)
+        ffma_ms, _ = bound_ms(flops, nbytes)
+        kt = timed(torch, lambda: fa.flash_attention_backward(*next(turn)), 5)
+        pt = timed(torch, lambda: fa.flash_attention_backward_plain(*next(turn)), 2)
+        sdpa = []
+        for q, k, v, _, _, do in copies:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                                 enable_gqa=True)
+            sdpa.append((o, leaves, do))
+        sturn = itertools.cycle(sdpa)
+
+        def sdpa_bwd():
+            o, leaves, do = next(sturn)
+            torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+        lt = timed(torch, sdpa_bwd, 10)
+        f_plain = timed(torch, lambda: fa.flash_attention(*next(turn)[:3]), 20)
+        f_lse = timed(torch, lambda: fa.flash_attention(*next(turn)[:3], return_lse=True), 20)
+        del copies, sdpa, turn, sturn
+        key = (b, h, kv, s, d, dv)
+        timed_rows[key] = dict(ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"],
+                               plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=b_ms,
+                               bound_by=b_by, bound_ffma_ms=ffma_ms,
+                               tflops=flops / kt["ms"] / 1e9)
+        fwd[key] = dict(ms=f_plain["ms"], lse_ms=f_lse["ms"])
+        log(f"[K11b] {key} bf16 causal: kernel {kt['ms']:.4f} ms (host {kt['host_ms']:.4f} ms "
+            f"a call, queued {kt['queued']}, {flops / kt['ms'] / 1e9:.2f} TFLOP/s), plain "
+            f"{pt['ms']:.4f} ms, scaled_dot_product_attention's backward {lt['ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, bf16 tensor cores; {ffma_ms:.4f} ms at the FFMA "
+            f"rate); K11 forward {f_plain['ms']:.4f} ms, with lse and the fp32 output "
+            f"{f_lse['ms']:.4f} ms")
+    first = timed_shapes[0]
+    row = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="none: backward of src/repro/kernels/flash_attention.py:69 (the reference "
+                 "differentiates its jnp scan, src/repro/models/attention.py:81)",
+        max_abs_err=max(worst["float32"], worst["bfloat16"]), max_abs_err_by=worst,
+        tolerance=f"dq, dk, dv: fp32 {K11B_RTOL} x max(1, max|plain|); bf16 one bf16 ULP of "
+                  f"plain plus that; plain = autograd of flash_attention_plain on the fp32 "
+                  f"inputs, rounded once; lse atol {K11B_LSE_ATOL}",
+        shape=f"{first} bf16 causal", bound_peak="989 TFLOP/s bf16; 3.35 TB/s",
+        library="torch.autograd.grad through scaled_dot_product_attention(is_causal=True, "
+                "enable_gqa=True)",
+        **timed_rows[first],
+        hd128=dict(shape=f"{timed_shapes[1]} bf16 causal", **timed_rows[timed_shapes[1]]))
+    return row, fwd
+
+
+def train_phase(torch, dev, doms0, counters) -> tuple[dict, dict]:
+    """Phase 15 after K11b: T (smollm-135m training through
+    ``launch.train.build_train_step``), TC (one step, card against CPU) and
+    BL (the baselines on the card and the CPU; RF-TCA at phase 7's width);
+    returns (runs, K11 launches by run)."""
+    import numpy as np
+
+    from repro_torch import baselines
+    from repro_torch.configs import get_config
+    from repro_torch.data import Domain, TokenStream, make_domains
+    from repro_torch.federated import ClientConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.utils.tree import tree_flatten_with_paths, tree_map
+
+    runs = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # T: full width and depth, bf16, remat on, the FDA head on two clients
+    cfg = get_config(LM_ARCH)
+    if not (cfg.remat and cfg.dtype == torch.bfloat16 and cfg.fda_lambda):
+        raise AssertionError(f"T: {LM_ARCH} config lost remat, bf16 or the FDA head")
+    model = LM(cfg)
+    opt = adamw(cosine_schedule(T_LR, warmup=T_WARMUP, total=T_STEPS), weight_decay=0.01)
+    step_fn = build_train_step(model, opt, T_CLIENTS)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = model.init(SEED, device=dev)
+    state = opt.init(params)
+    stream = TokenStream(cfg.vocab_size, T_BATCH, T_SEQ, seed=1)
+    losses, ces, mmds, gnorms, step_ms, draw_ms = [], [], [], [], [], []
+    fa.LAUNCHES["flash_attention"] = fa.LAUNCHES["flash_attention_bwd"] = 0
+    for _ in range(T_STEPS):
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+        sync()
+        t1 = time.perf_counter()
+        params, state, met = step_fn(params, state, batch)
+        sync()
+        t2 = time.perf_counter()
+        draw_ms.append((t1 - t0) * 1e3)
+        step_ms.append((t2 - t1) * 1e3)
+        losses.append(float(met["loss"]))
+        ces.append(float(met["ce"]))
+        mmds.append(float(met["mmd"]))
+        gnorms.append(float(met["grad_norm"]))
+    t_launch = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not all(np.isfinite(x).all() for x in (losses, ces, mmds)):
+        raise AssertionError(f"T: non-finite loss, ce or mmd: {losses} {ces} {mmds}")
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not last < first + 0.5:  # tests/test_launch.py:55-62
+        raise AssertionError(f"T: last-10 mean loss {last} not below the first-10 {first} + 0.5")
+    fwd_per, bwd_per = 2 * cfg.n_layers, cfg.n_layers  # remat runs each forward twice
+    if t_launch != {"flash_attention": fwd_per * T_STEPS,
+                    "flash_attention_bwd": bwd_per * T_STEPS}:
+        raise AssertionError(f"T: K11 / K11b launched {t_launch}, expected {fwd_per} / "
+                             f"{bwd_per} a step over {T_STEPS} steps")
+    # the FDA head on the trained state: Omega gets no gradient, W_RF does
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = model.loss(live, batch, T_CLIENTS)
+    paths, leaves = tree_flatten_with_paths(live)
+    grads = dict(zip(paths, torch.autograd.grad(loss, leaves, allow_unused=True)))
+    g_omega, g_w = grads["fda/omega"], grads["fda/w_rf"]
+    if not (g_omega is None or float(g_omega.abs().max()) == 0.0) or not float(
+            g_w.abs().max()) > 0:
+        raise AssertionError("T: Omega has a gradient or W_RF has none")
+    del live, loss, leaves, grads, params, state, batch
+    warm = step_ms[1:]
+    runs["T"] = dict(
+        arch=LM_ARCH, dtype="bfloat16", n_layers=cfg.n_layers, remat=True, batch=T_BATCH,
+        seq=T_SEQ, clients=T_CLIENTS, steps=T_STEPS, fda=dict(n_rff=cfg.fda_n_rff, m=cfg.fda_m,
+                                                              lam=cfg.fda_lambda),
+        losses=losses, ce=ces, mmd=mmds, grad_norm=gnorms, first10=first, last10=last,
+        step_ms_first=step_ms[0], step_ms_p50=float(np.percentile(warm, 50)),
+        step_ms_p99=float(np.percentile(warm, 99)),
+        draw_ms_p50=float(np.percentile(draw_ms, 50)),
+        tokens_per_s=T_BATCH * T_SEQ / (float(np.percentile(warm, 50)) / 1e3),
+        peak_bytes=int(peak), k11_launches=t_launch["flash_attention"],
+        k11b_launches=t_launch["flash_attention_bwd"], omega_grad_zero=True)
+    r = runs["T"]
+    log(f"[run T] {LM_ARCH} bf16 remat, {cfg.n_layers} layers, batch {T_BATCH} x {T_SEQ}, "
+        f"{T_CLIENTS} clients, {T_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(first-10 {first:.4f}, last-10 {last:.4f}), gradient norm before clipping "
+        f"{min(gnorms):.3g} to {max(gnorms):.3g}; step first {step_ms[0]:.1f} ms, p50 "
+        f"{r['step_ms_p50']:.2f} ms p99 {r['step_ms_p99']:.2f} ms, batch draw p50 "
+        f"{r['draw_ms_p50']:.2f} ms, {r['tokens_per_s']:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB above the start; K11 {t_launch['flash_attention']} launches "
+        f"({fwd_per} a step), K11b {t_launch['flash_attention_bwd']} ({bwd_per} a step); "
+        f"Omega's gradient 0, W_RF's not")
+
+    # TC: smollm-135m's width at two layers, fp32, one step card vs CPU from
+    # one LM.init state.  The random-init stack is ill-conditioned in fp32
+    # (tests/test_torch_train.py): the gate adds four times what a 1e-7
+    # relative nudge of the weights moves the CPU's own gradient
+    tc_cfg = get_config(LM_ARCH).reduced(
+        n_layers=TC_LAYERS, d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, d_ff=cfg.d_ff, vocab_size=cfg.vocab_size, fda_n_rff=cfg.fda_n_rff,
+        fda_m=cfg.fda_m, dtype=torch.float32)
+    tc = LM(tc_cfg)
+    p_cpu = tc.init(SEED, device="cpu")
+    tb = {k: torch.from_numpy(v) for k, v in next(TokenStream(tc_cfg.vocab_size, TC_BATCH,
+                                                                 TC_SEQ, seed=1)).items()}
+
+    def value_and_grads(p, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, met = tc.loss(live, batch, T_CLIENTS)
+        paths, leaves = tree_flatten_with_paths(live)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return ({k: float(v.detach()) for k, v in {"loss": loss, **met}.items()},
+                {k: None if x is None else x.detach().cpu() for k, x in zip(paths, g)})
+
+    fa.LAUNCHES["flash_attention"] = fa.LAUNCHES["flash_attention_bwd"] = 0
+    m_card, g_card = value_and_grads(tree_map(lambda t: t.to(dev), p_cpu),
+                                     {k: v.to(dev) for k, v in tb.items()})
+    sync()
+    tc_launch = dict(fa.LAUNCHES)
+    m_cpu, g_cpu = value_and_grads(p_cpu, tb)
+    gen = torch.Generator().manual_seed(1)
+    _, g_nudge = value_and_grads(
+        tree_map(lambda t: t * (1 + 1e-7 * torch.randn(t.shape, generator=gen)), p_cpu), tb)
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    tc_run = dict(layers=TC_LAYERS, batch=TC_BATCH, seq=TC_SEQ, k11_launches=tc_launch)
+    worst_units, worst_rel, worst_nudge = 0.0, 0.0, 0.0
+    for key in ("loss", "ce", "mmd"):
+        d = abs(m_card[key] - m_cpu[key]) / max(1.0, abs(m_cpu[key]))
+        tc_run[f"{key}_rel"] = d
+        if not d <= TC_RTOL:
+            raise AssertionError(f"TC: {key} card {m_card[key]} CPU {m_cpu[key]}")
+    for k, g in g_cpu.items():
+        if g is None:
+            if g_card[k] is not None:
+                raise AssertionError(f"TC: {k} has a gradient on the card only")
+            continue
+        e, moved = rel(g_card[k], g), rel(g_nudge[k], g)
+        worst_rel, worst_nudge = max(worst_rel, e), max(worst_nudge, moved)
+        worst_units = max(worst_units, e / (TC_RTOL + 4 * moved))
+        if not e <= TC_RTOL + 4 * moved:
+            raise AssertionError(f"TC: gradient {k} card vs CPU {e:.3g} of max(1, max|leaf|), "
+                                 f"past {TC_RTOL} + 4 x the CPU's own 1e-7-nudge movement "
+                                 f"{moved:.3g}")
+    if tc_launch != {"flash_attention": TC_LAYERS, "flash_attention_bwd": TC_LAYERS}:
+        raise AssertionError(f"TC: K11 / K11b launched {tc_launch}")
+    tc_run.update(grad_rel_max=worst_rel, nudge_rel_max=worst_nudge, gate_units=worst_units)
+    runs["TC"] = tc_run
+    log(f"[run TC] {LM_ARCH} width, {TC_LAYERS} layers, fp32, batch {TC_BATCH} x {TC_SEQ}, "
+        f"card vs CPU from one state: loss, ce, mmd within "
+        f"{max(tc_run[k + '_rel'] for k in ('loss', 'ce', 'mmd')):.3g}; gradient leaves at most "
+        f"{worst_rel:.3g} of max(1, max|leaf|) (the CPU's own 1e-7-nudge movement up to "
+        f"{worst_nudge:.3g}; {worst_units:.3f} of the gate)")
+
+    # BL: tests/test_baselines.py's suite on the card and on the CPU
+    doms = make_domains(3, 250, shift=1.0, seed=5)
+    s, t = doms[:2], doms[2]
+    fed_cfg = ClientConfig(input_dim=s[0].x.shape[0], n_classes=5)
+    suite = (
+        ("source_only", lambda d: baselines.source_only(s, t, seed=0, device=d), "close"),
+        ("tca", lambda d: baselines.tca_baseline(s, t, gamma=1e-3, m=16, device=d), "equal"),
+        ("r_tca", lambda d: baselines.tca_baseline(s, t, gamma=1e-3, m=16, variant="r",
+                                                   device=d), "equal"),
+        ("rf_tca", lambda d: baselines.rf_tca_baseline(s, t, gamma=1e-3, n_features=1024,
+                                                       m=16, device=d), "close"),
+        ("coral", lambda d: baselines.coral_baseline(s, t, device=d), "equal"),
+        ("jda", lambda d: baselines.jda_baseline(s, t, gamma=1e-3, iters=2, device=d), "equal"),
+        ("dann", lambda d: baselines.dann_mmd_baseline(s, t, steps=150, device=d), "close"),
+        ("fedavg", lambda d: baselines.fedavg_baseline(s, t, fed_cfg, device=d), "close"),
+    )
+    bl = {}
+    for name, fn, rule in suite:
+        t0 = time.perf_counter()
+        acc = fn(dev)
+        sync()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acc_cpu = fn("cpu")
+        cpu_s = time.perf_counter() - t0
+        bl[name] = dict(acc=acc, acc_cpu=acc_cpu, card_s=card_s, cpu_s=cpu_s, rule=rule)
+        if not 0.0 <= acc <= 1.0:
+            raise AssertionError(f"BL {name}: accuracy {acc}")
+        if rule == "equal" and acc != acc_cpu:
+            raise AssertionError(f"BL {name}: card {acc} != CPU {acc_cpu}")
+        if rule == "close" and not abs(acc - acc_cpu) <= BL_MLP_ATOL:
+            raise AssertionError(f"BL {name}: card {acc} vs CPU {acc_cpu}, past {BL_MLP_ATOL}")
+    if not bl["tca"]["acc"] > 1.0 / 5 + 0.05:  # tests/test_baselines.py
+        raise AssertionError(f"BL: TCA {bl['tca']['acc']} does not beat 5-class chance + 0.05")
+    # RF-TCA at phase 7's Office-31 width on its domains (K1, K2 counted)
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    src = Domain("A", doms0[0].x, doms0[0].y)
+    tgt = Domain("W", doms0[1].x[:, :N_T], doms0[1].y[:N_T])
+    t0 = time.perf_counter()
+    acc = baselines.rf_tca_baseline([src], tgt, n_features=BL_WIDE_N, m=BL_WIDE_M, gamma=GAMMA,
+                                    device=dev)
+    sync()
+    wide_s = time.perf_counter() - t0
+    k1 = counters["rff"]["rff"]
+    k2 = sum(counters["operand_gram"].values())
+    if not (0.0 <= acc <= 1.0 and k1 > 0 and k2 > 0):
+        raise AssertionError(f"BL wide RF-TCA: accuracy {acc}, K1 {k1}, K2 {k2} launches")
+    bl["rf_tca_office31"] = dict(acc=acc, card_s=wide_s, n_features=BL_WIDE_N, m=BL_WIDE_M,
+                                 p=P, n_s=N_S, n_t=N_T, k1_launches=k1, k2_launches=k2)
+    runs["BL"] = bl
+    log("[run BL] make_domains(3, 250, shift=1.0, seed=5), card vs CPU: " + ", ".join(
+        f"{n} {r['acc']:.4f} / {r['acc_cpu']:.4f} ({r['card_s']:.2f} s / {r['cpu_s']:.2f} s)"
+        for n, r in bl.items() if "acc_cpu" in r) + f"; RF-TCA at p={P}, n_S={N_S}, "
+        f"n_T={N_T}, N={BL_WIDE_N}, m={BL_WIDE_M}: {acc:.4f} in {wide_s:.2f} s (K1 {k1}, K2 "
+        f"{k2} launches)")
+    return runs, {"T": t_launch, "TC": tc_launch}
 
 
 def main() -> int:
@@ -2685,6 +3063,20 @@ def main() -> int:
     runs.update(serve_runs)
     cross.update(serve_cross)
 
+    # ---- 15. training: K11b, then T, TC and BL --------------------------------
+    t_phase = time.perf_counter()
+    report["K11b"], k11_fwd = k11b_rows(torch, dev, K11_CHECK, K11B_TIMED)
+    report["K11"]["forward_with_lse"] = {str(k): v for k, v in k11_fwd.items()}
+    train_runs, train_launches = train_phase(torch, dev, doms, counters)
+    runs.update(train_runs)
+    report["K11b"]["launches"] = train_launches["T"]["flash_attention_bwd"]
+    report["K11b"]["launches_by_run"] = {t: n["flash_attention_bwd"]
+                                         for t, n in train_launches.items()}
+    report["K11"]["launches_by_run"].update(
+        {t: n["flash_attention"] for t, n in train_launches.items()})
+    torch.cuda.synchronize()
+    log(f"[time] phase 15 (K11b, T, TC, BL) {time.perf_counter() - t_phase:.1f} s")
+
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}
     for key, runs_of, count in (
@@ -2704,8 +3096,8 @@ def main() -> int:
     for key, field in (("K10", "k10_launches"), ("K9", "k9_launches")):
         report[key]["launches_by_run"] = {t: runs[t][field] for t in trained if runs[t][field]}
         report[key]["launches"] = sum(report[key]["launches_by_run"].values())
-    kernels = [dict(id=k, **report[k])
-               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11")]
+    kernels = [dict(id=k, **report[k]) for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7",
+                                                 "K8", "K9", "K10", "K11", "K11b")]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['id']} was not launched on the main path")

@@ -16,13 +16,12 @@ import tempfile
 import numpy as np
 import torch
 
-from repro_torch.utils.tree import tree_flatten_with_paths, tree_leaves, tree_unflatten_like
-
-
-def _host(leaf) -> np.ndarray:
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+from repro_torch.utils.tree import (
+    host_numpy,
+    tree_flatten_with_paths,
+    tree_leaves,
+    tree_unflatten_like,
+)
 
 
 def save(path: str, tree, step: int | None = None, keep: int = 3) -> str:
@@ -34,7 +33,8 @@ def save(path: str, tree, step: int | None = None, keep: int = 3) -> str:
         os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
         target = path if path.endswith(".npz") else path + ".npz"
     paths, leaves = tree_flatten_with_paths(tree)
-    payload = {f"leaf_{i}": _host(leaf) for i, leaf in enumerate(leaves)}
+    # bf16 leaves go in as their float32 values; restore casts them back
+    payload = {f"leaf_{i}": host_numpy(leaf) for i, leaf in enumerate(leaves)}
     payload["__paths__"] = np.array(json.dumps(paths))
     payload["__treedef__"] = np.array(f"repro_torch tree of {len(leaves)} leaves")
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(target)), suffix=".tmp")

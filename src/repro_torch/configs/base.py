@@ -1,8 +1,10 @@
 """Model/config schema shared by all assigned architectures + input shapes.
 
 Port of ``repro.configs.base``: every field is kept, so the architecture files
-copy verbatim; ``dtype`` is a torch dtype.  The TPU-only switches (``remat``,
-``unroll_scan``, ``sharded_ce``, ``moe_ep``, ``causal_skip``,
+copy verbatim; ``dtype`` is a torch dtype.  ``remat`` checkpoints each layer
+in training (``models.model.LM.forward``); ``sharded_ce`` picks the
+reference's second cross-entropy form, which gives the same numbers.  The
+other TPU switches (``unroll_scan``, ``moe_ep``, ``causal_skip``,
 ``seq_parallel``) are accepted and change nothing here: none of them changes
 the math, only how XLA schedules or shards it.
 """
@@ -59,7 +61,8 @@ class ModelConfig:
     fda_lambda: float = 0.1
     fda_seed: int = 1234
     n_clients: int = 0  # 0 => one client per data-parallel shard
-    # TPU scheduling and sharding switches: accepted, no effect in the port
+    # remat: per-layer checkpointing in training; the rest are TPU scheduling
+    # and sharding switches, accepted with no effect in the port
     remat: bool = True
     unroll_scan: bool = False
     sharded_ce: bool = False

@@ -1,4 +1,5 @@
-"""Seeded synthetic domains (a numpy-only copy of ``repro.data.domains``)."""
+"""Seeded synthetic data (numpy-only copies of ``repro.data``): domains and
+the LM token stream."""
 from repro_torch.data.domains import (
     Domain,
     batches,
@@ -7,8 +8,9 @@ from repro_torch.data.domains import (
     normalize_unit,
     train_test_split,
 )
+from repro_torch.data.lm import TokenStream
 
 __all__ = [
-    "Domain", "batches", "make_domains", "make_implicit_domains", "normalize_unit",
-    "train_test_split",
+    "Domain", "TokenStream", "batches", "make_domains", "make_implicit_domains",
+    "normalize_unit", "train_test_split",
 ]

@@ -8,7 +8,8 @@
 - centered_gram:   Sigma H Sigma^T from a materialized Sigma (K8)
 - segment_reduce:  weighted segment sums of the two-tier fleet merges (K9)
 - quantize:        stochastic-rounding fake-quant of the wire codecs (K10)
-- flash_attention: GQA online-softmax attention, causal / window (K11)
+- flash_attention: GQA online-softmax attention, causal / window (K11), its
+                   backward (K11b) and the autograd Function joining them
 - ops:             the public wrappers; ref: the dense oracles
 
 Kernels are built by ``_build`` with ``nvcc`` at first use on the card.

@@ -64,6 +64,11 @@
 //   tx + 16 j, a 4 x 4 register tile of scores.  QK^T loops over d in chunks
 //   of <= 128 (q reloaded per chunk when d needs more than one); dv is split
 //   over the grid in chunks of <= 128.
+// Training (lse != null): each row's log-sum-exp of its scaled scores, m +
+//   log l in fp32, is written to lse (b, h, s) by the blocks of the first dv
+//   chunk; the bf16 path also writes the fp32 output before its rounding to
+//   o_acc (b, h, s, dv contiguous) when that is not null.  K11b
+//   (flash_attention_bwd.cu) recomputes P = exp(S / sqrt(d) - lse) from them.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -114,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int n_heads, int n_kv,
                  int s, int d, int dv, int n_dvc, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int window, float scale) {
+                 int causal, int window, float scale, float* __restrict__ lse) {
   extern __shared__ float smem[];
   float* q_sm = smem;                       // [kBQ][DP + 1]
   float* k_sm = q_sm + kBQ * (DP + 1);      // [kBK][DP + 1]
@@ -235,6 +240,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int off = 8; off > 0; off >>= 1) li += __shfl_xor_sync(0xffffffffu, li, off);
     const int qp = q0 + ty * 4 + i;
     if (qp >= s) continue;
+    if (lse != nullptr && dv0 == 0 && tx == 0)
+      lse[(static_cast<int64_t>(b) * n_heads + h) * s + qp] = m[i] + logf(li);
     const float inv = 1.0f / fmaxf(li, 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -247,7 +254,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int DP>
 cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o, int b, int h,
                        int kv, int s, int d, int dv, Strides qs, Strides ks, Strides vs,
-                       Strides os, int causal, int window, float scale, cudaStream_t stream) {
+                       Strides os, int causal, int window, float scale, float* lse,
+                       cudaStream_t stream) {
   constexpr size_t bytes = f32_smem_bytes<DP>();
   auto kernel = flash_f32_kernel<DP>;
   cudaError_t err =
@@ -256,23 +264,23 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
   const int n_dvc = (dv + DP - 1) / DP;
   dim3 grid((s + kBQ - 1) / kBQ, h, b * n_dvc);
   kernel<<<grid, kThreads, bytes, stream>>>(q, k, v, o, h, kv, s, d, dv, n_dvc, qs, ks, vs, os,
-                                           causal, window, scale);
+                                           causal, window, scale, lse);
   return cudaGetLastError();
 }
 
 cudaError_t run_f32(const float* q, const float* k, const float* v, float* o, int b, int h,
                     int kv, int s, int d, int dv, Strides qs, Strides ks, Strides vs, Strides os,
-                    int causal, int window, float scale, cudaStream_t stream) {
+                    int causal, int window, float scale, float* lse, cudaStream_t stream) {
   // the chunk width: d and dv above 128 are taken 128 at a time
   const int w = max(min(d, 128), min(dv, 128));
   if (w <= 32)
     return launch_f32<32>(q, k, v, o, b, h, kv, s, d, dv, qs, ks, vs, os, causal, window, scale,
-                          stream);
+                          lse, stream);
   if (w <= 64)
     return launch_f32<64>(q, k, v, o, b, h, kv, s, d, dv, qs, ks, vs, os, causal, window, scale,
-                          stream);
+                          lse, stream);
   return launch_f32<128>(q, k, v, o, b, h, kv, s, d, dv, qs, ks, vs, os, causal, window, scale,
-                         stream);
+                         lse, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -296,6 +304,8 @@ struct Bf16Cfg {
   float scale_log2;  // log2(e) / sqrt(d)
   __nv_bfloat16* o;
   Strides os;
+  float* lse;    // (b, h, s) log-sum-exp a row, or null
+  float* o_acc;  // (b, h, s, dv_out) fp32 output before rounding, or null
 };
 
 struct Bf16Smem {
@@ -618,6 +628,9 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const int qp = r0 + 8 * i;
     if (qp >= c.s) continue;
+    const int64_t row = (static_cast<int64_t>(bi) * c.n_kv * c.g + head) * c.s + qp;
+    if (c.lse != nullptr && dvc == 0 && quad == 0)
+      c.lse[row] = m[i] * 0.69314718055994531f + logf(li);  // m is in log2 units
     const float inv = 1.0f / fmaxf(li, 1e-30f);
 #pragma unroll
     for (int vb = 0; vb < kVBlocks; ++vb)
@@ -626,8 +639,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = dvc * DVT + vb * kBlockCols + 8 * j + 2 * quad + e;
-          if (col < c.dv_out)
-            ob[qp * c.os.s + col] = __float2bfloat16_rn(acc[vb][4 * j + 2 * i + e] * inv);
+          if (col < c.dv_out) {
+            const float x = acc[vb][4 * j + 2 * i + e] * inv;
+            ob[qp * c.os.s + col] = __float2bfloat16_rn(x);
+            if (c.o_acc != nullptr) c.o_acc[row * c.dv_out + col] = x;
+          }
         }
   }
 }
@@ -710,7 +726,8 @@ Bf16Plan plan_bf16(int b, int h, int kv, int s, int d, int dv) {
 
 cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, int b, int h, int kv,
                      int s, int d, int dv, int dv_out, Strides qs, Strides ks, Strides vs,
-                     Strides os, int causal, int window, float scale, cudaStream_t stream) {
+                     Strides os, int causal, int window, float scale, float* lse, float* o_acc,
+                     cudaStream_t stream) {
   Bf16Plan p = plan_bf16(b, h, kv, s, d, dv);
   Bf16Cfg& c = p.c;
   c.dv_out = dv_out;
@@ -719,6 +736,8 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, int b
   c.scale_log2 = scale * 1.4426950408889634f;
   c.o = static_cast<__nv_bfloat16*>(o);
   c.os = os;
+  c.lse = lse;
+  c.o_acc = o_acc;
 #define FA_LAUNCH(NC_, KBK_, DVT_)                                                            \
   if (p.nc == NC_ && p.kbk == KBK_ && p.dvt == DVT_)                                          \
     return launch_bf16<NC_, KBK_, DVT_>(q, k, v, h, kv, d, dv, qs, ks, vs, c, stream);
@@ -739,7 +758,10 @@ cudaError_t run_bf16(const void* q, const void* k, const void* v, void* o, int b
 // axis contiguous; dtype 0 = fp32, 1 = bf16 (all four tensors).  For bf16,
 // d and dv are the widths of the tensors as given (rows zero-padded to 16
 // bytes by the caller where needed) and dv_out <= dv the columns written;
-// the base addresses and the strides in bytes are multiples of 16.
+// the base addresses and the strides in bytes are multiples of 16.  lse
+// (b, h, s) fp32 receives each row's log-sum-exp and o_acc (b, h, s, dv_out)
+// fp32 contiguous the bf16 path's output before its rounding; either may be
+// null (the serve path passes both null).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape or layout
 // the kernel does not take.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, void* o,
@@ -747,17 +769,18 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v, v
                                   int dv_out, int64_t qsb, int64_t qsh, int64_t qss, int64_t ksb,
                                   int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
                                   int64_t vss, int64_t osb, int64_t osh, int64_t oss,
-                                  int causal, int window, float scale, void* stream) {
+                                  int causal, int window, float scale, float* lse, float* o_acc,
+                                  void* stream) {
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss}, os{osb, osh, oss};
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0 && dv_out == dv) {
     err = run_f32(static_cast<const float*>(q), static_cast<const float*>(k),
                   static_cast<const float*>(v), static_cast<float*>(o), b, h, kv, s, d, dv, qs,
-                  ks, vs, os, causal, window, scale, st);
+                  ks, vs, os, causal, window, scale, lse, st);
   } else if (dtype == 1) {
     err = run_bf16(q, k, v, o, b, h, kv, s, d, dv, dv_out, qs, ks, vs, os, causal, window, scale,
-                   st);
+                   lse, o_acc, st);
   } else {
     err = cudaErrorInvalidValue;
   }

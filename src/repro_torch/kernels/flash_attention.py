@@ -19,7 +19,16 @@ feature axis, so the model's (b, s, h, d) activations go in as transposed
 views without a copy, and the output follows q's memory order.  TMA needs
 16-byte aligned rows: a bf16 tensor whose base or strides are not multiples
 of 16 bytes (d = 20, say) is first copied into one with its rows
-zero-padded.  ``LAUNCHES`` counts the kernel launches.
+zero-padded.
+
+Training goes through :class:`FlashAttention`, a ``torch.autograd.Function``.
+Its forward asks the kernel for two more outputs, each row's log-sum-exp
+``lse`` (b, h, s) and the fp32 output before its rounding to q's dtype; its
+backward is K11b (``csrc/flash_attention_bwd.cu``, on CUDA tensors) or
+:func:`flash_attention_backward_plain` (on CPU tensors).  The reference
+has no backward kernel: it differentiates its jnp scan.  ``LAUNCHES``
+counts the forward kernel's launches and the backward calls (one a call,
+whatever kernels it runs).
 """
 from __future__ import annotations
 
@@ -30,31 +39,74 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 NEG_INF = -1e30  # the reference's masked-score sentinel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                          causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Plain version: the dense masked softmax in fp32, the reference's
-    oracle ``kernels/ref.py:90-110`` (``attention_ref``)."""
-    b, h, s, d = q.shape
-    g = h // k.shape[1]
-    kk = k.repeat_interleave(g, dim=1)
-    vv = v.repeat_interleave(g, dim=1)
-    sc = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk.to(torch.float32))
-    sc = sc / (d ** 0.5)
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+def _keep_mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
     if causal:
         mask &= i >= j
     if window:
         mask &= (i - j) < window
-    sc = torch.where(mask[None, None], sc, torch.full_like(sc, NEG_INF))
+    return mask
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    """Masked scaled scores in fp32, (b, h, s, s), k repeated over its group."""
+    d, s = q.shape[-1], q.shape[2]
+    kk = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    sc = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kk.to(torch.float32))
+    sc = sc / (d ** 0.5)
+    return torch.where(_keep_mask(s, causal, window, q.device)[None, None], sc,
+                       torch.full_like(sc, NEG_INF))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                          causal: bool = True, window: int = 0, return_lse: bool = False):
+    """Plain version: the dense masked softmax in fp32, the reference's
+    oracle ``kernels/ref.py:90-110`` (``attention_ref``).  With
+    ``return_lse`` also each row's log-sum-exp of its scores, (b, h, s)
+    fp32, and the fp32 output before the rounding to q's dtype."""
+    sc = _scores(q, k, causal, window)
     p = torch.softmax(sc, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vv.to(torch.float32)).to(q.dtype)
+    vv = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vv.to(torch.float32))
+    if return_lse:
+        return o.to(q.dtype), torch.logsumexp(sc, dim=-1), o
+    return o.to(q.dtype)
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                                   causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of :func:`flash_attention` in the inputs' dtype, from the
+    forward's fp32 output ``o`` and ``lse``: the formulas of K11b in fp32,
+
+        D = rowsum(dO o),  P = exp(S / sqrt(d) - lse),  dP = dO V^T,
+        dS = P (dP - D),  dQ = dS K / sqrt(d),  dK = dS^T Q / sqrt(d),
+        dV = P^T dO,
+
+    dK and dV summed over the g = h / kv query heads of each KV head."""
+    b, h, s, d = q.shape
+    kv, g = k.shape[1], h // k.shape[1]
+    f32 = torch.float32
+    dof = do.to(f32)
+    delta = torch.sum(dof * o.to(f32), dim=-1, keepdim=True)
+    p = torch.exp(_scores(q, k, causal, window) - lse.to(f32)[..., None])
+    dp = torch.einsum("bhqc,bhkc->bhqk", dof,
+                      v.repeat_interleave(g, dim=1).to(f32))
+    ds = p * (dp - delta)
+    scale = 1.0 / (d ** 0.5)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.repeat_interleave(g, dim=1).to(f32)) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(f32)) * scale
+    dv = torch.einsum("bhqk,bhqc->bhkc", p, dof)
+    dk = dk.reshape(b, kv, g, s, d).sum(dim=2)
+    dv = dv.reshape(b, kv, g, s, v.shape[-1]).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -105,15 +157,36 @@ def bf16_plan(b: int, h: int, kv: int, s: int, d: int, dv: int) -> dict:
     return dict(zip(keys, list(out)))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """(b, h, s, d) x (b, kv, s, d) x (b, kv, s, dv) -> (b, h, s, dv) in q's dtype."""
-    _check(q, k, v)
-    tensors = (q, k, v)
+def _on_card(what: str, tensors) -> bool:
+    """False for CPU tensors (the plain version runs), True for CUDA tensors
+    on one device; raises on a mix."""
     if all(t.device.type == "cpu" for t in tensors):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
+        return False
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"flash_attention: q on {q.device}, k on {k.device}, v on {v.device}")
+        raise ValueError(f"{what}: tensors on " + ", ".join(str(t.device) for t in tensors))
+    return True
+
+
+def _out_like(q: torch.Tensor, b: int, h: int, s: int, width: int, dtype) -> torch.Tensor:
+    """An uninitialised (b, h, s, width) tensor in q's memory order: (b, s,
+    h, width) storage for a (b, s, h, d) q seen heads-first."""
+    if q.stride(1) < q.stride(2):
+        return torch.empty((b, s, h, width), dtype=dtype, device=q.device).transpose(1, 2)
+    return torch.empty((b, h, s, width), dtype=dtype, device=q.device)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, return_lse: bool = False):
+    """(b, h, s, d) x (b, kv, s, d) x (b, kv, s, dv) -> (b, h, s, dv) in q's dtype.
+
+    With ``return_lse``: (o, lse, o_acc), ``lse`` each row's log-sum-exp of
+    its scaled scores (b, h, s) fp32 and ``o_acc`` the fp32 output before
+    the rounding to q's dtype (``o`` itself at fp32), as the backward needs
+    them.  Without it the kernel writes neither (the serve path's launch)."""
+    _check(q, k, v)
+    if not _on_card("flash_attention", (q, k, v)):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     return_lse=return_lse)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, {v.dtype}; the "
                          f"kernel takes float32 or bfloat16, all three alike")
@@ -121,11 +194,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     kv, dv = k.shape[1], v.shape[-1]
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    # the output in q's memory order: (b, s, h, dv) storage for a (b, s, h, d) q
-    if q.stride(1) < q.stride(2):
-        out = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device).transpose(1, 2)
-    else:
-        out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
+    out = _out_like(q, b, h, s, dv, q.dtype)
+    lse = o_acc = None
+    if return_lse:
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+        o_acc = out if q.dtype == torch.float32 else torch.empty(
+            (b, h, s, dv), dtype=torch.float32, device=q.device)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     if q.dtype == torch.bfloat16:
         q, k, v = (_tma_ready(t) for t in (q, k, v))
@@ -134,11 +208,85 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
     f = _build.fn("flash_attention", "rt_flash_attention",
                   [_build.VP] * 4 + [_build.I32] * 8 + [_build.I64] * 12
-                  + [_build.I32, _build.I32, _build.F32, _build.VP])
+                  + [_build.I32, _build.I32, _build.F32, _build.VP, _build.VP, _build.VP])
+    acc_ptr = o_acc.data_ptr() if o_acc is not None and o_acc is not out else None
     with torch.cuda.device(q.device):
         err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
                 b, h, kv, s, q.shape[-1], v.shape[-1], dv, *strides, int(bool(causal)),
-                int(window), 1.0 / math.sqrt(d), _build.stream_ptr())
+                int(window), 1.0 / math.sqrt(d), None if lse is None else lse.data_ptr(),
+                acc_ptr, _build.stream_ptr())
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    if return_lse:
+        return out, lse, o_acc
     return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o_acc: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0):
+    """(dq, dk, dv) in the inputs' dtype and memory order, from the forward's
+    ``lse`` and fp32 output ``o_acc`` and the output's gradient ``do``.  On
+    CUDA tensors K11b: D = rowsum(do o_acc), then dK and dV (one block a key
+    tile and KV head, summing its group's query heads in the block: no
+    atomics), then dQ; on CPU tensors the plain version."""
+    _check(q, k, v)
+    tensors = (q, k, v, o_acc, lse, do)
+    if not _on_card("flash_attention_backward", tensors):
+        return flash_attention_backward_plain(q, k, v, o_acc, lse, do, causal=causal,
+                                              window=window)
+    b, h, s, d = q.shape
+    kv, dv = k.shape[1], v.shape[-1]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
+    if (o_acc.dtype != torch.float32 or o_acc.shape != (b, h, s, dv)
+            or lse.dtype != torch.float32 or lse.shape != (b, h, s) or do.shape != (b, h, s, dv)):
+        raise ValueError(f"flash_attention_backward: o_acc {o_acc.dtype} {tuple(o_acc.shape)}, "
+                         f"lse {lse.dtype} {tuple(lse.shape)}, do {tuple(do.shape)}: need fp32 "
+                         f"(b, h, s, dv), fp32 (b, h, s) and (b, h, s, dv)")
+    if window < 0:
+        raise ValueError(f"flash_attention_backward: window {window} < 0")
+    do = do.to(q.dtype)
+    q, k, v, o_acc, do = (t if t.stride(-1) == 1 else t.contiguous()
+                          for t in (q, k, v, o_acc, do))
+    lse = lse.contiguous()
+    dq = _out_like(q, b, h, s, d, q.dtype)
+    dk = _out_like(k, b, kv, s, d, k.dtype)
+    dvv = _out_like(v, b, kv, s, dv, v.dtype)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = [st for t in (q, k, v, o_acc, do, dq, dk, dvv) for st in t.stride()[:3]]
+    f = _build.fn("flash_attention_bwd", "rt_flash_attention_bwd",
+                  [_build.VP] * 10 + [_build.I32] * 7 + [_build.I64] * 24
+                  + [_build.I32, _build.I32, _build.F32, _build.VP])
+    with torch.cuda.device(q.device):
+        err = f(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_acc.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+                _DTYPES[q.dtype], b, h, kv, s, d, dv, *strides, int(bool(causal)), int(window),
+                1.0 / math.sqrt(d), _build.stream_ptr())
+    _build.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dvv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K11 with K11b as its backward: ``apply(q, k, v, causal, window,
+    train)``.  With ``train`` (grad mode on) and an input that needs a
+    gradient, the forward keeps q, k, v, lse and the fp32 output for the
+    backward; otherwise it is the serve path's launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, train: bool):
+        ctx.causal, ctx.window = causal, window
+        if not (train and any(ctx.needs_input_grad[:3])):
+            return flash_attention(q, k, v, causal=causal, window=window)
+        out, lse, o_acc = flash_attention(q, k, v, causal=causal, window=window,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, o_acc, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o_acc, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o_acc, lse, do, causal=ctx.causal,
+                                              window=ctx.window)
+        return dq, dk, dv, None, None, None

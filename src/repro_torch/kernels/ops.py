@@ -1,7 +1,7 @@
 """Public wrappers around the port's kernels.
 
 Port of ``repro.kernels.ops`` for the RF-TCA kernels (K1-K8), the fleet's
-segment reduce (K9) and the backbone's attention (K11).  Each wrapper
+segment reduce (K9) and the backbone's attention (K11, its backward K11b).  Each wrapper
 launches its CUDA kernel on CUDA tensors and runs the plain version on CPU
 tensors.  The CUDA kernels mask their ragged edges themselves (rows past N,
 columns past n, k past p), so no operand is padded here; the reference's
@@ -85,7 +85,8 @@ def segment_reduce(values: torch.Tensor, seg_ids: torch.Tensor, weights: torch.T
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     window: int = 0) -> torch.Tensor:
-    """(b, h, s, d) x (b, kv, s, d) x (b, kv, s, dv) -> (b, h, s, dv).  The
+    """(b, h, s, d) x (b, kv, s, d) x (b, kv, s, dv) -> (b, h, s, dv),
+    differentiable: K11 forward, K11b backward (``FlashAttention``).  The
     reference's ``block_q``/``block_k`` (TPU tiles) have no counterpart: the
     kernel tiles by 64 and masks any ``s``."""
-    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.FlashAttention.apply(q, k, v, causal, window, torch.is_grad_enabled())

@@ -5,7 +5,10 @@ prefill attention is :func:`flash_attention`: on CUDA tensors the
 hand-written K11 kernel (``kernels/csrc/flash_attention.cu``; bf16 on the
 tensor cores, any head widths), the reference kernel's math, which the
 reference's jnp blockwise scan (its ``models/attention.py:81``) also
-computes; on CPU tensors the dense plain version.  One difference is kept on
+computes; on CPU tensors the dense plain version.  Its gradient is K11b
+(``kernels/csrc/flash_attention_bwd.cu``) through the autograd Function
+``kernels.flash_attention.FlashAttention``, where the reference
+differentiates its scan.  One difference is kept on
 purpose: the scan rounds the softmax weights p to v's dtype before the PV
 product, K11 keeps them to fp32 precision (in bf16, as three bf16 parts whose
 sum is p), so in bf16 the port differs from the reference's model by that

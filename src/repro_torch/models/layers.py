@@ -2,9 +2,8 @@
 
 Port of ``repro.models.layers``.  Parameter trees are declared through
 :mod:`repro_torch.models.param`; activations are computed in the config
-dtype, norms and rotary angles in fp32.  The reference's ``ShardRules`` (mesh
-sharding) has no counterpart on one card, and ``cross_entropy`` waits for the
-training slice (ROADMAP queue 1, step 13b).
+dtype, norms, rotary angles and the cross-entropy in fp32.  The reference's
+``ShardRules`` (mesh sharding) has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -90,3 +89,33 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["unembed"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int, *,
+                  sharded: bool = False) -> torch.Tensor:
+    """Mean next-token CE over the real (unpadded) vocabulary, in fp32.
+
+    The reference's two forms, kept as it writes them: ``sharded=False``
+    adds -1e9 to the padded vocab entries and gathers the gold logit;
+    ``sharded=True`` masks them to -inf and picks the gold logit with an
+    index mask (on its TPU mesh that avoids an all-gather of the logits).
+    Both give the same numbers."""
+    v_padded = logits.shape[-1]
+    if not sharded:
+        logits = logits.to(torch.float32)
+        pad = v_padded - vocab_size
+        if pad:
+            logits = logits + torch.cat([
+                torch.zeros((vocab_size,), dtype=logits.dtype, device=logits.device),
+                torch.full((pad,), -1e9, dtype=logits.dtype, device=logits.device)])
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.mean(logz - gold)
+    iota = torch.arange(v_padded, device=logits.device)
+    valid = iota < vocab_size
+    x = torch.where(valid, logits.to(torch.float32), -torch.inf)
+    m = torch.amax(x, dim=-1, keepdim=True)
+    sumexp = torch.sum(torch.where(valid, torch.exp(x - m), 0.0), dim=-1)
+    logz = torch.log(sumexp) + m[..., 0]
+    gold = torch.sum(torch.where(iota == labels[..., None], x, 0.0), dim=-1)
+    return torch.mean(logz - gold)

@@ -1,30 +1,41 @@
-"""Language-model assembly: the dense decoder family's serve path.
+"""Language-model assembly: the dense decoder family's training and serve paths.
 
 Port of ``repro.models.model`` for ``family == "dense"`` (GQA, no experts,
 no MLA).  One :class:`LM` wraps a ModelConfig and provides
 
   decls / init / param_count          — parameter machinery (see param.py)
-  forward(params, batch)              — prefill hidden states
+  forward(params, batch)              — hidden states (training / prefill)
+  loss(params, batch, n_clients)      — CE + aux + the FDA MMD head
   prefill(params, batch)              — last-token logits + the KV cache
   decode_step(params, cache, batch)   — one-token serve step with the cache
   cache_shapes / init_cache           — cache trees
 
 The reference's stacked layer axis is kept (``blocks.*`` leaves are
 ``(n_layers, ...)``, so weights convert leaf for leaf); a Python loop over
-it replaces ``lax.scan``.  Every other family, and ``loss`` (the training
-slice), raise ``NotImplementedError`` naming their ROADMAP step.
+it replaces ``lax.scan``, and with ``cfg.remat`` each layer is checkpointed
+(``torch.utils.checkpoint``) where the reference wraps its scanned body in
+``jax.checkpoint``.  Every other family raises ``NotImplementedError``
+naming its ROADMAP step.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
-from repro_torch.models.fda_head import fda_decl
-from repro_torch.models.layers import embed, embedding_decl, rmsnorm, rmsnorm_decl, unembed
+from repro_torch.models.fda_head import fda_decl, fda_loss
+from repro_torch.models.layers import (
+    cross_entropy,
+    embed,
+    embedding_decl,
+    rmsnorm,
+    rmsnorm_decl,
+    unembed,
+)
 from repro_torch.models.param import materialize, param_count, stack_decls
 
 _LATER_FAMILIES = {
@@ -83,13 +94,21 @@ class LM:
         return embed(params["embedding"], batch["tokens"])
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (hidden (b, s, d), aux_loss)."""
+        """Returns (hidden (b, s, d), aux_loss).  With ``cfg.remat`` and grad
+        mode on, each layer keeps only its input and runs its forward again
+        in the backward."""
         cfg = self.cfg
         x = self._embed_in(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
         auxs = []
         for i in range(cfg.n_layers):
-            x, aux = B.decoder_block_forward(layer_slice(params["blocks"], i), x, positions, cfg)
+            layer = layer_slice(params["blocks"], i)
+            if remat:
+                x, aux = checkpoint(B.decoder_block_forward, layer, x, positions, cfg,
+                                    use_reentrant=False)
+            else:
+                x, aux = B.decoder_block_forward(layer, x, positions, cfg)
             auxs.append(aux)
         return self._finish(params, x), torch.mean(torch.stack(auxs))
 
@@ -119,8 +138,23 @@ class LM:
     def logits(self, params, hidden):
         return unembed(params["embedding"], hidden)
 
+    # ------------------------------------------------------------------
+    # training loss: CE + MoE aux + the paper's FDA MMD head
+    # ------------------------------------------------------------------
     def loss(self, params, batch, n_clients: int = 1):
-        raise NotImplementedError("LM.loss (training): ROADMAP queue 1, step 13b")
+        """Returns (total, {"ce", "aux", "mmd"}): the mean next-token CE plus
+        0.01 aux plus, with more than one client, ``fda_lambda`` times the
+        FDA head's MMD (the batch laid out as (n_clients, per_client, ...))."""
+        cfg = self.cfg
+        hidden, aux = self.forward(params, batch)
+        logits = self.logits(params, hidden)
+        ce = cross_entropy(logits, batch["labels"], cfg.vocab_size, sharded=cfg.sharded_ce)
+        total = ce + 0.01 * aux
+        mmd = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        if cfg.fda_lambda and n_clients > 1:
+            mmd = fda_loss(params["fda"], hidden, n_clients)
+            total = total + cfg.fda_lambda * mmd
+        return total, {"ce": ce, "aux": aux, "mmd": mmd}
 
     # ------------------------------------------------------------------
     # decode (serve) path

@@ -1,4 +1,4 @@
-"""Functional optimizers over parameter trees: SGD (+momentum) and Adam.
+"""Functional optimizers over parameter trees: SGD (+momentum), Adam, AdamW.
 
 Port of ``repro.optim.optimizers``.  The interface is the reference's
 init/update pair, so the same call sites work under ``torch.func.vmap``:
@@ -10,10 +10,12 @@ init/update pair, so the same call sites work under ``torch.func.vmap``:
 
 Adam keeps the reference's arithmetic: bias corrections ``1 - b1**step``
 computed in float32 from an int32 step, and ``eps`` added after the square
-root.
+root; its moments are fp32 whatever the parameters' dtype.  The schedules
+take the step as a tensor, as ``_lr_at`` hands it over.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -106,3 +108,37 @@ def adam(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+
+def adamw(lr, weight_decay: float = 0.01, **kw) -> Optimizer:
+    return adam(lr, weight_decay=weight_decay, **kw)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """Returns (clipped_grads, global_norm).  As in the reference, where a
+    bf16 leaf times the fp32 scale promotes to fp32, the clipped leaves are
+    at least fp32."""
+    leaves = tree_leaves(grads)
+    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
+                    grads), gn
+
+
+def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0.1):
+    def sched(step):
+        step = step.to(torch.float32)
+        warm = base_lr * step / max(warmup, 1)
+        prog = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = base_lr * (min_frac + (1 - min_frac) * 0.5 * (1 + torch.cos(math.pi * prog)))
+        return torch.where(step < warmup, warm, cos)
+
+    return sched
+
+
+def linear_schedule(base_lr: float, total: int, end_frac: float = 0.0):
+    def sched(step):
+        prog = torch.clamp(step.to(torch.float32) / max(total, 1), 0.0, 1.0)
+        return base_lr * (1 - (1 - end_frac) * prog)
+
+    return sched

@@ -87,6 +87,26 @@ def tree_map(fn, tree, *rest):
     return rebuild([tree_map(fn, c, *(o[i] for o in others)) for i, c in enumerate(ch)])
 
 
+def tree_size(tree) -> int:
+    """Total number of scalar elements in a tree."""
+    return int(sum(np.prod(tuple(x.shape)) for x in tree_leaves(tree)))
+
+
+def tree_bytes(tree) -> int:
+    """Total bytes across all leaves (each leaf's dtype itemsize)."""
+    return int(sum(np.prod(tuple(x.shape)) * _itemsize(x) for x in tree_leaves(tree)))
+
+
+def _itemsize(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.element_size()
+    return np.asarray(x).dtype.itemsize
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
 def tree_add(a, b):
     return tree_map(torch.add, a, b)
 
@@ -115,6 +135,23 @@ def tree_weighted_mean(trees, weights):
     for t, w in zip(trees[1:], ws[1:]):
         acc = tree_add(acc, tree_scale(t, float(w)))
     return acc
+
+
+def tree_allclose(a, b, rtol=1e-5, atol=1e-6) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    if len(la) != len(lb):
+        return False
+    return all(np.allclose(host_numpy(x), host_numpy(y), rtol=rtol, atol=atol)
+               for x, y in zip(la, lb))
+
+
+def host_numpy(x) -> np.ndarray:
+    """A leaf as a numpy array on the host; bf16 (which numpy lacks) as its
+    exact float32 value."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return np.asarray(x)
 
 
 def stack_trees(trees: list):

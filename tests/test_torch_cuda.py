@@ -22,7 +22,13 @@ non-finite positions, at every head width (d 20 to 640, dv 12 to 288); a
 two-layer LM's logits, card against CPU at fp32, to 1e-3 of max(1,
 max|logit|); the materialized Omega equal to the CPU's bit for bit; a
 serving dispatch one K1 launch, within 1e-5 of max|whole| of the transform;
-telemetry on and off, and a probed and an unprobed round, bit for bit.
+telemetry on and off, and a probed and an unprobed round, bit for bit;
+K11b's dq, dk, dv within 1e-4 x max(1, max|plain|) at fp32 and one bf16 ULP
+of plain plus that at bf16 (plain: autograd of the plain forward on the
+fp32 inputs, rounded once), the forward's lse within 2e-5; a train step,
+card against CPU, within 1e-4 x max(1, max|leaf|) plus twice the step's
+learning rate; the baselines' accuracies on the card equal to the CPU's
+(TCA, CORAL, JDA) or within 0.02 (source-only).
 """
 import numpy as np
 import pytest
@@ -882,3 +888,112 @@ def test_lm_prefill_and_decode_on_card_match_cpu(card):
             logits, cache = model.decode_step(params, cache, {"tokens": tok}, 70 + i - 1)
         b = logits.float()
         assert (a.cpu().float() - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())
+
+
+def _k11b_gate(got, plain, dtype):
+    """K11b's gate: fp32 1e-4 x max(1, max|plain|); bf16 one bf16 ULP of
+    plain plus that (plain: autograd of the plain forward on the fp32
+    inputs, rounded once to the inputs' dtype)."""
+    plain = plain.to(dtype).float()
+    err = (got.float() - plain).abs()
+    cap = 1e-4 * max(1.0, plain.abs().max().item())
+    if dtype == torch.float32:
+        return err.max().item() <= cap
+    return bool((err <= _bf16_ulp(plain) + cap).all())
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv", K11_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
+def test_flash_attention_backward_kernel_matches_plain(card, b, h, kv, s, d, dv, dtype, causal,
+                                                       window):
+    g = torch.Generator(device=card).manual_seed(b * h * s + d + 1)
+    q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype) for shape in
+                   ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
+    _, lse, o_acc = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    _, lse_p, _ = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                           return_lse=True)
+    assert (lse - lse_p).abs().max().item() <= 2e-5
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    got = fa.flash_attention_backward(q, k, v, o_acc, lse, do, causal=causal, window=window)
+    assert fa.LAUNCHES["flash_attention_bwd"] == before + 1
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal=causal, window=window),
+                                leaves, do.float())
+    for a, p, t in zip(got, plain, (q, k, v)):
+        assert a.dtype == dtype and a.shape == t.shape
+        assert _k11b_gate(a, p, dtype)
+
+
+def test_flash_attention_function_on_card_reads_strides(card):
+    """The model's (b, s, h, d) activations through ops.flash_attention with
+    gradients: one forward and one backward launch, gradients in the
+    inputs' memory order and equal to the backward called directly."""
+    g = torch.Generator(device=card).manual_seed(5)
+    q0, k0, v0, do = (torch.randn(shape, generator=g, device=card).to(torch.bfloat16)
+                      for shape in ((2, 70, 6, 64), (2, 70, 2, 64), (2, 70, 2, 64),
+                                    (2, 70, 6, 64)))
+    q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+    before = dict(fa.LAUNCHES)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              window=16).transpose(1, 2)
+    out.backward(do)
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    assert q.grad.is_contiguous() and k.grad.is_contiguous()
+    _, lse, o_acc = fa.flash_attention(q0.transpose(1, 2), k0.transpose(1, 2),
+                                       v0.transpose(1, 2), window=16, return_lse=True)
+    ref = fa.flash_attention_backward(q0.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2),
+                                      o_acc, lse, do.transpose(1, 2), window=16)
+    for a, r in zip((q.grad, k.grad, v.grad), ref):
+        assert torch.equal(a, r.transpose(1, 2))
+    with pytest.raises(ValueError):
+        fa.flash_attention_backward(q0.transpose(1, 2), k0.transpose(1, 2), v0.transpose(1, 2),
+                                    o_acc.cpu(), lse, do.transpose(1, 2))
+
+
+def test_lm_train_step_on_card_matches_cpu(card):
+    """One launch.train step of a two-layer reduced smollm (fp32) on the card
+    and the CPU from one state: loss within 1e-4, each parameter within 1e-4
+    x max(1, max|leaf|) plus 2 lr_1 (AdamW's step where a near-zero gradient
+    rounds to opposite signs); K11 and K11b once a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw, cosine_schedule
+
+    cfg = get_config("smollm-135m").reduced()
+    model = LM(cfg)
+    opt = adamw(cosine_schedule(3e-4, warmup=10, total=30), weight_decay=0.01)
+    step = build_train_step(model, opt, 2)
+    p_cpu = model.init(0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in next(TokenStream(cfg.vocab_size, 4, 64)).items()}
+    before = dict(fa.LAUNCHES)
+    p_card, _, m_card = step(tree_map(lambda t: t.to(card), p_cpu),
+                             opt.init(tree_map(lambda t: t.to(card), p_cpu)),
+                             {k: v.to(card) for k, v in batch.items()})
+    assert fa.LAUNCHES["flash_attention"] == before["flash_attention"] + cfg.n_layers
+    assert fa.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + cfg.n_layers
+    p_ref, _, m_ref = step(p_cpu, opt.init(p_cpu), batch)
+    assert abs(float(m_card["loss"]) - float(m_ref["loss"])) <= 1e-4 * max(
+        1.0, abs(float(m_ref["loss"])))
+    lr_1 = 3e-4 / 10
+    for a, b in zip(tree_leaves(p_card), tree_leaves(p_ref)):
+        scale = max(1.0, b.abs().max().item())
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * scale + 2 * lr_1
+
+
+def test_baselines_on_card_match_cpu(card):
+    """tests/test_baselines.py's suite: TCA, CORAL and JDA give the CPU's
+    accuracy on the card; source-only within 0.02."""
+    from repro_torch import baselines
+
+    doms = make_domains(3, 250, shift=1.0, seed=5)
+    s, t = doms[:2], doms[2]
+    for fn in (lambda d: baselines.tca_baseline(s, t, gamma=1e-3, m=16, device=d),
+               lambda d: baselines.coral_baseline(s, t, device=d),
+               lambda d: baselines.jda_baseline(s, t, gamma=1e-3, iters=2, device=d)):
+        assert fn(card) == fn("cpu")
+    assert abs(baselines.source_only(s, t, device=card)
+               - baselines.source_only(s, t, device="cpu")) <= 0.02

@@ -317,7 +317,8 @@ def test_lm_families_outside_the_slice_raise(arch, step):
 
 
 def test_lm_loss_and_other_blocks_raise():
-    """Training (LM.loss) and the MoE/MLA/SSM/cross blocks wait for their steps."""
+    """LM.loss runs since step 13b (its parity is tests/test_torch_train.py's);
+    the MoE/MLA/SSM/cross blocks still wait for their steps."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -327,8 +328,8 @@ def test_lm_loss_and_other_blocks_raise():
     model = LM(cfg)
     params = model.init(0, device="cpu")
     toks = torch.zeros((2, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="step 13b"):
-        model.loss(params, {"tokens": toks, "labels": toks})
+    total, parts = model.loss(params, {"tokens": toks, "labels": toks}, 2)
+    assert set(parts) == {"ce", "aux", "mmd"} and bool(torch.isfinite(total))
     for call, step in ((lambda: blocks.decoder_block_decl(replace(cfg, n_experts=4)), "13c"),
                        (lambda: LM(replace(cfg, kv_lora_rank=32)), "13d"),
                        (lambda: blocks.ssm_block_decl(cfg), "13e"),
