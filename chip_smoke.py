@@ -229,13 +229,16 @@ Phases (any failed check raises, and the run exits non-zero):
             the same rounds without: parameters bit for bit, ``engine.round``
             one signature, ``last_probes`` finite;
  15. training, with K11's backward K11b:
-       K11b at the K11_CHECK shapes (phase 11's), the forward's lse within
-            2e-5 of plain's and dq, dk, dv within 1e-4 x max(1, max|plain|)
-            of autograd through the plain forward on the fp32 inputs (fp32),
-            plus one bf16 ULP of it (bf16); timed at smollm-135m's and
-            internlm2-1.8b's training shapes beside the plain backward and
-            scaled_dot_product_attention's backward, and K11's forward with
-            and without the lse store;
+       K11b its ptxas lines and HGMMA count (raises on none: bf16 runs on
+            wgmma); at the K11_CHECK shapes (phase 11's) and K11_LARGE_V's
+            bf16 causal with v x 60, the forward's lse within 2e-5 of
+            plain's and dq, dk, dv within 1e-4 x max(1, max|plain|) of
+            autograd through the plain forward on the fp32 inputs (fp32),
+            plus one bf16 ULP of it (bf16), the worst gate units reported;
+            at smollm-135m's and internlm2-1.8b's training shapes two
+            launches on the same inputs bit for bit, timed beside the plain
+            backward and scaled_dot_product_attention's backward, and K11's
+            forward with and without the lse store;
        T    smollm-135m as src/repro/configs/smollm_135m.py gives it (30
             layers, bf16, remat, the FDA head N = 512, m = 64, lambda 0.1)
             through ``launch.train.build_train_step``: TokenStream(49152, 8,
@@ -391,9 +394,10 @@ SD_BURNIN, SD_MAX_FIRES, SD_REFIRE_EVALS = 2, 2, 8
 SO_REQUESTS, SO_DEGENERACY, SO_COLS, SO_RATE, SO_PAIRS, SO_SAMPLE = 40, 16, (96, 224), 400.0, 7, 0.1
 HP_ROUNDS = 10
 # phase 15, training: K11b at phase 11's K11_CHECK shapes (the sweep, the wide
-# head widths, ragged s, smollm-135m's and internlm2-1.8b's shapes), timed at
-# the two training shapes; T (smollm-135m as its config gives it: 30 layers,
-# bf16, remat, the FDA head N = 512, m = 64, lambda 0.1) on
+# head widths, ragged s, smollm-135m's and internlm2-1.8b's shapes) and at
+# K11_LARGE_V's with v x 60, timed at the two training shapes; T (smollm-135m
+# as its config gives it: 30 layers, bf16, remat, the FDA head N = 512, m =
+# 64, lambda 0.1) on
 # TokenStream(49152, 8, 2048, seed=1) with 2 clients, AdamW(cosine(3e-4,
 # warmup 10, total 30), wd 0.01), clip 1.0, 30 steps; TC (its width at 2
 # layers, fp32, 2 x 128 tokens, card vs CPU); BL (tests/test_baselines.py's
@@ -837,26 +841,88 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
     return runs, cross
 
 
+def k11b_bytes(shape) -> int:
+    """Bytes K11b moves at a bf16 (b, h, kv, s, d, dv): q, do, dq; k, v, dk,
+    dv; the fp32 o_acc and lse."""
+    b, h, kv, s, d, dv = shape
+    return (2 * b * h * s * (d + dv) + 2 * b * kv * s * (d + dv)) * 2 + (
+        b * h * s * dv + b * h * s) * 4
+
+
+def k11b_copies(torch, fa, shape) -> list:
+    """K11b's bf16 causal inputs (q, k, v, o_acc, lse, do) at ``shape`` from
+    seeds 0, 1, ...: enough copies to cycle past the L2."""
+    b, h, kv, s, d, dv = shape
+    dev = torch.device("cuda")
+    copies = []
+    for i in range(max(2, -(-L2_FLUSH_BYTES // k11b_bytes(shape)))):
+        g = torch.Generator(device=dev).manual_seed(i)
+        q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16) for sh in
+                       ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
+        _, lse, o_acc = fa.flash_attention(q, k, v, return_lse=True)
+        copies.append((q, k, v, o_acc, lse, do))
+    return copies
+
+
+def k11b_times(torch, fa, copies) -> dict:
+    """K11b, its plain version and ``scaled_dot_product_attention``'s backward
+    (``torch.autograd.grad`` through it, causal, GQA) on ``copies`` in turn:
+    K11b's ``timed`` fields, ``plain_ms`` and ``library_ms``."""
+    turn = itertools.cycle(copies)
+    kt = timed(torch, lambda: fa.flash_attention_backward(*next(turn)), 10)
+    pt = timed(torch, lambda: fa.flash_attention_backward_plain(*next(turn)), 2)
+    sdpa = []
+    for q, k, v, _, _, do in copies:
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                             enable_gqa=True)
+        sdpa.append((o, leaves, do))
+    sturn = itertools.cycle(sdpa)
+
+    def sdpa_bwd():
+        o, leaves, do = next(sturn)
+        torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+    lt = timed(torch, sdpa_bwd, 10)
+    return dict(kt, plain_ms=pt["ms"], library_ms=lt["ms"])
+
+
 def k11b_rows(torch, dev, shapes, timed_shapes) -> dict:
-    """Phase 15a, K11b: the backward kernels against the plain version and
-    the forward's lse against plain's, at ``shapes`` (b, h, kv, s, d, dv,
-    dtype, causal, window); times at ``timed_shapes`` (bf16 causal) beside
-    the plain backward and ``scaled_dot_product_attention``'s backward.
-    Returns the kernels line's K11b entry and the forward's re-timing."""
+    """Phase 15a, K11b: its ptxas lines and HGMMA count, then the backward
+    kernels against the plain version and the forward's lse against plain's,
+    at ``shapes`` (b, h, kv, s, d, dv, dtype, causal, window, v_scale); two
+    launches on the same inputs bit for bit and times at ``timed_shapes``
+    (bf16 causal) beside the plain backward and
+    ``scaled_dot_product_attention``'s backward.  Returns the kernels line's
+    K11b entry and the forward's re-timing."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+
+    lines = ptxas_entries(_build.ptxas("flash_attention_bwd"), ("_tc_kernel",))
+    for line in lines:
+        log(f"[K11b] ptxas {line}")
+    if not lines or any("0 bytes spill stores" not in line for line in lines):
+        log("[K11b] a tensor-core kernel spills (or ptxas reported none)")
+    hgmma = sum("HGMMA" in line for line in _build.sass("flash_attention_bwd").splitlines())
+    log(f"[K11b] {hgmma} HGMMA instructions in the SASS of the flash_attention_bwd library")
+    if hgmma == 0:
+        raise AssertionError("K11b: no HGMMA in the SASS: the bf16 path is not on wgmma")
 
     def bf16_ulp(x):
         return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0**-126))) - 7)
 
-    def inputs(b, h, kv, s, d, dv, dtype, seed):
+    def inputs(b, h, kv, s, d, dv, dtype, seed, v_scale=1.0):
         g = torch.Generator(device=dev).manual_seed(seed)
-        return tuple(torch.randn(shape, generator=g, device=dev).to(dtype) for shape in
-                     ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
+        q, k, v, do = (torch.randn(shape, generator=g, device=dev) for shape in
+                       ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
+        return q.to(dtype), k.to(dtype), (v * v_scale).to(dtype), do.to(dtype)
 
     worst = {"float32": 0.0, "bfloat16": 0.0, "lse": 0.0, "gate_units": 0.0}
-    for b, h, kv, s, d, dv, dt, causal, window in shapes:
-        what = f"({b}, {h}, {kv}, {s}, {d}, {dv}) {dt} causal={causal} window={window}"
-        q, k, v, do = inputs(b, h, kv, s, d, dv, getattr(torch, dt), b * h * s + d + window)
+    for b, h, kv, s, d, dv, dt, causal, window, v_scale in shapes:
+        what = (f"({b}, {h}, {kv}, {s}, {d}, {dv}) {dt} causal={causal} window={window} "
+                f"v x {v_scale}")
+        q, k, v, do = inputs(b, h, kv, s, d, dv, getattr(torch, dt), b * h * s + d + window,
+                             v_scale)
         _, lse, o_acc = fa.flash_attention(q, k, v, causal=causal, window=window,
                                            return_lse=True)
         _, lse_p, _ = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -885,7 +951,8 @@ def k11b_rows(torch, dev, shapes, timed_shapes) -> dict:
             worst[dt] = max(worst[dt], float(err.max()))
             worst["gate_units"] = max(worst["gate_units"], units)
         del q, k, v, do, got, plain, lse, o_acc
-    log(f"[K11b] {len(shapes)} shapes: lse within {K11B_LSE_ATOL} of plain (max "
+    log(f"[K11b] {len(shapes)} shapes (v x {K11_V_SCALE} at {K11_LARGE_V}): lse within "
+        f"{K11B_LSE_ATOL} of plain (max "
         f"{worst['lse']:.3g}); dq, dk, dv within {K11B_RTOL} x max(1, max|plain|) at fp32 "
         f"(max abs err {worst['float32']:.3g}) and one bf16 ULP of plain plus that at bf16 "
         f"(max abs err {worst['bfloat16']:.3g}); worst {worst['gate_units']:.3f} gate units")
@@ -895,53 +962,45 @@ def k11b_rows(torch, dev, shapes, timed_shapes) -> dict:
 
     timed_rows, fwd = {}, {}
     for b, h, kv, s, d, dv in timed_shapes:
-        nbytes = (2 * b * h * s * (d + dv) + 2 * b * kv * s * (d + dv)) * 2 + (
-            b * h * s * dv + b * h * s) * 4  # q, do, dq; k, v, dk, dv; o_acc, lse
-        copies = []
-        for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes))):
-            q, k, v, do = inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
-            _, lse, o_acc = fa.flash_attention(q, k, v, return_lse=True)
-            copies.append((q, k, v, o_acc, lse, do))
-        turn = itertools.cycle(copies)
+        copies = k11b_copies(torch, fa, (b, h, kv, s, d, dv))
         flops = 2 * (3 * d + 2 * dv) * b * h * causal_pairs(s)
+        nbytes = k11b_bytes((b, h, kv, s, d, dv))
         b_ms, b_by = bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS)
         ffma_ms, _ = bound_ms(flops, nbytes)
-        kt = timed(torch, lambda: fa.flash_attention_backward(*next(turn)), 5)
-        pt = timed(torch, lambda: fa.flash_attention_backward_plain(*next(turn)), 2)
-        sdpa = []
-        for q, k, v, _, _, do in copies:
-            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-            o = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
-                                                                 enable_gqa=True)
-            sdpa.append((o, leaves, do))
-        sturn = itertools.cycle(sdpa)
-
-        def sdpa_bwd():
-            o, leaves, do = next(sturn)
-            torch.autograd.grad(o, leaves, do, retain_graph=True)
-
-        lt = timed(torch, sdpa_bwd, 10)
+        first = fa.flash_attention_backward(*copies[0])
+        again = fa.flash_attention_backward(*copies[0])
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            raise AssertionError(f"K11b {(b, h, kv, s, d, dv)}: two launches on the same "
+                                 f"inputs differ")
+        del first, again
+        kt = k11b_times(torch, fa, copies)
+        turn = itertools.cycle(copies)
         f_plain = timed(torch, lambda: fa.flash_attention(*next(turn)[:3]), 20)
         f_lse = timed(torch, lambda: fa.flash_attention(*next(turn)[:3], return_lse=True), 20)
-        del copies, sdpa, turn, sturn
+        del copies, turn
         key = (b, h, kv, s, d, dv)
         timed_rows[key] = dict(ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"],
-                               plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=b_ms,
-                               bound_by=b_by, bound_ffma_ms=ffma_ms,
-                               tflops=flops / kt["ms"] / 1e9)
+                               plain_ms=kt["plain_ms"], library_ms=kt["library_ms"],
+                               bound_ms=b_ms, bound_by=b_by, bound_ffma_ms=ffma_ms,
+                               tflops=flops / kt["ms"] / 1e9, bf16_plan=fa.bwd_bf16_plan(d, dv))
         fwd[key] = dict(ms=f_plain["ms"], lse_ms=f_lse["ms"])
-        log(f"[K11b] {key} bf16 causal: kernel {kt['ms']:.4f} ms (host {kt['host_ms']:.4f} ms "
+        log(f"[K11b] {key} bf16 causal: two launches bit for bit; kernel {kt['ms']:.4f} ms "
+            f"(host {kt['host_ms']:.4f} ms "
             f"a call, queued {kt['queued']}, {flops / kt['ms'] / 1e9:.2f} TFLOP/s), plain "
-            f"{pt['ms']:.4f} ms, scaled_dot_product_attention's backward {lt['ms']:.4f} ms, "
+            f"{kt['plain_ms']:.4f} ms, scaled_dot_product_attention's backward "
+            f"{kt['library_ms']:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}, bf16 tensor cores; {ffma_ms:.4f} ms at the FFMA "
             f"rate); K11 forward {f_plain['ms']:.4f} ms, with lse and the fp32 output "
-            f"{f_lse['ms']:.4f} ms")
+            f"{f_lse['ms']:.4f} ms; plan {timed_rows[key]['bf16_plan']}")
     first = timed_shapes[0]
     row = dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="none: backward of src/repro/kernels/flash_attention.py:69 (the reference "
                  "differentiates its jnp scan, src/repro/models/attention.py:81)",
+        design="bf16: wgmma fed by TMA (dK/dV and dQ kernels, P and dS in bf16 parts); "
+               "fp32: FFMA", p_ds_parts=timed_rows[first]["bf16_plan"]["p_ds_parts"],
+        hgmma=hgmma, deterministic=True,
         max_abs_err=max(worst["float32"], worst["bfloat16"]), max_abs_err_by=worst,
         tolerance=f"dq, dk, dv: fp32 {K11B_RTOL} x max(1, max|plain|); bf16 one bf16 ULP of "
                   f"plain plus that; plain = autograd of flash_attention_plain on the fp32 "
@@ -3065,7 +3124,9 @@ def main() -> int:
 
     # ---- 15. training: K11b, then T, TC and BL --------------------------------
     t_phase = time.perf_counter()
-    report["K11b"], k11_fwd = k11b_rows(torch, dev, K11_CHECK, K11B_TIMED)
+    report["K11b"], k11_fwd = k11b_rows(
+        torch, dev, [(*shape, 1.0) for shape in K11_CHECK]
+        + [(*shape, "bfloat16", True, 0, K11_V_SCALE) for shape in K11_LARGE_V], K11B_TIMED)
     report["K11"]["forward_with_lse"] = {str(k): v for k, v in k11_fwd.items()}
     train_runs, train_launches = train_phase(torch, dev, doms, counters)
     runs.update(train_runs)

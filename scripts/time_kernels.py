@@ -20,17 +20,27 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
               request's 64, 300 and 512 (the first target columns), and at
               N = 1000 on all columns with a Cauchy Omega (``draw_omega``'s
               laplace), each beside ``torch.matmul(Omega, X)``.
+  k11b        K11's backward (``flash_attention_backward``, bf16, causal) at
+              ``chip_smoke.py``'s two training shapes (``K11B_TIMED``),
+              (8, 9, 3, 2048, 64) and (1, 16, 8, 4096, 128), beside the plain backward and
+              ``scaled_dot_product_attention``'s backward (one PyTorch call:
+              ``torch.autograd.grad`` through it); no domains are made.
 
-It uses only the public entry points, so it runs against any checkout of the
+It uses only the public entry points of the package under the working
+directory's ``src/`` and takes its data, shapes and timing from the
+``chip_smoke.py`` beside this script, so it runs against any checkout of the
 port: run it from the root of two checkouts in one call to compare them on
 one card.
 
     python3 scripts/time_kernels.py seed_fused
     python3 scripts/time_kernels.py operand
     python3 scripts/time_kernels.py k1
+    python3 scripts/time_kernels.py k11b
 
 Prints one JSON object: milliseconds per call (CUDA events, after a warm-up
-call) for each kernel and library call, and the card's name.
+call; ``k11b`` with ``chip_smoke.py``'s ``k11b_times``, cycling copies of
+the inputs past the L2) for each kernel and library call, and the card's
+name.
 """
 from __future__ import annotations
 
@@ -40,7 +50,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path.cwd()
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+# the package from the working directory's checkout; the data, shapes and
+# timing (chip_smoke.py) from this script's, so two checkouts are timed alike
+sys.path[:0] = [str(ROOT / "src"), str(Path(__file__).resolve().parents[1])]
 
 
 def seed_fused(cs, torch, x, ell, sigma, out) -> None:
@@ -99,9 +111,19 @@ def k1(cs, torch, x, ell, sigma, out) -> None:
     out["K1_laplace_ms"] = cs.cuda_ms(torch, lambda: rff.rff(x, om), 10)
 
 
+def k11b(cs, torch, out) -> None:
+    from repro_torch.kernels import flash_attention as fa
+
+    for shape in cs.K11B_TIMED:
+        key = "K11b_" + "_".join(map(str, shape[:5]))
+        t = cs.k11b_times(torch, fa, cs.k11b_copies(torch, fa, shape))
+        out.update({f"{key}_ms": t["ms"], f"{key}_library_ms": t["library_ms"],
+                    f"{key}_plain_ms": t["plain_ms"]})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=("seed_fused", "operand", "k1"))
+    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "k11b"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -116,12 +138,16 @@ def main() -> int:
         return 1
     dev = torch.device("cuda")
     _build.build_all()
+    out = {"device": torch.cuda.get_device_name(0), "root": str(ROOT), "family": args.family}
+    if args.family == "k11b":
+        k11b(cs, torch, out)
+        print(json.dumps(out))
+        return 0
     doms = make_domains(2, cs.N_S, dim=cs.P, seed=cs.SEED)
     x = torch.tensor(np.ascontiguousarray(np.concatenate([doms[0].x, doms[1].x[:, :cs.N_T]], 1)),
                      device=dev)
     ell = ell_vector(cs.N_S, cs.N_T, device=dev)
     sigma = median_sigma(x)
-    out = {"device": torch.cuda.get_device_name(0), "root": str(ROOT), "family": args.family}
     {"seed_fused": seed_fused, "operand": operand, "k1": k1}[args.family](
         cs, torch, x, ell, sigma, out)
     print(json.dumps(out))

@@ -24,7 +24,8 @@ zero-padded.
 Training goes through :class:`FlashAttention`, a ``torch.autograd.Function``.
 Its forward asks the kernel for two more outputs, each row's log-sum-exp
 ``lse`` (b, h, s) and the fp32 output before its rounding to q's dtype; its
-backward is K11b (``csrc/flash_attention_bwd.cu``, on CUDA tensors) or
+backward is K11b (``csrc/flash_attention_bwd.cu``, on CUDA tensors: bf16 on
+the tensor cores through wgmma and TMA, fp32 on the FFMA pipe) or
 :func:`flash_attention_backward_plain` (on CPU tensors).  The reference
 has no backward kernel: it differentiates its jnp scan.  ``LAUNCHES``
 counts the forward kernel's launches and the backward calls (one a call,
@@ -157,6 +158,19 @@ def bf16_plan(b: int, h: int, kv: int, s: int, d: int, dv: int) -> dict:
     return dict(zip(keys, list(out)))
 
 
+def bwd_bf16_plan(d: int, dv: int) -> dict:
+    """How K11b's bf16 kernels run widths d and dv (for reports; loads the
+    library): consumer warpgroups, stages of the ring, bf16 parts of P and
+    dS, the dK/dV and dQ kernels' output chunks over the grid, the dynamic
+    shared memory.  Raises where the widths do not fit, as the backward does."""
+    out = (ctypes.c_int * 6)()
+    f = _build.fn("flash_attention_bwd", "rt_flash_attention_bwd_plan",
+                  [_build.I32, _build.I32, ctypes.POINTER(ctypes.c_int)])
+    _build.check(f(d, dv, out), f"flash_attention_bwd_plan (d {d}, dv {dv})")
+    keys = ("warpgroups", "stages", "p_ds_parts", "dkdv_chunks", "dq_chunks", "smem_bytes")
+    return dict(zip(keys, list(out)))
+
+
 def _on_card(what: str, tensors) -> bool:
     """False for CPU tensors (the plain version runs), True for CUDA tensors
     on one device; raises on a mix."""
@@ -228,8 +242,13 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) in the inputs' dtype and memory order, from the forward's
     ``lse`` and fp32 output ``o_acc`` and the output's gradient ``do``.  On
     CUDA tensors K11b: D = rowsum(do o_acc), then dK and dV (one block a key
-    tile and KV head, summing its group's query heads in the block: no
-    atomics), then dQ; on CPU tensors the plain version."""
+    block and KV head, summing its group's query heads in the block: no
+    atomics), then dQ; bf16 on the tensor cores (wgmma fed by TMA, P and dS
+    in bf16 parts; TMA reads q, k, v and do as the forward reads its
+    inputs, rows padded to 16 bytes where it needs that; widths that fit
+    the shared memory, ``bwd_bf16_plan``), fp32 on the FFMA pipe (any
+    widths).  On CPU
+    tensors the plain version."""
     _check(q, k, v)
     tensors = (q, k, v, o_acc, lse, do)
     if not _on_card("flash_attention_backward", tensors):
@@ -254,7 +273,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = _out_like(k, b, kv, s, d, k.dtype)
     dvv = _out_like(v, b, kv, s, dv, v.dtype)
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    strides = [st for t in (q, k, v, o_acc, do, dq, dk, dvv) for st in t.stride()[:3]]
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+    strides = [st for t in (q, k, v, o_acc, do, dq, dk, dvv) for st in _tma_strides(t)]
     f = _build.fn("flash_attention_bwd", "rt_flash_attention_bwd",
                   [_build.VP] * 10 + [_build.I32] * 7 + [_build.I64] * 24
                   + [_build.I32, _build.I32, _build.F32, _build.VP])
@@ -263,7 +284,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
                 _DTYPES[q.dtype], b, h, kv, s, d, dv, *strides, int(bool(causal)), int(window),
                 1.0 / math.sqrt(d), _build.stream_ptr())
-    _build.check(err, "flash_attention_bwd")
+    _build.check(err, f"flash_attention_bwd ({q.dtype}, d {d}, dv {dv})")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dvv
 

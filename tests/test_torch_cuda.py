@@ -25,7 +25,8 @@ serving dispatch one K1 launch, within 1e-5 of max|whole| of the transform;
 telemetry on and off, and a probed and an unprobed round, bit for bit;
 K11b's dq, dk, dv within 1e-4 x max(1, max|plain|) at fp32 and one bf16 ULP
 of plain plus that at bf16 (plain: autograd of the plain forward on the
-fp32 inputs, rounded once), the forward's lse within 2e-5; a train step,
+fp32 inputs, rounded once; also with v x 60 and on rows TMA takes only
+padded), two launches bit for bit, the forward's lse within 2e-5; a train step,
 card against CPU, within 1e-4 x max(1, max|leaf|) plus twice the step's
 learning rate; the baselines' accuracies on the card equal to the CPU's
 (TCA, CORAL, JDA) or within 0.02 (source-only).
@@ -902,14 +903,27 @@ def _k11b_gate(got, plain, dtype):
     return bool((err <= _bf16_ulp(plain) + cap).all())
 
 
-@pytest.mark.parametrize("b,h,kv,s,d,dv", K11_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48), (False, 0), (False, 48)])
+# K11b: every K11 shape, dtype and mask at unit scale, and chip_smoke.py's
+# K11_LARGE_V bf16 causal shapes with v at a model's scale (x 60), where P
+# and dS in bf16 parts must hold the unchanged gate
+# (tests/test_torch_flash_bwd_numerics.py)
+K11B_CASES = [(*shape, dtype, causal, window, 1.0) for shape in K11_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)
+              for causal, window in ((True, 0), (True, 48), (False, 0), (False, 48))] + [
+    (*shape, torch.bfloat16, True, 0, 60.0)
+    for shape in ((2, 4, 2, 512, 64, 64), (1, 4, 2, 256, 128, 128))]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv,dtype,causal,window,v_scale", K11B_CASES)
 def test_flash_attention_backward_kernel_matches_plain(card, b, h, kv, s, d, dv, dtype, causal,
-                                                       window):
+                                                       window, v_scale):
     g = torch.Generator(device=card).manual_seed(b * h * s + d + 1)
-    q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype) for shape in
+    q, k, v, do = (torch.randn(shape, generator=g, device=card) for shape in
                    ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
+    q, k, v, do = q.to(dtype), k.to(dtype), (v * v_scale).to(dtype), do.to(dtype)
+    if dtype == torch.bfloat16:  # rows TMA cannot load go through a zero-padded copy
+        for t in (q, k, v, do):
+            assert (fa._tma_ready(t) is not t) == (t.shape[-1] * 2 % 16 != 0)
     _, lse, o_acc = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
     _, lse_p, _ = fa.flash_attention_plain(q, k, v, causal=causal, window=window,
                                            return_lse=True)
@@ -923,6 +937,44 @@ def test_flash_attention_backward_kernel_matches_plain(card, b, h, kv, s, d, dv,
     for a, p, t in zip(got, plain, (q, k, v)):
         assert a.dtype == dtype and a.shape == t.shape
         assert _k11b_gate(a, p, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_launches_are_bit_equal(card, dtype):
+    """The backward is deterministic (no atomics): two launches on the same
+    inputs give the same bits, at smollm-135m's head shape."""
+    b, h, kv, s, d = 2, 9, 3, 300, 64
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype) for shape in
+                   ((b, h, s, d), (b, kv, s, d), (b, kv, s, d), (b, h, s, d)))
+    _, lse, o_acc = fa.flash_attention(q, k, v, return_lse=True)
+    first = fa.flash_attention_backward(q, k, v, o_acc, lse, do)
+    again = fa.flash_attention_backward(q, k, v, o_acc, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_attention_backward_bf16_plan(card):
+    """K11b's bf16 plan: two consumer warpgroups and four stages at the
+    training widths, one warpgroup past them, P and dS in two bf16 parts;
+    widths past 14 64-column blocks raise, and so does the backward on them."""
+    assert fa.bwd_bf16_plan(64, 64) == dict(warpgroups=2, stages=4, p_ds_parts=2,
+                                            dkdv_chunks=1, dq_chunks=1, smem_bytes=99400)
+    hd128 = fa.bwd_bf16_plan(128, 128)
+    assert (hd128["warpgroups"], hd128["stages"], hd128["dkdv_chunks"],
+            hd128["dq_chunks"]) == (2, 4, 2, 1)
+    wide = fa.bwd_bf16_plan(640, 64)
+    assert (wide["warpgroups"], wide["stages"], wide["dkdv_chunks"],
+            wide["dq_chunks"]) == (1, 1, 6, 5)
+    with pytest.raises(RuntimeError):
+        fa.bwd_bf16_plan(640, 320)
+    q = torch.zeros((1, 2, 64, 640), dtype=torch.bfloat16, device=card)
+    v = torch.zeros((1, 1, 64, 320), dtype=torch.bfloat16, device=card)
+    o_acc = torch.zeros((1, 2, 64, 320), device=card)
+    lse = torch.zeros((1, 2, 64), device=card)
+    before = fa.LAUNCHES["flash_attention_bwd"]
+    with pytest.raises(RuntimeError):
+        fa.flash_attention_backward(q, q[:, :1], v, o_acc, lse, o_acc.bfloat16())
+    assert fa.LAUNCHES["flash_attention_bwd"] == before
 
 
 def test_flash_attention_function_on_card_reads_strides(card):
