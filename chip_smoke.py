@@ -135,13 +135,15 @@ Phases (any failed check raises, and the run exits non-zero):
      and 1000; MLA's d 192 / dv 128, d 320 / dv 288 (dv over the grid), d 20
      (rows TMA cannot load) and d 640 (q and K streamed in d-chunks) in both
      dtypes; v at the model's scale (x 60) in bf16; the serve run's (8, 9,
-     3, 2048, 64) and internlm2-1.8b's (1, 16, 8, 4096, 128) in bf16) within
+     3, 2048, 64), internlm2-1.8b's (1, 16, 8, 4096, 128) and phase 16's
+     prefills (4, 64, 4, 2048, 128, 128) and (4, 16, 16, 2048, 192, 128) in
+     bf16) within
      2e-5 of its plain version at fp32 and one bf16 ULP of it at bf16 (plus
      2e-5: near-zero outputs are sums with cancellation; at most 3e-2 of
      max(1, max|plain|)), non-finite positions equal; timed like K10 at the
-     serve shape, at hd 128 and at deepseek-v2-lite's MLA prefill (1, 16,
-     16, 4096, 192, 128), beside its plain version and
-     scaled_dot_product_attention;
+     serve shape, at hd 128, at deepseek-v2-lite's MLA prefill (1, 16,
+     16, 4096, 192, 128) and at phase 16's two prefills, beside its plain
+     version and scaled_dot_product_attention, with ``fa.bf16_plan``;
  12. the LM serve path through ``repro_torch.launch.serve.generate``, K11's
      launch count zeroed just before and read just after each run:
        L    smollm-135m (src/repro/configs/smollm_135m.py: 30 layers, d_model
@@ -258,7 +260,40 @@ Phases (any failed check raises, and the run exits non-zero):
             CORAL, JDA equal; source-only, RF-TCA, DaNN, FedAvg within 0.02;
             all in [0, 1], TCA above 5-class chance + 0.05; then RF-TCA at
             phase 7's Office-31 width (N = 1000, m = 32), K1 and K2 counted;
- 16. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 16. the MoE family (src/repro/configs/qwen3_moe_235b_a22b.py,
+     deepseek_v2_lite_16b.py), K11's launch count zeroed just before and read
+     just after each run:
+       Q    qwen3-moe-235b-a22b at full width (d_model 4096, 64 heads over 4
+            KV heads, hd 128, 128 experts top-8, expert d_ff 1536, vocab
+            151936) with 4 of its 94 layers (94 layers of 4.6 GiB do not fit
+            one card), bf16, ``LM.init(0)``, 4 x 2048-token prompts, 16 tokens
+            through ``serve.generate``, twice (first, warm): K11 once per layer
+            at (4, 64, 4, 2048, 128, 128), the first launch held as L's is,
+            tokens in the vocab, finite logits; the host draw's seconds, the
+            card's own prefill and decode step times, peak memory;
+       DS   deepseek-v2-lite-16b whole (27 layers, d_model 2048, 16 MLA heads,
+            kv_lora 512, rope 64, 64 routed experts top-6 + 2 shared, d_ff
+            1408, vocab 102400; 16.21 G parameters), as Q, after Q's weights
+            are freed: K11 at (4, 16, 16, 2048, 192, 128);
+       QC, DC one block at fp32 (QC's experts cut to 16, top-8 kept), card
+            against CPU from one state over 2 x 128 tokens and 4 decode steps
+            from the CPU's cache: the routing first (the top k in order and
+            the pairs kept), a token exempt only where it differs at a
+            near-tie on the CPU (k-th and (k+1)-th probabilities within 1e-6,
+            counted), then outputs and cache columns within 1e-3 x max(1,
+            max|x|);
+       QH, DH the same blocks on the card: a prefill of 128 tokens and 4
+            decode steps against the forward over 132 (tests/test_models.py:
+            141-158), 1e-4 and 1e-3 of max(1, max|x|), at a capacity factor
+            of E / k (no pair dropped, as tests/test_models.py:113-121 runs
+            at 8.0: forward drops pairs that decode keeps);
+       DP   ``federated.distributed``'s round at world size 1, NCCL on the card
+            and gloo on the CPU (one ``cpu:gloo,cuda:nccl`` group), 5 rounds
+            from one start at fedrf_paper's width: within 1e-4 x max(1,
+            max|leaf|).  At one rank the all-reduces are identities, so DP
+            checks the round's arithmetic on the card, not the exchange
+            between ranks;
+ 17. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches, K1, K4 and K5 with the serve runs' launches by run), the
      card's name and power limit, and the result line.
@@ -352,6 +387,12 @@ K11_HD128 = (1, 16, 8, 4096, 128, 128)
 # deepseek-v2-lite's MLA prefill (src/repro/configs/deepseek_v2_lite_16b.py:
 # 16 heads, d = 128 + 64 rope, dv 128; src/repro/models/attention.py:248-261)
 K11_MLA = (1, 16, 16, 4096, 192, 128)
+# phase 16's prefills: qwen3-moe-235b-a22b's GQA (64 heads over 4 KV heads, g
+# = 16, hd 128) and deepseek-v2-lite-16b's MLA (16 heads, d = 128 + 64 rope,
+# dv 128), 4 x 2048-token prompts
+M_BATCH, M_PROMPT, M_GEN = 4, 2048, 16
+K11_Q = (M_BATCH, 64, 4, M_PROMPT, 128, 128)
+K11_DS = (M_BATCH, 16, 16, M_PROMPT, 192, 128)
 # head widths past the FFMA tile: MLA's, d past one fp32 chunk with dv over
 # the grid, rows TMA cannot load (40 bytes), d streamed through the bf16 ring
 K11_WIDE = ((1, 4, 4, 256, 192, 128), (1, 2, 1, 100, 320, 288), (1, 2, 1, 100, 20, 12),
@@ -364,7 +405,8 @@ K11_CHECK = tuple(
     for window in (0, 48)) + tuple(
     (*shape, dtype, True, window) for shape in ((2, 9, 3, 77, 64, 64), (1, 9, 3, 1000, 64, 64))
     for dtype in ("float32", "bfloat16") for window in (0, 48)) + (
-    (*K11_SERVE, "bfloat16", True, 0), (*K11_HD128, "bfloat16", True, 0))
+    (*K11_SERVE, "bfloat16", True, 0), (*K11_HD128, "bfloat16", True, 0),
+    (*K11_Q, "bfloat16", True, 0), (*K11_DS, "bfloat16", True, 0))
 K11_F32_ATOL, K11_BF16_ATOL = 2e-5, 3e-2  # tests/test_kernels.py:174-177
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 # LC: card against CPU at fp32; LH: the prefill -> decode handoff
@@ -408,6 +450,24 @@ T_BATCH, T_SEQ, T_CLIENTS, T_STEPS, T_LR, T_WARMUP = 8, 2048, 2, 30, 3e-4, 10
 TC_LAYERS, TC_BATCH, TC_SEQ, TC_RTOL = 2, 2, 128, 1e-4
 BL_MLP_ATOL = 0.02  # MLP-trained accuracies, card vs CPU
 BL_WIDE_N, BL_WIDE_M = 1000, 32
+# phase 16, the MoE family (src/repro/configs/qwen3_moe_235b_a22b.py and
+# deepseek_v2_lite_16b.py): Q at full width with 4 of its 94 layers (a layer
+# is 2.49 G parameters, 4.6 GiB in bf16: 94 do not fit one card), DS whole
+# (27 layers, 16.21 G parameters); bf16, LM.init(0), 4 x 2048-token prompts,
+# 16 tokens through serve.generate, twice.  QC / DC: one block at fp32, card
+# against CPU from one state over 2 x 128 tokens and 4 decode steps (QC's
+# experts cut to 16 of 128, top-8 kept: one qwen3 block with all 128 is 9.3
+# GiB of fp32 on the host); a token whose routing differs is exempt only
+# where the CPU's k-th and (k+1)-th probabilities are within MC_TIE.  QH / DH:
+# the same blocks' prefill of 128 tokens and 4 decode steps against their
+# forward over 132 on the card (tests/test_models.py:141-158), at a capacity
+# factor of E / k, where no pair can be dropped (a dropped pair in forward's
+# buffer is kept by decode's; tests/test_models.py:113-121 runs at 8.0).  DP:
+# the sharded FedRF-TCA round at world size 1 on NCCL (card) and gloo (CPU)
+# from one start at fedrf_paper's width, within the round engine's 1e-4
+Q_ARCH, Q_LAYERS, DS_ARCH = "qwen3-moe-235b-a22b", 4, "deepseek-v2-lite-16b"
+QC_EXPERTS, MC_BATCH, MC_PROMPT, MC_EXTRA, MC_RTOL, MC_TIE = 16, 2, 128, 4, 1e-3, 1e-6
+DP_ROUNDS, DP_BATCH, DP_RTOL = 5, 64, 1e-4
 
 
 def log(*a) -> None:
@@ -1231,6 +1291,311 @@ def train_phase(torch, dev, doms0, counters) -> tuple[dict, dict]:
         f"n_T={N_T}, N={BL_WIDE_N}, m={BL_WIDE_M}: {acc:.4f} in {wide_s:.2f} s (K1 {k1}, K2 "
         f"{k2} launches)")
     return runs, {"T": t_launch, "TC": tc_launch}
+
+
+def moe_phase(torch, dev, k11_check_model) -> tuple[dict, dict]:
+    """Phase 16, the MoE family: Q and DS through ``serve.generate`` (K11's
+    first launch of each under ``k11_check_model``, phase 12's rule), QC / DC
+    and QH / DH block by block, DP the sharded round; returns (runs, K11
+    launches by run)."""
+    import socket
+    from dataclasses import replace
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import fedrf_paper, get_config
+    from repro_torch.federated import distributed as fdist
+    from repro_torch.federated import init_params, make_omega
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, moe
+    from repro_torch.models import blocks as B
+    from repro_torch.models.param import materialize
+    from repro_torch.optim import adam
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    runs, k11_runs = {}, {}
+    cpu = torch.device("cpu")
+    seen = []
+    k11_launch = fa.flash_attention
+
+    def recording_flash_attention(q, k, v, *, causal=True, window=0):
+        out = k11_launch(q, k, v, causal=causal, window=window)
+        if q.is_cuda and not seen:
+            seen.append((tuple(t.clone() for t in (q, k, v, out)), causal, window))
+        return out
+
+    def rel_err(a, b):  # |a - b| over max(1, max|b|), b the CPU's
+        b = b.float()
+        return float((a.float().cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    # ---- Q and DS: serve.generate at full width, bf16 ------------------------
+    def serve_run(tag, cfg):
+        model = LM(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = model.init(SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size, (M_BATCH, M_PROMPT),
+                                generator=torch.Generator().manual_seed(SEED)).to(dev)
+        gens = {}
+        fa.flash_attention = recording_flash_attention
+        try:
+            for run in ("first", "warm"):
+                fa.LAUNCHES["flash_attention"] = 0
+                res = serve.generate(model, params, prompts, M_GEN)
+                torch.cuda.synchronize()
+                launches = fa.LAUNCHES["flash_attention"]
+                if launches != cfg.n_layers:
+                    raise AssertionError(f"run {tag} ({run}): K11 launched {launches} times, "
+                                         f"not once per layer ({cfg.n_layers})")
+                toks = res["tokens"]
+                if tuple(toks.shape) != (M_BATCH, M_GEN) or not bool(
+                        ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                    raise AssertionError(f"run {tag} ({run}): tokens {tuple(toks.shape)} "
+                                         f"outside the vocab")
+                if not all(bool(torch.isfinite(lg).all()) for lg in res["logits"]):
+                    raise AssertionError(f"run {tag} ({run}): non-finite logits")
+                decode_s = sum(res["step_ms"]) / 1e3
+                gens[run] = dict(
+                    prefill_s=res["prefill_s"],
+                    prefill_tokens_per_s=M_BATCH * M_PROMPT / res["prefill_s"],
+                    decode_step_ms_p50=float(np.percentile(res["step_ms"], 50)),
+                    decode_step_ms_p99=float(np.percentile(res["step_ms"], 99)),
+                    decode_tokens_per_s=M_BATCH * (M_GEN - 1) / decode_s,
+                    k11_launches=launches, sample=toks[0, :8].tolist())
+                k11_runs[f"{tag}_{run}"] = launches
+        finally:
+            fa.flash_attention = k11_launch
+        peak = torch.cuda.max_memory_allocated() - base
+        (q, k, v, out), causal, window = seen.pop()
+        gate = k11_check_model(q, k, v, out, causal, window,
+                               f"run {tag} first launch {tuple(q.shape)}")
+        del q, k, v, out
+        # the card's own time of a warm prefill and a decode step, queued
+        # behind a device-side sleep (the host's enqueue time apart)
+        pf = timed(torch, lambda: model.prefill(params, {"tokens": prompts}), 2)
+        _, cache = model.prefill(params, {"tokens": prompts})
+        cache = serve.grow_cache(cache, M_GEN)
+        tok = prompts[:, -1:]
+        dc = timed(torch, lambda: model.decode_step(params, cache, {"tokens": tok}, M_PROMPT), 5)
+        del params, cache, res, prompts
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        w = gens["warm"]
+        out = dict(arch=cfg.arch_id, dtype="bfloat16", n_layers=cfg.n_layers,
+                   n_experts=cfg.n_experts, top_k=cfg.top_k, batch=M_BATCH, prompt_len=M_PROMPT,
+                   gen=M_GEN, param_count=model.param_count(), param_bytes=param_bytes,
+                   init_s=init_s, peak_bytes=int(peak),
+                   capacity_prefill=moe.capacity(cfg, M_BATCH * M_PROMPT),
+                   capacity_decode=moe.capacity(cfg, M_BATCH),
+                   k11_first_launch_max_abs_err=gate["max_abs_err"], k11_first_launch_gate=gate,
+                   prefill_device_ms=pf["ms"], prefill_host_ms=pf["host_ms"],
+                   prefill_queued=pf["queued"], decode_step_device_ms=dc["ms"],
+                   decode_step_host_ms=dc["host_ms"], decode_step_queued=dc["queued"],
+                   **{f"{k}_{run}": v for run, r in gens.items() for k, v in r.items()})
+        log(f"[run {tag}] {cfg.arch_id} bf16, {cfg.n_layers} layers, {model.param_count()} "
+            f"parameters ({param_bytes / 2**30:.2f} GiB), init {init_s:.2f} s; {M_BATCH} x "
+            f"{M_PROMPT} prompt, {M_GEN} tokens: prefill {gens['first']['prefill_s']:.4f} s "
+            f"first, {w['prefill_s']:.4f} s warm ({w['prefill_tokens_per_s']:.1f} tokens/s); "
+            f"decode step p50 {w['decode_step_ms_p50']:.3f} ms p99 "
+            f"{w['decode_step_ms_p99']:.3f} ms ({w['decode_tokens_per_s']:.1f} tokens/s); K11 "
+            f"{cfg.n_layers} launches a prefill, the first within the gate "
+            f"({gate['max_abs_err']:.3g} from plain; gate units "
+            f"{ {k: round(x, 3) for k, x in gate.items() if k.endswith('units')} }); capacity "
+            f"{out['capacity_prefill']} / {out['capacity_decode']}; on the card a prefill takes "
+            f"{pf['ms']:.3f} ms (host {pf['host_ms']:.3f}, queued {pf['queued']}) and a decode "
+            f"step {dc['ms']:.3f} ms (host {dc['host_ms']:.3f}, queued {dc['queued']}); peak "
+            f"{peak / 2**30:.2f} GiB above the start")
+        return out
+
+    runs["Q"] = serve_run("Q", replace(get_config(Q_ARCH), n_layers=Q_LAYERS))
+    runs["DS"] = serve_run("DS", get_config(DS_ARCH))
+
+    # ---- QC / DC, QH / DH: one block at fp32 from one state -------------------
+    routes = []
+    route, dispatch = moe.route, moe.dispatch
+
+    def recording_route(params, xt, cfg):
+        out = route(params, xt, cfg)
+        routes.append({"probs": out[0], "top_e": out[2]})
+        return out
+
+    def recording_dispatch(top_e, e, c):
+        slot, keep = dispatch(top_e, e, c)
+        routes[-1]["keep"] = keep
+        return slot, keep
+
+    def routed(fn, *args, **kw):
+        """``fn(*args, **kw)`` and the routing of its one MoE call."""
+        routes.clear()
+        moe.route, moe.dispatch = recording_route, recording_dispatch
+        try:
+            out = fn(*args, **kw)
+        finally:
+            moe.route, moe.dispatch = route, dispatch
+        (r,) = routes
+        return out, {k: t.cpu() for k, t in r.items()}
+
+    def routing_gate(tag, cfg, r_cpu, r_card):
+        """Tokens whose routing (the top k experts in order, and which of
+        their pairs the capacity keeps) differs between the devices; each
+        must be a near-tie on the CPU (k-th and (k+1)-th probabilities within
+        MC_TIE)."""
+        t, k = r_cpu["top_e"].shape
+        differs = ((r_cpu["top_e"] != r_card["top_e"]).any(1)
+                   | (r_cpu["keep"].view(t, k) != r_card["keep"].view(t, k)).any(1))
+        srt = torch.sort(r_cpu["probs"], dim=-1, descending=True).values
+        tie = (srt[:, k - 1] - srt[:, k] <= MC_TIE) if k < cfg.n_experts else torch.zeros_like(
+            differs)
+        if bool((differs & ~tie).any()):
+            raise AssertionError(f"run {tag}: {int((differs & ~tie).sum())} tokens route "
+                                 f"differently on the card without a near-tie on the CPU")
+        return differs
+
+    def block_runs(tag, cfg):
+        """``tag``C (card vs CPU) and ``tag``H (the handoff on the card)."""
+        t0 = time.perf_counter()
+        p_cpu = materialize(B.decoder_block_decl(cfg), SEED, device=cpu)
+        p_card = tree_map(lambda t: t.to(dev), p_cpu)
+        draw_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(p_cpu))
+        s_all = MC_PROMPT + MC_EXTRA
+        x = torch.randn((MC_BATCH, s_all, cfg.d_model),
+                        generator=torch.Generator().manual_seed(SEED))
+        pos = torch.arange(s_all)
+        worst = {"prefill": 0.0, "prefill_cache": 0.0, "aux": 0.0, "decode": 0.0,
+                 "decode_cache": 0.0}
+        skipped = 0
+        t0 = time.perf_counter()
+        (y, aux, cache), r_cpu = routed(B.decoder_block_forward, p_cpu, x[:, :MC_PROMPT],
+                                        pos[:MC_PROMPT], cfg, collect_cache=True)
+        cpu_s = time.perf_counter() - t0
+        fa.LAUNCHES["flash_attention"] = 0
+        (y_g, aux_g, cache_g), r_card = routed(
+            B.decoder_block_forward, p_card, x[:, :MC_PROMPT].to(dev), pos[:MC_PROMPT].to(dev),
+            cfg, collect_cache=True)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        if launches != 1:
+            raise AssertionError(f"run {tag}C: K11 launched {launches} times for one block")
+        differs = routing_gate(f"{tag}C prefill", cfg, r_cpu, r_card)
+        skipped += int(differs.sum())
+        rows = ~differs
+        worst["prefill"] = rel_err(y_g.reshape(-1, cfg.d_model)[rows.to(dev)],
+                                   y.reshape(-1, cfg.d_model)[rows])
+        worst["prefill_cache"] = max(rel_err(cache_g[k], cache[k]) for k in cache)
+        if not skipped:
+            worst["aux"] = rel_err(aux_g, aux)
+        cache = {k: torch.nn.functional.pad(c, (0, 0) * (c.ndim - 2) + (0, MC_EXTRA))
+                 for k, c in cache.items()}
+        for t in range(MC_PROMPT, s_all):
+            on_card = {k: c.to(dev) for k, c in cache.items()}
+            (o_g, on_card), r_card = routed(B.decoder_block_decode, p_card,
+                                            x[:, t:t + 1].to(dev), on_card, t, cfg)
+            (o, cache), r_cpu = routed(B.decoder_block_decode, p_cpu, x[:, t:t + 1], cache, t,
+                                       cfg)
+            differs = routing_gate(f"{tag}C decode", cfg, r_cpu, r_card)
+            skipped += int(differs.sum())
+            rows = ~differs
+            worst["decode"] = max(worst["decode"], rel_err(
+                o_g.reshape(-1, cfg.d_model)[rows.to(dev)], o.reshape(-1, cfg.d_model)[rows]))
+            worst["decode_cache"] = max(worst["decode_cache"], *(
+                rel_err(on_card[k][:, t], cache[k][:, t]) for k in cache))
+        if not max(worst.values()) <= MC_RTOL:
+            raise AssertionError(f"run {tag}C: card and CPU differ: {worst} > {MC_RTOL}")
+        runs[f"{tag}C"] = dict(worst, skipped_near_ties=skipped, param_count=n_params,
+                               n_experts=cfg.n_experts, top_k=cfg.top_k, batch=MC_BATCH,
+                               prompt_len=MC_PROMPT, decode_steps=MC_EXTRA, draw_s=draw_s,
+                               cpu_prefill_s=cpu_s, k11_launches=launches)
+        log(f"[run {tag}C] one {cfg.arch_id} block at fp32 ({n_params} parameters, "
+            f"{cfg.n_experts} experts top-{cfg.top_k}), card vs CPU over {MC_BATCH} x "
+            f"{MC_PROMPT} tokens and {MC_EXTRA} decode steps, of max(1, max|x|): {worst}; "
+            f"{skipped} near-tie tokens exempt; host draw {draw_s:.1f} s")
+        # the handoff at a capacity where no pair is dropped (see QH above)
+        hc = replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+        xg, full_pos = x.to(dev), pos.to(dev)
+        y_full, _ = B.decoder_block_forward(p_card, xg, full_pos, hc)
+        y_p, _, kv = B.decoder_block_forward(p_card, xg[:, :MC_PROMPT], full_pos[:MC_PROMPT],
+                                             hc, collect_cache=True)
+        scale = max(1.0, float(y_full.abs().max()))
+        lh = {"prefill": float((y_p - y_full[:, :MC_PROMPT]).abs().max()) / scale,
+              "decode": 0.0}
+        kv = {k: torch.nn.functional.pad(c, (0, 0) * (c.ndim - 2) + (0, MC_EXTRA))
+              for k, c in kv.items()}
+        for t in range(MC_PROMPT, s_all):
+            y_t, kv = B.decoder_block_decode(p_card, xg[:, t:t + 1], kv, t, hc)
+            lh["decode"] = max(lh["decode"],
+                               float((y_t - y_full[:, t:t + 1]).abs().max()) / scale)
+        torch.cuda.synchronize()
+        if not (lh["prefill"] <= LH_PREFILL_RTOL and lh["decode"] <= LH_DECODE_RTOL):
+            raise AssertionError(f"run {tag}H: prefill {lh['prefill']} (limit "
+                                 f"{LH_PREFILL_RTOL}), decode {lh['decode']} (limit "
+                                 f"{LH_DECODE_RTOL})")
+        runs[f"{tag}H"] = dict(lh, capacity_factor=hc.capacity_factor)
+        log(f"[run {tag}H] the block's prefill of {MC_PROMPT} + {MC_EXTRA} decode steps against "
+            f"its forward over {s_all} on the card (capacity factor "
+            f"{hc.capacity_factor:.4g}): prefill {lh['prefill']:.3g}, decode "
+            f"{lh['decode']:.3g} of max(1, max|x|)")
+        del p_cpu, p_card
+
+    block_runs("Q", replace(get_config(Q_ARCH), n_layers=1, n_experts=QC_EXPERTS,
+                            dtype=torch.float32))
+    block_runs("D", replace(get_config(DS_ARCH), n_layers=1, dtype=torch.float32))
+
+    # ---- DP: the sharded round at world size 1, NCCL on the card, gloo on the CPU
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("cpu:gloo,cuda:nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        group = fdist.make_client_mesh(1)
+        fed = fedrf_paper.CLIENT
+        opt = adam(fedrf_paper.PROTOCOL.lr)
+        omega = make_omega(fed, device=cpu)
+        start = init_params(fed, SEED, device=cpu)
+        rng = np.random.default_rng(SEED)
+        batches = [tuple(torch.tensor(a) for a in (
+            rng.normal(size=(fed.input_dim, DP_BATCH)).astype(np.float32),
+            rng.integers(0, fed.n_classes, size=DP_BATCH),
+            rng.normal(size=(fed.input_dim, DP_BATCH)).astype(np.float32)))
+            for _ in range(DP_ROUNDS)]
+        states, round_ms = [], []
+        for on_card in (False, True):
+            d = dev if on_card else cpu
+            rnd = fdist.build_sharded_round(group, fed, omega.to(d), opt)
+            params = tree_map(lambda t: t.to(d), start)
+            state = opt.init(params)
+            for xb, yb, xt in batches:
+                t0 = time.perf_counter()
+                params, state, metrics = rnd(params, state, xb.to(d), yb.to(d), xt.to(d))
+                if on_card:
+                    torch.cuda.synchronize()
+                    round_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append((params, metrics))
+    finally:
+        dist.destroy_process_group()
+    (p_cpu, m_cpu), (p_card, m_card) = states
+    dp_err = max(rel_err(a, b) for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)))
+    if not dp_err <= DP_RTOL or not all(bool(torch.isfinite(t).all())
+                                        for t in tree_leaves(p_card)):
+        raise AssertionError(f"run DP: card vs CPU {dp_err} > {DP_RTOL}")
+    runs["DP"] = dict(card_vs_cpu=dp_err, rounds=DP_ROUNDS, batch=DP_BATCH,
+                      n_rff=fed.n_rff, m=fed.m, round_ms_p50=float(np.median(round_ms)),
+                      l_c=float(m_card["l_c"]), l_mmd=float(m_card["l_mmd"]),
+                      l_mmd_cpu=float(m_cpu["l_mmd"]))
+    log(f"[run DP] the sharded round at world size 1 (its all-reduces identities: the round's "
+        f"arithmetic, not the exchange between ranks), {DP_ROUNDS} rounds at fedrf_paper's width "
+        f"(N = {fed.n_rff}, m = {fed.m}), NCCL on the card vs gloo on the CPU: {dp_err:.3g} of "
+        f"max(1, max|leaf|); round p50 {runs['DP']['round_ms_p50']:.3f} ms on the card")
+    return runs, k11_runs
 
 
 def main() -> int:
@@ -2555,7 +2920,7 @@ def main() -> int:
         return sum(min(i + 1, window) if window else i + 1 for i in range(s))
 
     k11 = {}
-    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128, K11_MLA):
+    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128, K11_MLA, K11_Q, K11_DS):
         nbytes = (b * h * s * (d + dv) + b * kv * s * (d + dv)) * 2
         copies = [k11_inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
                   for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
@@ -2589,6 +2954,8 @@ def main() -> int:
                 "enable_gqa=True)",
         **k11[K11_SERVE], hd128=dict(shape=f"{K11_HD128} bf16 causal", **k11[K11_HD128]),
         mla=dict(shape=f"{K11_MLA} bf16 causal", **k11[K11_MLA]),
+        qwen3_moe=dict(shape=f"{K11_Q} bf16 causal", **k11[K11_Q]),
+        deepseek_v2_lite=dict(shape=f"{K11_DS} bf16 causal", **k11[K11_DS]),
         ptxas=k11_ptxas, hgmma=hgmma,
     )
     torch.cuda.synchronize()
@@ -3137,6 +3504,15 @@ def main() -> int:
         {t: n["flash_attention"] for t, n in train_launches.items()})
     torch.cuda.synchronize()
     log(f"[time] phase 15 (K11b, T, TC, BL) {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 16. the MoE family: Q, DS, QC, DC, QH, DH, DP --------------------------
+    t_phase = time.perf_counter()
+    moe_runs, moe_launches = moe_phase(torch, dev, k11_check_model)
+    runs.update(moe_runs)
+    report["K11"]["launches_by_run"].update(moe_launches)
+    torch.cuda.synchronize()
+    runs["DP"]["phase_16_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 16 (Q, DS, QC, DC, QH, DH, DP) {runs['DP']['phase_16_s']:.1f} s")
 
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}

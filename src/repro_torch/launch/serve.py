@@ -5,9 +5,12 @@ says otherwise:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --prompt-len 2048 --gen 32 --batch 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b \\
+        --prompt-len 2048 --gen 16 --batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
 
-Prefill attention goes through the K11 kernel on the card.  Weights are drawn
+Any dense or MoE architecture serves, with GQA or MLA attention; prefill
+attention goes through the K11 kernel on the card.  Weights are drawn
 from seed 0 by ``LM.init`` and the prompts from a seeded CPU generator.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""The LM backbone (dense GQA decoder family), ported from ``repro.models``."""
+"""The LM backbone (dense and MoE decoder families, GQA or MLA), ported from ``repro.models``."""
 from repro_torch.models.model import LM
 
 __all__ = ["LM"]

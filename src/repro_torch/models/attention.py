@@ -15,8 +15,12 @@ sum is p), so in bf16 the port differs from the reference's model by that
 rounding.  Decode is a single-token product against the KV cache, as in the
 reference.
 
-MLA (DeepSeek) and cross-attention (VLM) wait for later steps (ROADMAP
-queue 1, steps 13d and 13g); K11 already takes MLA's d = 192, dv = 128.
+MLA (DeepSeek-V2) keeps a compressed cache: the latent ``c`` (r wide) and
+one roped key column ``kr`` a token, shared by the heads.  Its prefill
+expands them into per-head keys [k_nope; k_rope] and values and runs K11 at
+d = hd + rope_head_dim, dv = hd; its decode absorbs W_uk into the query and
+scores against the latent cache directly.  Cross-attention (VLM) waits for
+a later step (ROADMAP queue 1, step 13g).
 """
 from __future__ import annotations
 
@@ -43,7 +47,17 @@ def gqa_decl(cfg: ModelConfig) -> dict:
 
 
 def mla_decl(cfg: ModelConfig) -> dict:
-    raise NotImplementedError("MLA attention: ROADMAP queue 1, step 13d")
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    r, rd = cfg.kv_lora_rank, cfg.rope_head_dim
+    return {
+        "wq_nope": ParamDecl((d, h, hd), "normal", cfg.dtype),
+        "wq_rope": ParamDecl((d, h, rd), "normal", cfg.dtype),
+        "w_dkv": ParamDecl((d, r), "normal", cfg.dtype),
+        "w_krope": ParamDecl((d, rd), "normal", cfg.dtype),
+        "w_uk": ParamDecl((r, h, hd), "normal", cfg.dtype),
+        "w_uv": ParamDecl((r, h, hd), "normal", cfg.dtype),
+        "wo": ParamDecl((h, hd, d), "normal", cfg.dtype),
+    }
 
 
 def cross_attn_decl(cfg: ModelConfig) -> dict:
@@ -119,3 +133,58 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg: ModelConfig, *,
     p = torch.softmax(sc, dim=-1).to(cache_v.dtype)
     o = torch.einsum("bqkgs,bskd->bqkgd", p, cache_v).reshape(b, 1, q.shape[2], q.shape[-1])
     return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed kv cache + decoupled rope, absorbed decode
+# ---------------------------------------------------------------------------
+
+
+def mla_forward(params, x, positions, cfg: ModelConfig, *, return_cache: bool = False):
+    """Training/prefill path. x: (b, s, d).  K11 runs at d = hd + rope_head_dim
+    and dv = hd, its scale 1/sqrt(d) as the reference's scan's.  With
+    return_cache, also returns the cache columns (c (b, s, r), kr (b, s, rd))."""
+    q_nope = torch.einsum("bsd,dhk->bshk", x, params["wq_nope"])
+    q_rope = torch.einsum("bsd,dhk->bshk", x, params["wq_rope"])
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = x @ params["w_dkv"]  # (b, s, r)
+    k_rope = apply_rope((x @ params["w_krope"])[:, :, None, :], positions,
+                        cfg.rope_theta)  # (b, s, 1, rd)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(*k_nope.shape[:3], k_rope.shape[-1])], dim=-1)
+    o = flash_attention(q, k, v, causal=True, unroll=cfg.unroll_scan,
+                        skip_masked=cfg.causal_skip)
+    out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    if return_cache:
+        return out, (c_kv, k_rope[:, :, 0, :])
+    return out
+
+
+def mla_decode(params, x, cache_c, cache_kr, pos: int, cfg: ModelConfig):
+    """Absorbed decode: scores live in the r-dim latent space, so a token's
+    cache is r + rope_head_dim numbers.  x: (b, 1, d); cache_c: (b, S, r);
+    cache_kr: (b, S, rd); the new token's columns are written at ``pos`` in
+    place (the reference returns new caches).  Returns (out (b, 1, d),
+    cache_c, cache_kr)."""
+    q_nope = torch.einsum("bsd,dhk->bshk", x, params["wq_nope"])
+    q_rope = torch.einsum("bsd,dhk->bshk", x, params["wq_rope"])
+    at = torch.full((1,), pos, device=x.device)
+    q_rope = apply_rope(q_rope, at, cfg.rope_theta)
+    c_new = x @ params["w_dkv"]  # (b, 1, r)
+    kr_new = apply_rope((x @ params["w_krope"])[:, :, None, :], at, cfg.rope_theta)[:, :, 0, :]
+    cache_c[:, pos] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[:, pos] = kr_new[:, 0].to(cache_kr.dtype)
+    # absorb W_uk into q: (b, 1, h, hd) x (r, h, hd) -> (b, 1, h, r)
+    q_eff = torch.einsum("bqhk,rhk->bqhr", q_nope, params["w_uk"])
+    f32 = torch.float32
+    sc = torch.einsum("bqhr,bsr->bqhs", q_eff.to(f32), cache_c.to(f32))
+    sc = sc + torch.einsum("bqhk,bsk->bqhs", q_rope.to(f32), cache_kr.to(f32))
+    sc = sc / math.sqrt(cfg.hd + cfg.rope_head_dim)
+    valid = torch.arange(cache_c.shape[1], device=x.device) <= pos
+    sc = torch.where(valid[None, None, None, :], sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1).to(cache_c.dtype)
+    ctx = torch.einsum("bqhs,bsr->bqhr", p, cache_c)  # (b, 1, h, r)
+    o = torch.einsum("bqhr,rhk->bqhk", ctx, params["w_uv"])
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache_c, cache_kr

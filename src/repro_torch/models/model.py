@@ -1,14 +1,14 @@
-"""Language-model assembly: the dense decoder family's training and serve paths.
+"""Language-model assembly: the decoder families' training and serve paths.
 
-Port of ``repro.models.model`` for ``family == "dense"`` (GQA, no experts,
-no MLA).  One :class:`LM` wraps a ModelConfig and provides
+Port of ``repro.models.model`` for ``family`` ``"dense"`` and ``"moe"``, each
+with GQA or MLA attention.  One :class:`LM` wraps a ModelConfig and provides
 
   decls / init / param_count          — parameter machinery (see param.py)
   forward(params, batch)              — hidden states (training / prefill)
   loss(params, batch, n_clients)      — CE + aux + the FDA MMD head
   prefill(params, batch)              — last-token logits + the KV cache
   decode_step(params, cache, batch)   — one-token serve step with the cache
-  cache_shapes / init_cache           — cache trees
+  cache_shapes / init_cache           — cache trees (K/V, or MLA's c/kr)
 
 The reference's stacked layer axis is kept (``blocks.*`` leaves are
 ``(n_layers, ...)``, so weights convert leaf for leaf); a Python loop over
@@ -39,7 +39,6 @@ from repro_torch.models.layers import (
 from repro_torch.models.param import materialize, param_count, stack_decls
 
 _LATER_FAMILIES = {
-    "moe": "step 13c",
     "ssm": "step 13e",
     "hybrid": "step 13f",
     "vlm": "step 13g",
@@ -57,12 +56,8 @@ class LM:
         if cfg.family in _LATER_FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r}: ROADMAP queue 1, {_LATER_FAMILIES[cfg.family]}")
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise ValueError(f"unknown family {cfg.family}")
-        if cfg.n_experts:
-            raise NotImplementedError("MoE blocks: ROADMAP queue 1, step 13c")
-        if cfg.kv_lora_rank:
-            raise NotImplementedError("MLA attention: ROADMAP queue 1, step 13d")
         if cfg.embeddings_in:
             raise NotImplementedError("embeddings in (audio): ROADMAP queue 1, step 13h")
         self.cfg = cfg
@@ -115,18 +110,19 @@ class LM:
     def prefill(self, params, batch):
         """Returns (last-token logits (b, vocab_padded), cache) with the cache
         leaves stacked over the layers: ``{"layers": {"k", "v"}}``, each
-        (n_layers, b, s, kv, hd)."""
+        (n_layers, b, s, kv, hd), or MLA's ``{"layers": {"c", "kr"}}``,
+        (n_layers, b, s, r) and (n_layers, b, s, rope_head_dim)."""
         cfg = self.cfg
         x = self._embed_in(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        ks, vs = [], []
+        layers: dict[str, list] = {}
         for i in range(cfg.n_layers):
             x, _, cache = B.decoder_block_forward(layer_slice(params["blocks"], i), x, positions,
                                                   cfg, collect_cache=True)
-            ks.append(cache["k"])
-            vs.append(cache["v"])
-        return self._last_logits(params, x), {"layers": {"k": torch.stack(ks),
-                                                         "v": torch.stack(vs)}}
+            for key, leaf in cache.items():
+                layers.setdefault(key, []).append(leaf)
+        return self._last_logits(params, x), {
+            "layers": {key: torch.stack(leaves) for key, leaves in layers.items()}}
 
     def _last_logits(self, params, x):
         x = self._finish(params, x[:, -1:, :])

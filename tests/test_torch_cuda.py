@@ -29,7 +29,11 @@ fp32 inputs, rounded once; also with v x 60 and on rows TMA takes only
 padded), two launches bit for bit, the forward's lse within 2e-5; a train step,
 card against CPU, within 1e-4 x max(1, max|leaf|) plus twice the step's
 learning rate; the baselines' accuracies on the card equal to the CPU's
-(TCA, CORAL, JDA) or within 0.02 (source-only).
+(TCA, CORAL, JDA) or within 0.02 (source-only); ``moe_forward`` and an MLA
+block at their architectures' widths and fp32 within 1e-3 x max(1, max|x|)
+of the CPU on the tokens routed alike (a token may route differently only at
+a near-tie on the CPU: k-th and (k+1)-th probabilities within 1e-6); an
+``LM.init`` on the card equal to the CPU's bit for bit.
 """
 import numpy as np
 import pytest
@@ -889,6 +893,138 @@ def test_lm_prefill_and_decode_on_card_match_cpu(card):
             logits, cache = model.decode_step(params, cache, {"tokens": tok}, 70 + i - 1)
         b = logits.float()
         assert (a.cpu().float() - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv", [(4, 64, 4, 2048, 128, 128),
+                                             (4, 16, 16, 2048, 192, 128)])
+def test_flash_attention_moe_prefill_shapes_within_gate(card, b, h, kv, s, d, dv):
+    """bf16 causal at qwen3-moe-235b-a22b's prefill (GQA, g = 16) and
+    deepseek-v2-lite-16b's (MLA: d = 128 + 64 rope, dv 128), 4 x 2048 tokens."""
+    g = torch.Generator(device=card).manual_seed(b * h * s + d)
+    q = torch.randn((b, h, s, d), generator=g, device=card).bfloat16()
+    k = torch.randn((b, kv, s, d), generator=g, device=card).bfloat16()
+    v = torch.randn((b, kv, s, dv), generator=g, device=card).bfloat16()
+    before = fa.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    plain = fa.flash_attention_plain(q, k, v)
+    err = (out.float() - plain.float()).abs()
+    assert bool((err <= _bf16_ulp(plain) + 2e-5).all())
+    assert err.max().item() <= 3e-2 * max(1.0, plain.float().abs().max().item())
+
+
+def _moe_cfg(arch, **kw):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    return replace(get_config(arch), dtype=torch.float32, n_layers=1, **kw)
+
+
+def _route_gate(cfg, cpu, card):
+    """Tokens whose routing differs between the devices (the top k in order
+    and the pairs kept), each a near-tie on the CPU (k-th and (k+1)-th
+    probabilities within 1e-6); returns the mask of those tokens."""
+    t, k = cpu["top_e"].shape
+    differs = ((cpu["top_e"] != card["top_e"].cpu()).any(1)
+               | (cpu["keep"].view(t, k) != card["keep"].cpu().view(t, k)).any(1))
+    srt = torch.sort(cpu["probs"], dim=-1, descending=True).values
+    tie = srt[:, k - 1] - srt[:, k] <= 1e-6
+    assert not bool((differs & ~tie).any())
+    return differs
+
+
+def _routing(params, x, cfg):
+    from repro_torch.models import moe
+
+    xt = x.reshape(-1, x.shape[-1])
+    probs, _, top_e = moe.route(params, xt, cfg)
+    _, keep = moe.dispatch(top_e, cfg.n_experts, moe.capacity(cfg, xt.shape[0]))
+    return {"probs": probs.cpu(), "top_e": top_e, "keep": keep}
+
+
+@pytest.mark.parametrize("arch,experts", [("qwen3-moe-235b-a22b", 16),
+                                          ("deepseek-v2-lite-16b", 64)])
+def test_moe_forward_on_card_matches_cpu(card, arch, experts):
+    """``moe_forward`` at the architecture's width (qwen3's experts cut to
+    16, its top-8 kept), fp32, 2 x 96 tokens: the routing first, then y
+    within 1e-3 x max(1, max|y|) on the tokens routed alike, aux too where
+    every token is."""
+    from repro_torch.models import moe
+    from repro_torch.models.param import materialize
+
+    cfg = _moe_cfg(arch, n_experts=experts)
+    params = materialize(moe.moe_decl(cfg), 1, device="cpu")
+    on_card = tree_map(lambda t: t.to(card), params)
+    x = torch.randn((2, 96, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    y, aux = moe.moe_forward(params, x, cfg)
+    y_g, aux_g = moe.moe_forward(on_card, x.to(card), cfg)
+    differs = _route_gate(cfg, _routing(params, x, cfg), _routing(on_card, x.to(card), cfg))
+    rows = ~differs
+    y, y_g = y.reshape(-1, cfg.d_model)[rows], y_g.cpu().reshape(-1, cfg.d_model)[rows]
+    assert (y_g - y).abs().max().item() <= 1e-3 * max(1.0, y.abs().max().item())
+    if not bool(differs.any()):
+        assert abs(aux_g.item() - aux.item()) <= 1e-3 * max(1.0, abs(aux.item()))
+
+
+def test_mla_block_on_card_matches_cpu(card):
+    """One deepseek-v2-lite-16b block at its width and fp32: the prefill
+    (K11 at d = 192, dv = 128) with its c / kr cache and two absorbed decode
+    steps from the CPU's cache, within 1e-3 x max(1, max|x|) on the tokens
+    routed alike."""
+    from repro_torch.models import blocks
+    from repro_torch.models.param import materialize
+
+    cfg = _moe_cfg("deepseek-v2-lite-16b")
+    params = materialize(blocks.decoder_block_decl(cfg), 3, device="cpu")
+    on_card = tree_map(lambda t: t.to(card), params)
+    x = torch.randn((2, 66, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    pos = torch.arange(66)
+    before = fa.LAUNCHES["flash_attention"]
+    y, _, cache = blocks.decoder_block_forward(params, x[:, :64], pos[:64], cfg,
+                                               collect_cache=True)
+    y_g, _, cache_g = blocks.decoder_block_forward(on_card, x[:, :64].to(card),
+                                                   pos[:64].to(card), cfg, collect_cache=True)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    assert set(cache) == {"c", "kr"}
+
+    def rel(a, b):
+        return (a.cpu() - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    for key in cache:
+        assert rel(cache_g[key], cache[key]) <= 1e-3
+    # the MoE's input on the CPU's side, routed on both devices
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rmsnorm
+
+    h = rmsnorm(params["ln_attn"], x[:, :64], cfg.norm_eps)
+    h = rmsnorm(params["ln_mlp"], x[:, :64] + attention.mla_forward(params["attn"], h, pos[:64],
+                                                                     cfg), cfg.norm_eps)
+    rows = ~_route_gate(cfg, _routing(params["moe"], h, cfg),
+                        _routing(on_card["moe"], h.to(card), cfg))
+    assert rel(y_g.reshape(-1, cfg.d_model)[rows.to(card)],
+               y.reshape(-1, cfg.d_model)[rows]) <= 1e-3
+    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 2)) for k, c in cache.items()}
+    for t in (64, 65):
+        mine = {k: c.to(card) for k, c in cache.items()}
+        o_g, mine = blocks.decoder_block_decode(on_card, x[:, t:t + 1].to(card), mine, t, cfg)
+        o, cache = blocks.decoder_block_decode(params, x[:, t:t + 1], cache, t, cfg)
+        assert rel(o_g, o) <= 1e-3
+        for key in cache:
+            assert rel(mine[key][:, t], cache[key][:, t]) <= 1e-3
+
+
+def test_moe_lm_init_on_card_equals_cpu(card):
+    """``LM.init`` draws every leaf on the host in chunks, scales it on the
+    device and casts it there: the card's weights equal the CPU's bit for
+    bit (bf16 and the fp32 router)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+
+    model = LM(get_config("deepseek-v2-lite-16b").reduced(dtype=torch.bfloat16))
+    on_card, on_cpu = model.init(0, device=card), model.init(0, device="cpu")
+    for a, b in zip(tree_leaves(on_card), tree_leaves(on_cpu)):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
 
 
 def _k11b_gate(got, plain, dtype):

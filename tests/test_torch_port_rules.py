@@ -302,12 +302,12 @@ def test_lm_without_device_raises_without_card():
 
 
 @pytest.mark.parametrize("arch,step", [
-    ("mamba2-2.7b", "step 13e"), ("deepseek-v2-lite-16b", "step 13c"),
-    ("zamba2-7b", "step 13f"), ("qwen3-moe-235b-a22b", "step 13c"),
+    ("mamba2-2.7b", "step 13e"), ("zamba2-7b", "step 13f"),
     ("llama-3.2-vision-90b", "step 13g"), ("musicgen-large", "step 13h"),
 ])
 def test_lm_families_outside_the_slice_raise(arch, step):
-    """Only the dense GQA family is ported; the others name their step."""
+    """The dense and MoE families (GQA or MLA) are ported; the others name
+    their step."""
     from repro_torch.configs import get_config
     from repro_torch.models import LM
 
@@ -318,11 +318,11 @@ def test_lm_families_outside_the_slice_raise(arch, step):
 
 def test_lm_loss_and_other_blocks_raise():
     """LM.loss runs since step 13b (its parity is tests/test_torch_train.py's);
-    the MoE/MLA/SSM/cross blocks still wait for their steps."""
-    from dataclasses import replace
-
+    MoE and MLA blocks run since steps 13c and 13d (tests/test_torch_moe.py),
+    the expert-parallel MoE waits for the mesh (13i), the SSM and cross blocks
+    for their steps."""
     from repro_torch.configs import get_config
-    from repro_torch.models import LM, attention, blocks
+    from repro_torch.models import LM, attention, blocks, moe
 
     cfg = get_config("smollm-135m").reduced()
     model = LM(cfg)
@@ -330,12 +330,30 @@ def test_lm_loss_and_other_blocks_raise():
     toks = torch.zeros((2, 4), dtype=torch.long)
     total, parts = model.loss(params, {"tokens": toks, "labels": toks}, 2)
     assert set(parts) == {"ce", "aux", "mmd"} and bool(torch.isfinite(total))
-    for call, step in ((lambda: blocks.decoder_block_decl(replace(cfg, n_experts=4)), "13c"),
-                       (lambda: LM(replace(cfg, kv_lora_rank=32)), "13d"),
+    for call, step in ((lambda: moe.moe_forward_ep({}, toks, cfg), "13i"),
                        (lambda: blocks.ssm_block_decl(cfg), "13e"),
                        (lambda: attention.cross_attn_decl(cfg), "13g"),
                        (lambda: blocks.cross_block_decl(cfg), "13g")):
         with pytest.raises(NotImplementedError, match=f"step {step}"):
             call()
-    for arch in ("smollm-135m", "smollm-360m", "internlm2-1.8b", "command-r-plus-104b"):
+    for arch in ("smollm-135m", "smollm-360m", "internlm2-1.8b", "command-r-plus-104b",
+                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
         assert LM(get_config(arch)).param_count() > 0
+
+
+SLICE14_MODULES = ("models/moe.py", "federated/distributed.py")
+
+
+def test_moe_slice_modules_are_in_the_import_guard():
+    """The MoE slice's modules exist and fall under the jax/repro guard; no
+    ``NotImplementedError`` is left in the models for MoE or MLA (only the
+    expert-parallel MoE raises, naming the mesh's step 13i)."""
+    files = set(_port_files())
+    for rel in SLICE14_MODULES:
+        path = ROOT / "src" / "repro_torch" / rel
+        assert path in files, rel
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}, rel
+    for f in sorted((ROOT / "src" / "repro_torch" / "models").glob("*.py")):
+        for line in f.read_text().splitlines():
+            if "NotImplementedError" in line or "ROADMAP queue 1, step" in line:
+                assert not any(w in line for w in ("MoE blocks", "MLA", "13c", "13d")), line
