@@ -136,14 +136,16 @@ Phases (any failed check raises, and the run exits non-zero):
      (rows TMA cannot load) and d 640 (q and K streamed in d-chunks) in both
      dtypes; v at the model's scale (x 60) in bf16; the serve run's (8, 9,
      3, 2048, 64), internlm2-1.8b's (1, 16, 8, 4096, 128) and phase 16's
-     prefills (4, 64, 4, 2048, 128, 128) and (4, 16, 16, 2048, 192, 128) in
-     bf16) within
+     prefills (4, 64, 4, 2048, 128, 128) and (4, 16, 16, 2048, 192, 128) and
+     phase 17's (4, 32, 32, 2048, 112, 112), (4, 64, 8, 2048, 128, 128) and
+     (4, 32, 32, 1500, 64, 64) in bf16) within
      2e-5 of its plain version at fp32 and one bf16 ULP of it at bf16 (plus
      2e-5: near-zero outputs are sums with cancellation; at most 3e-2 of
      max(1, max|plain|)), non-finite positions equal; timed like K10 at the
      serve shape, at hd 128, at deepseek-v2-lite's MLA prefill (1, 16,
-     16, 4096, 192, 128) and at phase 16's two prefills, beside its plain
-     version and scaled_dot_product_attention, with ``fa.bf16_plan``;
+     16, 4096, 192, 128) and at phase 16's two and phase 17's three prefills,
+     beside its plain version and scaled_dot_product_attention, with
+     ``fa.bf16_plan``;
  12. the LM serve path through ``repro_torch.launch.serve.generate``, K11's
      launch count zeroed just before and read just after each run:
        L    smollm-135m (src/repro/configs/smollm_135m.py: 30 layers, d_model
@@ -293,7 +295,42 @@ Phases (any failed check raises, and the run exits non-zero):
             max|leaf|).  At one rank the all-reduces are identities, so DP
             checks the round's arithmetic on the card, not the exchange
             between ranks;
- 17. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 17. the last four families (src/repro/configs/mamba2_2p7b.py, zamba2_7b.py,
+     llama_3p2_vision_90b.py, musicgen_large.py) through ``serve.generate``,
+     bf16, ``LM.init(0)``, 4 prompts, 16 tokens, twice (first, warm), each
+     model's weights freed before the next, K11's launch count zeroed just
+     before and read just after each run; the host draw's seconds, prefill
+     s and tokens/s, the card's own prefill and decode step times, decode
+     p50 / p99, aten ops a step, peak memory:
+       M    mamba2-2.7b whole (64 Mamba2 layers, d_model 2560, 80 SSD heads of
+            64, state 128, chunk 128), 4 x 2048-token prompts: no K11;
+       Z    zamba2-7b whole (81 Mamba2 layers at d_model 3584, state 64; the
+            shared GQA attention, 32 / 32 heads of 112, after every 6 layers),
+            4 x 2048: K11 13 launches a prefill at (4, 32, 32, 2048, 112);
+       V    llama-3.2-vision-90b at full width (d_model 8192, 64 / 8 heads of
+            128, d_ff 28672, vocab 128256, 576 image tokens of 1280) cut to 5
+            layers, 4 self and 1 cross (one period of its pattern), seeded
+            images (normal x 0.1) and every cross gate 0.5, 4 x 2048: K11 4
+            launches a prefill;
+       U    musicgen-large whole (48 layers, d_model 2048, 32 / 32 heads of
+            64), 4 x 1500 frame embeddings (30 s at EnCodec's 50 Hz; normal x
+            0.02): K11 48 launches a prefill at s = 1500;
+            each run's tokens in the vocab, its logits finite, the first K11
+            launch held as L's is;
+       MC..UC one block at full width and fp32 (M an SSM block; Z an SSM
+            block and the shared attention; V a cross block at gate 0.5 on
+            seeded images; U a decoder block fed embeddings), card against CPU
+            from one state over 2 x 128 tokens and 4 decode steps from the
+            CPU's cache: outputs and every cache leaf (ssm, conv, k, v,
+            img_k, img_v) within 1e-3 x max(1, max|x|);
+       MH..UH the same blocks on the card: a prefill of 128 and 4 decode
+            steps against the forward over 132, 1e-4 and 1e-3 of max(1,
+            max|x|) (the SSM's conv tail and fp32 state hand over);
+       SS   ``ssd_chunked`` at M's shape (b 4, s 2048, 80 heads of 64, state
+            128, chunk 128) in fp32 on the card against ``ssm_ref_sequential``
+            on the card: y and the final state within 1e-3 x max(1, max|x|)
+            (tests/test_models.py:61), timed;
+ 18. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches, K1, K4 and K5 with the serve runs' launches by run), the
      card's name and power limit, and the result line.
@@ -393,6 +430,14 @@ K11_MLA = (1, 16, 16, 4096, 192, 128)
 M_BATCH, M_PROMPT, M_GEN = 4, 2048, 16
 K11_Q = (M_BATCH, 64, 4, M_PROMPT, 128, 128)
 K11_DS = (M_BATCH, 16, 16, M_PROMPT, 192, 128)
+# phase 17's prefills: zamba2-7b's shared attention (32 / 32 heads, hd 112),
+# llama-3.2-vision-90b's self layers (64 / 8 heads, hd 128), musicgen-large's
+# decoder on 1500 frames (32 / 32 heads, hd 64; ragged s); mamba2-2.7b has no
+# attention
+U_FRAMES = 1500  # 30 s of audio at EnCodec's 50 Hz
+K11_Z = (M_BATCH, 32, 32, M_PROMPT, 112, 112)
+K11_V = (M_BATCH, 64, 8, M_PROMPT, 128, 128)
+K11_U = (M_BATCH, 32, 32, U_FRAMES, 64, 64)
 # head widths past the FFMA tile: MLA's, d past one fp32 chunk with dv over
 # the grid, rows TMA cannot load (40 bytes), d streamed through the bf16 ring
 K11_WIDE = ((1, 4, 4, 256, 192, 128), (1, 2, 1, 100, 320, 288), (1, 2, 1, 100, 20, 12),
@@ -406,7 +451,8 @@ K11_CHECK = tuple(
     (*shape, dtype, True, window) for shape in ((2, 9, 3, 77, 64, 64), (1, 9, 3, 1000, 64, 64))
     for dtype in ("float32", "bfloat16") for window in (0, 48)) + (
     (*K11_SERVE, "bfloat16", True, 0), (*K11_HD128, "bfloat16", True, 0),
-    (*K11_Q, "bfloat16", True, 0), (*K11_DS, "bfloat16", True, 0))
+    (*K11_Q, "bfloat16", True, 0), (*K11_DS, "bfloat16", True, 0),
+    (*K11_Z, "bfloat16", True, 0), (*K11_V, "bfloat16", True, 0), (*K11_U, "bfloat16", True, 0))
 K11_F32_ATOL, K11_BF16_ATOL = 2e-5, 3e-2  # tests/test_kernels.py:174-177
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 # LC: card against CPU at fp32; LH: the prefill -> decode handoff
@@ -468,6 +514,24 @@ BL_WIDE_N, BL_WIDE_M = 1000, 32
 Q_ARCH, Q_LAYERS, DS_ARCH = "qwen3-moe-235b-a22b", 4, "deepseek-v2-lite-16b"
 QC_EXPERTS, MC_BATCH, MC_PROMPT, MC_EXTRA, MC_RTOL, MC_TIE = 16, 2, 128, 4, 1e-3, 1e-6
 DP_ROUNDS, DP_BATCH, DP_RTOL = 5, 64, 1e-4
+# phase 17, the last four families (src/repro/configs/mamba2_2p7b.py, zamba2_7b.py,
+# llama_3p2_vision_90b.py, musicgen_large.py), bf16, LM.init(0), M_BATCH prompts of
+# M_PROMPT tokens (U: U_FRAMES frame embeddings, normal x 0.02 as the reference's
+# serve main feeds: serve.request_batch), F_GEN tokens through serve.generate, twice: M and Z whole, V
+# at full width cut to V_LAYERS layers (4 self and 1 cross: one period of its
+# pattern; its 100 layers are 87.4 G parameters, 163 GiB in bf16), U whole.  V
+# feeds seeded images (normal x 0.1, tests/test_arch_smoke.py:26) and sets each
+# cross gate to V_GATE after LM.init: the serve main's zero images and the init's
+# zero gates would make every cross block an identity.  MC..UC: one block (Z: an
+# SSM block and the shared attention) at full width and fp32, card against CPU
+# from one state; MH..UH the prefill -> decode handoff on the card; SS the chunked
+# SSD at M's shape against the token recurrence, both on the card (the reference's
+# tests/test_models.py:61 tolerance)
+F_GEN, F_RTOL, SS_RTOL = 16, 1e-3, 1e-3
+F_RUNS = (("M", "mamba2-2.7b"), ("Z", "zamba2-7b"), ("V", "llama-3.2-vision-90b"),
+          ("U", "musicgen-large"))
+V_LAYERS, V_GATE, V_IMAGE_STD = 5, 0.5, 0.1
+SS_SHAPE = (M_BATCH, M_PROMPT, 80, 64, 128, 128)  # b, s, heads, head dim, state, chunk
 
 
 def log(*a) -> None:
@@ -1595,6 +1659,309 @@ def moe_phase(torch, dev, k11_check_model) -> tuple[dict, dict]:
         f"arithmetic, not the exchange between ranks), {DP_ROUNDS} rounds at fedrf_paper's width "
         f"(N = {fed.n_rff}, m = {fed.m}), NCCL on the card vs gloo on the CPU: {dp_err:.3g} of "
         f"max(1, max|leaf|); round p50 {runs['DP']['round_ms_p50']:.3f} ms on the card")
+    return runs, k11_runs
+
+
+def families_phase(torch, dev, k11_check_model) -> tuple[dict, dict]:
+    """Phase 17, the last four families: M, Z, V and U through
+    ``serve.generate`` (K11's first launch of each run that has attention
+    under ``k11_check_model``, phase 12's rule), MC..UC and MH..UH block by
+    block, SS the chunked SSD; returns (runs, K11 launches by run)."""
+    from dataclasses import replace
+
+    import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve
+    from repro_torch.models import LM, ssm
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as B
+    from repro_torch.models.layers import rmsnorm, rmsnorm_decl
+    from repro_torch.models.param import materialize
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    runs, k11_runs = {}, {}
+    cpu = torch.device("cpu")
+    seen = []
+    k11_launch = fa.flash_attention
+
+    def recording_flash_attention(q, k, v, *, causal=True, window=0):
+        out = k11_launch(q, k, v, causal=causal, window=window)
+        if q.is_cuda and not seen:
+            seen.append((tuple(t.clone() for t in (q, k, v, out)), causal, window))
+        return out
+
+    class OpCount(TorchDispatchMode):
+        """Counts the aten ops a call dispatches (views included)."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    def rel_err(a, b):  # |a - b| over max(1, max|b|), b the CPU's
+        b = b.float()
+        return float((a.float().cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    def family_config(arch):
+        cfg = get_config(arch)
+        return replace(cfg, n_layers=V_LAYERS) if cfg.family == "vlm" else cfg
+
+    def request(cfg):
+        """The run's batch on the CPU: the serve main's tokens or frame
+        embeddings (normal x 0.02), the VLM's images seeded (normal x
+        V_IMAGE_STD) where the main's are zeros."""
+        batch = serve.request_batch(cfg, M_BATCH, U_FRAMES if cfg.embeddings_in else M_PROMPT)
+        if cfg.family == "vlm":
+            batch["images"] = torch.randn(batch["images"].shape, generator=torch.Generator(
+                ).manual_seed(SEED)) * V_IMAGE_STD
+        return batch
+
+    # ---- M, Z, V, U: serve.generate at full width, bf16 -----------------------
+    def serve_run(tag, cfg):
+        model = LM(cfg)
+        # K11 once a self-attention layer: the hybrid's shared attention, the
+        # VLM's self layers (cross-attention is plain torch), every audio layer
+        attention = {"ssm": (), "hybrid": ("attn",)}.get(cfg.family, ("block",))
+        expect = sum(kind in attention for kind, _ in model.schedule())
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = model.init(SEED, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        if cfg.family == "vlm":
+            params["cross_blocks"]["xattn"]["gate"].fill_(V_GATE)
+        param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+        batch = {k: t.to(dev) for k, t in request(cfg).items()}
+        seq = next(iter(batch.values())).shape[1]
+        gens = {}
+        fa.flash_attention = recording_flash_attention
+        try:
+            for run in ("first", "warm"):
+                fa.LAUNCHES["flash_attention"] = 0
+                res = serve.generate(model, params, batch, F_GEN)
+                torch.cuda.synchronize()
+                launches = fa.LAUNCHES["flash_attention"]
+                if launches != expect:
+                    raise AssertionError(f"run {tag} ({run}): K11 launched {launches} times, "
+                                         f"not {expect} (once a self-attention layer)")
+                toks = res["tokens"]
+                if tuple(toks.shape) != (M_BATCH, F_GEN) or not bool(
+                        ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                    raise AssertionError(f"run {tag} ({run}): tokens {tuple(toks.shape)} "
+                                         f"outside the vocab")
+                if not all(bool(torch.isfinite(lg).all()) for lg in res["logits"]):
+                    raise AssertionError(f"run {tag} ({run}): non-finite logits")
+                decode_s = sum(res["step_ms"]) / 1e3
+                gens[run] = dict(
+                    prefill_s=res["prefill_s"], prefill_tokens_per_s=M_BATCH * seq / res[
+                        "prefill_s"],
+                    decode_step_ms_p50=float(np.percentile(res["step_ms"], 50)),
+                    decode_step_ms_p99=float(np.percentile(res["step_ms"], 99)),
+                    decode_tokens_per_s=M_BATCH * (F_GEN - 1) / decode_s,
+                    k11_launches=launches, sample=toks[0, :8].tolist())
+                k11_runs[f"{tag}_{run}"] = launches
+        finally:
+            fa.flash_attention = k11_launch
+        peak = torch.cuda.max_memory_allocated() - base
+        gate = None
+        if expect:
+            (q, k, v, out), causal, window = seen.pop()
+            gate = k11_check_model(q, k, v, out, causal, window,
+                                   f"run {tag} first launch {tuple(q.shape)}")
+            del q, k, v, out
+        elif seen:
+            raise AssertionError(f"run {tag}: K11 launched in an attention-free model")
+        # the card's own time of a warm prefill and a decode step, queued
+        # behind a device-side sleep (the host's enqueue time apart)
+        pf = timed(torch, lambda: model.prefill(params, batch), 2)
+        _, cache = model.prefill(params, batch)
+        cache = serve.grow_cache(cache, F_GEN)
+        step = ({"embeddings": batch["embeddings"][:, -1:]} if cfg.embeddings_in
+                else {"tokens": batch["tokens"][:, -1:]})
+        dc = timed(torch, lambda: model.decode_step(params, cache, step, seq), 5)
+        with OpCount() as ops_decode:
+            model.decode_step(params, cache, step, seq)
+        del params, cache, res, batch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        w = gens["warm"]
+        out = dict(arch=cfg.arch_id, family=cfg.family, dtype="bfloat16",
+                   n_layers=cfg.n_layers, batch=M_BATCH, prompt_len=seq, gen=F_GEN,
+                   param_count=model.param_count(), param_bytes=param_bytes, init_s=init_s,
+                   peak_bytes=int(peak), k11_first_launch_gate=gate,
+                   prefill_device_ms=pf["ms"], prefill_host_ms=pf["host_ms"],
+                   prefill_queued=pf["queued"], decode_step_device_ms=dc["ms"],
+                   decode_step_host_ms=dc["host_ms"], decode_step_queued=dc["queued"],
+                   aten_ops_decode_step=ops_decode.n,
+                   **{f"{k}_{run}": v for run, r in gens.items() for k, v in r.items()})
+        first = "none (no attention)" if gate is None else (
+            f"the first within the gate ({gate['max_abs_err']:.3g} from plain; gate units "
+            f"{ {k: round(x, 3) for k, x in gate.items() if k.endswith('units')} })")
+        log(f"[run {tag}] {cfg.arch_id} ({cfg.family}) bf16, {cfg.n_layers} layers, "
+            f"{model.param_count()} parameters ({param_bytes / 2**30:.2f} GiB), init "
+            f"{init_s:.2f} s; {M_BATCH} x {seq} prompt, {F_GEN} tokens: prefill "
+            f"{gens['first']['prefill_s']:.4f} s first, {w['prefill_s']:.4f} s warm "
+            f"({w['prefill_tokens_per_s']:.1f} tokens/s); decode step p50 "
+            f"{w['decode_step_ms_p50']:.3f} ms p99 {w['decode_step_ms_p99']:.3f} ms "
+            f"({w['decode_tokens_per_s']:.1f} tokens/s, {ops_decode.n} aten ops a step); K11 "
+            f"{expect} launches a prefill, {first}; on the card a prefill takes "
+            f"{pf['ms']:.3f} ms (host {pf['host_ms']:.3f}, queued {pf['queued']}) and a decode "
+            f"step {dc['ms']:.3f} ms (host {dc['host_ms']:.3f}, queued {dc['queued']}); peak "
+            f"{peak / 2**30:.2f} GiB above the start")
+        return out
+
+    for tag, arch in F_RUNS:
+        runs[tag] = serve_run(tag, family_config(arch))
+
+    # ---- MC..UC, MH..UH: one block at fp32 from one state ---------------------
+    def chain(cfg):
+        """(decl, prefill(params, x, pos, img) -> (y, cache), decode(params,
+        x, cache, t) -> (y, cache)) of the run's block: M an SSM block, Z an
+        SSM block and the shared attention, V a cross block (image K/V in the
+        cache), U a decoder block.  Caches are updated in place."""
+        if cfg.family == "ssm":
+            return (B.ssm_block_decl(cfg),
+                    lambda p, x, pos, img: B.ssm_block_forward(p, x, cfg, collect_cache=True)[
+                        ::2],
+                    lambda p, x, c, t: B.ssm_block_decode(p, x, c, cfg))
+        if cfg.family == "hybrid":
+            def pre(p, x, pos, img):
+                y, _, c = B.ssm_block_forward(p["ssm"], x, cfg, collect_cache=True)
+                o, (k, v) = A.gqa_forward(p["attn"]["attn"], rmsnorm(p["attn"]["ln"], y,
+                                                                     cfg.norm_eps), pos, cfg,
+                                          return_kv=True)
+                return y + o, {**c, "k": k, "v": v}
+
+            def dec(p, x, c, t):
+                y, _ = B.ssm_block_decode(p["ssm"], x, c, cfg)
+                o, _, _ = A.gqa_decode(p["attn"]["attn"], rmsnorm(p["attn"]["ln"], y,
+                                                                  cfg.norm_eps),
+                                       c["k"], c["v"], t, cfg)
+                return y + o, c
+
+            decl = {"ssm": B.ssm_block_decl(cfg),
+                    "attn": {"ln": rmsnorm_decl(cfg.d_model, cfg.dtype),
+                             "attn": A.gqa_decl(cfg)}}
+            return decl, pre, dec
+        if cfg.family == "vlm":
+            def pre(p, x, pos, img):
+                k, v = A.image_kv(p["xattn"], img)
+                return B.cross_block_forward(p, x, (k, v), cfg), {"img_k": k, "img_v": v}
+
+            return (B.cross_block_decl(cfg), pre, lambda p, x, c, t: (
+                B.cross_block_forward(p, x, (c["img_k"], c["img_v"]), cfg), c))
+        return (B.decoder_block_decl(cfg),
+                lambda p, x, pos, img: B.decoder_block_forward(p, x, pos, cfg,
+                                                               collect_cache=True)[::2],
+                lambda p, x, c, t: B.decoder_block_decode(p, x, c, t, cfg))
+
+    def grown(cache):
+        """Room for MC_EXTRA tokens along the sequence axis of the K/V leaves."""
+        return {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, MC_EXTRA)) if k in ("k", "v")
+                else c for k, c in cache.items()}
+
+    def block_runs(tag, cfg):
+        """``tag``C (card vs CPU) and ``tag``H (the handoff on the card)."""
+        decl, pre, dec = chain(cfg)
+        t0 = time.perf_counter()
+        p_cpu = materialize(decl, SEED, device=cpu)
+        if cfg.family == "vlm":
+            p_cpu["xattn"]["gate"].fill_(V_GATE)
+        p_card = tree_map(lambda t: t.to(dev), p_cpu)
+        draw_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(p_cpu))
+        s_all = MC_PROMPT + MC_EXTRA
+        gen = torch.Generator().manual_seed(SEED)
+        x = torch.randn((MC_BATCH, s_all, cfg.d_model), generator=gen)
+        img = (torch.randn((MC_BATCH, cfg.n_image_tokens, cfg.d_image), generator=gen)
+               * V_IMAGE_STD if cfg.family == "vlm" else None)
+        img_g = None if img is None else img.to(dev)
+        pos = torch.arange(s_all)
+        fa.LAUNCHES["flash_attention"] = 0
+        y, cache = pre(p_cpu, x[:, :MC_PROMPT], pos[:MC_PROMPT], img)
+        y_g, cache_g = pre(p_card, x[:, :MC_PROMPT].to(dev), pos[:MC_PROMPT].to(dev), img_g)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_attention"]
+        worst = {"prefill": rel_err(y_g, y),
+                 "prefill_cache": max(rel_err(cache_g[k], cache[k]) for k in cache),
+                 "decode": 0.0, "decode_cache": 0.0}
+        cache = grown(cache)
+        for t in range(MC_PROMPT, s_all):
+            on_card = {k: c.to(dev, copy=True) for k, c in cache.items()}  # decode writes it
+            o_g, on_card = dec(p_card, x[:, t:t + 1].to(dev), on_card, t)
+            o, cache = dec(p_cpu, x[:, t:t + 1], cache, t)
+            worst["decode"] = max(worst["decode"], rel_err(o_g, o))
+            worst["decode_cache"] = max(worst["decode_cache"],
+                                        *(rel_err(on_card[k], cache[k]) for k in cache))
+        if not max(worst.values()) <= F_RTOL:
+            raise AssertionError(f"run {tag}C: card and CPU differ: {worst} > {F_RTOL}")
+        runs[f"{tag}C"] = dict(worst, param_count=n_params, batch=MC_BATCH,
+                               prompt_len=MC_PROMPT, decode_steps=MC_EXTRA, draw_s=draw_s,
+                               cache_leaves=sorted(cache), k11_launches=launches)
+        log(f"[run {tag}C] one {cfg.arch_id} {cfg.family} block at fp32 ({n_params} "
+            f"parameters), card vs CPU over {MC_BATCH} x {MC_PROMPT} tokens and {MC_EXTRA} "
+            f"decode steps from the CPU's cache ({', '.join(sorted(cache))}), of max(1, "
+            f"max|x|): {worst}; K11 {launches} launches; host draw {draw_s:.1f} s")
+        # the handoff on the card: the forward over s_all against a prefill of
+        # MC_PROMPT and MC_EXTRA decode steps
+        xg, full_pos = x.to(dev), pos.to(dev)
+        y_full, _ = pre(p_card, xg, full_pos, img_g)
+        y_p, kv = pre(p_card, xg[:, :MC_PROMPT], full_pos[:MC_PROMPT], img_g)
+        scale = max(1.0, float(y_full.abs().max()))
+        lh = {"prefill": float((y_p - y_full[:, :MC_PROMPT]).abs().max()) / scale,
+              "decode": 0.0}
+        kv = grown(kv)
+        for t in range(MC_PROMPT, s_all):
+            y_t, kv = dec(p_card, xg[:, t:t + 1], kv, t)
+            lh["decode"] = max(lh["decode"],
+                               float((y_t - y_full[:, t:t + 1]).abs().max()) / scale)
+        torch.cuda.synchronize()
+        if not (lh["prefill"] <= LH_PREFILL_RTOL and lh["decode"] <= LH_DECODE_RTOL):
+            raise AssertionError(f"run {tag}H: prefill {lh['prefill']} (limit "
+                                 f"{LH_PREFILL_RTOL}), decode {lh['decode']} (limit "
+                                 f"{LH_DECODE_RTOL})")
+        runs[f"{tag}H"] = lh
+        log(f"[run {tag}H] the block's prefill of {MC_PROMPT} + {MC_EXTRA} decode steps against "
+            f"its forward over {s_all} on the card: prefill {lh['prefill']:.3g}, decode "
+            f"{lh['decode']:.3g} of max(1, max|x|)")
+        del p_cpu, p_card
+
+    for tag, arch in F_RUNS:
+        block_runs(tag, replace(get_config(arch), n_layers=1, dtype=torch.float32))
+
+    # ---- SS: the chunked SSD at M's shape against the token recurrence ---------
+    b, s, h, p, n, chunk = SS_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a_log = torch.rand((h,), generator=gen, device=dev)
+    b_in = torch.randn((b, s, n), generator=gen, device=dev)
+    c_in = torch.randn((b, s, n), generator=gen, device=dev)
+    y, final = ssm.ssd_chunked(x, dt, a_log, b_in, c_in, chunk)
+    y_ref, state = ssm.ssm_ref_sequential(x, dt, a_log, b_in, c_in)
+    torch.cuda.synchronize()
+    ss = {"y": float((y - y_ref).abs().max()) / max(1.0, float(y_ref.abs().max())),
+          "final_state": float((final - state).abs().max()) / max(1.0, float(
+              state.abs().max()))}
+    if not max(ss.values()) <= SS_RTOL:
+        raise AssertionError(f"run SS: chunked SSD against the recurrence {ss} > {SS_RTOL}")
+    t_ss = timed(torch, lambda: ssm.ssd_chunked(x, dt, a_log, b_in, c_in, chunk), 5)
+    runs["SS"] = dict(ss, shape=list(SS_SHAPE), chunked_ms=t_ss["ms"],
+                      chunked_host_ms=t_ss["host_ms"], chunked_queued=t_ss["queued"])
+    log(f"[run SS] ssd_chunked (b, s, h, p, n, chunk) = {SS_SHAPE} fp32 on the card against "
+        f"the token recurrence on the card, of max(1, max|x|): {ss}; {t_ss['ms']:.3f} ms a call "
+        f"(host {t_ss['host_ms']:.3f}, queued {t_ss['queued']})")
+    del x, dt, b_in, c_in, y, y_ref, final, state
+    torch.cuda.empty_cache()
     return runs, k11_runs
 
 
@@ -2920,7 +3287,8 @@ def main() -> int:
         return sum(min(i + 1, window) if window else i + 1 for i in range(s))
 
     k11 = {}
-    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128, K11_MLA, K11_Q, K11_DS):
+    for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128, K11_MLA, K11_Q, K11_DS, K11_Z, K11_V,
+                               K11_U):
         nbytes = (b * h * s * (d + dv) + b * kv * s * (d + dv)) * 2
         copies = [k11_inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
                   for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
@@ -2956,6 +3324,9 @@ def main() -> int:
         mla=dict(shape=f"{K11_MLA} bf16 causal", **k11[K11_MLA]),
         qwen3_moe=dict(shape=f"{K11_Q} bf16 causal", **k11[K11_Q]),
         deepseek_v2_lite=dict(shape=f"{K11_DS} bf16 causal", **k11[K11_DS]),
+        zamba2=dict(shape=f"{K11_Z} bf16 causal", **k11[K11_Z]),
+        llama_vision=dict(shape=f"{K11_V} bf16 causal", **k11[K11_V]),
+        musicgen=dict(shape=f"{K11_U} bf16 causal", **k11[K11_U]),
         ptxas=k11_ptxas, hgmma=hgmma,
     )
     torch.cuda.synchronize()
@@ -3513,6 +3884,15 @@ def main() -> int:
     torch.cuda.synchronize()
     runs["DP"]["phase_16_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 16 (Q, DS, QC, DC, QH, DH, DP) {runs['DP']['phase_16_s']:.1f} s")
+
+    # ---- 17. the last four families: M, Z, V, U, their C and H runs, SS ---------
+    t_phase = time.perf_counter()
+    family_runs, family_launches = families_phase(torch, dev, k11_check_model)
+    runs.update(family_runs)
+    report["K11"]["launches_by_run"].update(family_launches)
+    torch.cuda.synchronize()
+    runs["SS"]["phase_17_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 17 (M, Z, V, U, MC-UC, MH-UH, SS) {runs['SS']['phase_17_s']:.1f} s")
 
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}

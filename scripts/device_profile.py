@@ -1,5 +1,5 @@
 """Where a call spends the card's time: the profiled window that
-``profile_train_step.py`` and ``profile_moe_serve.py`` share.
+``profile_train_step.py`` and ``profile_lm_serve.py`` share.
 
 ``profile_calls(fn, n)`` runs ``fn`` ``n`` times inside ``torch.profiler``
 (CPU and CUDA activities), each call ending in ``synchronize``, and returns

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Where a MoE model's prefill and decode step spend the card's time.
+"""Where an LM's prefill and decode step spend the card's time.
 
-Builds ``--arch`` (``qwen3-moe-235b-a22b`` or ``deepseek-v2-lite-16b``; depth
-cut to ``--layers`` when given, as ``chip_smoke.py``'s Q cell cuts qwen3 to
-4 of its 94 layers) in bf16 from ``LM.init(0)``, prefills ``chip_smoke.py``'s
-M_BATCH x M_PROMPT seeded prompts and takes a decode step, both warm, then
-profiles 2 prefills and 5 decode steps apart through ``device_profile``.
-Prints one JSON object with, for the prefill and for the decode step: the
-host-clock time of each call, the device's busy time and the idle share of
-the profiled window, the CUDA time per call by kernel group and by kernel
-name (top ``--top``), the aten ops a call dispatches, and the card's name
-and power limit.
+Builds ``--arch`` (any architecture: dense, MoE, SSM, hybrid, VLM, audio;
+depth cut to ``--layers`` when given, as ``chip_smoke.py``'s Q cell cuts
+qwen3 to 4 of its 94 layers and its V cell llama-3.2-vision-90b to 5) in
+bf16 from ``LM.init(0)``, prefills ``chip_smoke.py``'s M_BATCH seeded prompts
+(M_PROMPT tokens, or U_FRAMES frame embeddings for an ``embeddings_in``
+model; zero images for the VLM, as ``serve.request_batch`` makes them) and
+takes a decode step, both warm, then profiles 2 prefills and 5 decode steps
+apart through ``device_profile``.  Prints one JSON object with, for the
+prefill and for the decode step: the host-clock time of each call, the
+device's busy time and the idle share of the profiled window, the CUDA time
+per call by kernel group and by kernel name (top ``--top``), the aten ops a
+call dispatches, and the card's name and power limit.
 
-    python3 scripts/profile_moe_serve.py --arch qwen3-moe-235b-a22b --layers 4
-    python3 scripts/profile_moe_serve.py --arch deepseek-v2-lite-16b
+    python3 scripts/profile_lm_serve.py --arch qwen3-moe-235b-a22b --layers 4
+    python3 scripts/profile_lm_serve.py --arch deepseek-v2-lite-16b
+    python3 scripts/profile_lm_serve.py --arch mamba2-2.7b
 
 Run from the root of a checkout on a machine with one CUDA card.
 """
@@ -40,11 +43,11 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("profile_moe_serve: no CUDA device available", file=sys.stderr)
+        print("profile_lm_serve: no CUDA device available", file=sys.stderr)
         return 2
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from chip_smoke import M_BATCH, M_PROMPT
+    from chip_smoke import M_BATCH, M_PROMPT, U_FRAMES
     from device_profile import card, profile_calls
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -67,14 +70,14 @@ def main() -> int:
         cfg = replace(cfg, n_layers=args.layers)
     model = LM(cfg)
     params = model.init(0, device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (M_BATCH, M_PROMPT),
-                            generator=torch.Generator().manual_seed(0)).to(dev)
-    _, cache = model.prefill(params, {"tokens": prompts})
+    seq = U_FRAMES if cfg.embeddings_in else M_PROMPT
+    batch = {k: v.to(dev) for k, v in serve.request_batch(cfg, M_BATCH, seq).items()}
+    _, cache = model.prefill(params, batch)
     cache = serve.grow_cache(cache, 1)
-    tok = prompts[:, -1:]
-    calls = {"prefill": (lambda: model.prefill(params, {"tokens": prompts}), PREFILLS),
-             "decode_step": (lambda: model.decode_step(params, cache, {"tokens": tok},
-                                                       M_PROMPT), STEPS)}
+    key = "embeddings" if cfg.embeddings_in else "tokens"
+    step = {key: batch[key][:, -1:]}
+    calls = {"prefill": (lambda: model.prefill(params, batch), PREFILLS),
+             "decode_step": (lambda: model.decode_step(params, cache, step, seq), STEPS)}
     out = {}
     for what, (fn, n) in calls.items():
         fn()
@@ -83,7 +86,7 @@ def main() -> int:
             fn()
         out[what] = {**profile_calls(fn, n, args.top), "aten_ops_per_call": ops.n}
     print(json.dumps({"card": card(), "arch": args.arch, "n_layers": cfg.n_layers,
-                      "batch": M_BATCH, "prompt": M_PROMPT, **out}, indent=1))
+                      "batch": M_BATCH, "prompt": seq, **out}, indent=1))
     return 0
 
 

@@ -91,7 +91,9 @@ def load_reference_params(trainer, tree) -> None:
 def lm_params_from_reference(tree, cfg, *, device=None) -> dict:
     """The port's ``models.LM`` parameter tree from the reference's
     ``LM.init`` tree (nested dicts of numpy leaves), leaf for leaf, each in
-    the dtype its declaration gives (``cfg.dtype``; fp32 for the FDA head).
+    the dtype its declaration gives (``cfg.dtype``; fp32 for the FDA head,
+    the MoE router and the SSM's ``dt_bias``, ``a_log`` and ``d_skip``), 0-d
+    leaves (the VLM's stacked cross-attention gates) included.
 
     JAX's bf16 leaves arrive as ``ml_dtypes.bfloat16``, which ``torch`` does
     not read: they go through float32, and bf16 -> f32 -> bf16 is exact."""

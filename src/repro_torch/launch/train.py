@@ -1,4 +1,4 @@
-"""Training driver: a dense arch (full or reduced) on one CUDA card.
+"""Training driver: any arch (full or reduced) on one CUDA card.
 
 Port of ``repro.launch.train``::
 
@@ -8,7 +8,10 @@ Port of ``repro.launch.train``::
 ``--reduced`` trains the smoke-scale variant (remat off, as in the
 reference); ``--device cpu`` runs the plain PyTorch versions instead of the
 kernels.  The FDA MMD head is active whenever more than one client shares
-the batch.  Attention's forward and backward are K11 and K11b.
+the batch.  Attention's forward and backward are K11 and K11b.  As in the
+reference, an ``embeddings_in`` (audio) model trains on frame embeddings
+(normal x 0.02, a CPU generator seeded by the step) against the stream's
+labels, and the VLM on zero images.
 """
 from __future__ import annotations
 
@@ -93,7 +96,14 @@ def main(argv=None) -> dict:
     losses = []
     t0 = time.time()
     for step in range(start_step, args.steps):
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+        batch = {k: torch.from_numpy(v) for k, v in next(stream).items()}
+        if cfg.embeddings_in:
+            emb = torch.randn((args.batch, args.seq, cfg.d_model),
+                              generator=torch.Generator().manual_seed(step)) * 0.02
+            batch = {"embeddings": emb, "labels": batch["labels"]}
+        if cfg.family == "vlm":
+            batch["images"] = torch.zeros((args.batch, cfg.n_image_tokens, cfg.d_image))
+        batch = {k: v.to(dev) for k, v in batch.items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
         if (step + 1) % args.log_every == 0:

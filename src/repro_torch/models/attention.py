@@ -1,6 +1,7 @@
-"""Attention: GQA with blockwise online softmax (K11) and sliding window.
+"""Attention: GQA with blockwise online softmax (K11) and sliding window,
+DeepSeek MLA, and cross-attention.
 
-Port of ``repro.models.attention`` for the dense GQA path.  Training and
+Port of ``repro.models.attention``.  Training and
 prefill attention is :func:`flash_attention`: on CUDA tensors the
 hand-written K11 kernel (``kernels/csrc/flash_attention.cu``; bf16 on the
 tensor cores, any head widths), the reference kernel's math, which the
@@ -19,8 +20,13 @@ MLA (DeepSeek-V2) keeps a compressed cache: the latent ``c`` (r wide) and
 one roped key column ``kr`` a token, shared by the heads.  Its prefill
 expands them into per-head keys [k_nope; k_rope] and values and runs K11 at
 d = hd + rope_head_dim, dv = hd; its decode absorbs W_uk into the query and
-scores against the latent cache directly.  Cross-attention (VLM) waits for
-a later step (ROADMAP queue 1, step 13g).
+scores against the latent cache directly.
+
+Cross-attention (VLM): text queries attend to the image tokens' keys and
+values, projected once a prompt (:func:`image_kv`).  The reference computes
+it in jnp outside its Pallas kernel, so the port computes it in plain torch,
+with the scores in fp32, p cast to v's dtype before the PV product, and the
+block's tanh gate (zero at init) on the output.
 """
 from __future__ import annotations
 
@@ -61,7 +67,14 @@ def mla_decl(cfg: ModelConfig) -> dict:
 
 
 def cross_attn_decl(cfg: ModelConfig) -> dict:
-    raise NotImplementedError("cross-attention (VLM): ROADMAP queue 1, step 13g")
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {
+        "wq": ParamDecl((d, h, hd), "normal", cfg.dtype),
+        "wk": ParamDecl((cfg.d_image, kv, hd), "normal", cfg.dtype),
+        "wv": ParamDecl((cfg.d_image, kv, hd), "normal", cfg.dtype),
+        "wo": ParamDecl((h, hd, d), "normal", cfg.dtype),
+        "gate": ParamDecl((), "zeros", cfg.dtype),  # zero-init gated residual
+    }
 
 
 def flash_attention(
@@ -188,3 +201,32 @@ def mla_decode(params, x, cache_c, cache_kr, pos: int, cfg: ModelConfig):
     ctx = torch.einsum("bqhs,bsr->bqhr", p, cache_c)  # (b, 1, h, r)
     o = torch.einsum("bqhr,rhk->bqhk", ctx, params["w_uv"])
     return torch.einsum("bshk,hkd->bsd", o, params["wo"]), cache_c, cache_kr
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (VLM): text queries attend to image embeddings
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_forward(params, x, img_kv: tuple[torch.Tensor, torch.Tensor], cfg: ModelConfig):
+    """x: (b, s, d); img_kv: the projected (k, v), each (b, n_img, kv, hd).
+    No mask: every query sees every image token."""
+    k, v = img_kv
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    kvh, hd = k.shape[2], q.shape[-1]
+    g = q.shape[2] // kvh
+    qg = q.reshape(b, s, kvh, g, hd)
+    sc = torch.einsum("bqkgd,bskd->bqkgs", qg.to(torch.float32), k.to(torch.float32))
+    sc = sc / math.sqrt(hd)
+    p = torch.softmax(sc, dim=-1).to(v.dtype)
+    o = torch.einsum("bqkgs,bskd->bqkgd", p, v).reshape(b, s, q.shape[2], hd)
+    out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
+    return torch.tanh(params["gate"]).to(x.dtype) * out
+
+
+def image_kv(params, img_emb: torch.Tensor):
+    """Project image embeddings once: (b, n_img, d_image) -> (k, v)."""
+    k = torch.einsum("bsd,dhk->bshk", img_emb, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", img_emb, params["wv"])
+    return k, v

@@ -1,10 +1,10 @@
-"""Decoder block bodies: decls + apply for the dense and MoE families, with
-GQA or MLA attention.
+"""Block bodies: decls + apply for every family: decoder blocks (dense and
+MoE, GQA or MLA attention), Mamba2 (SSM) blocks and the VLM's
+cross-attention blocks.
 
-Port of ``repro.models.blocks`` for decoder blocks.  ``model.py`` keeps the
-reference's stacked layer axis and loops over it in Python.  SSM and
-cross-attention blocks wait for later steps (ROADMAP queue 1, steps 13e and
-13g) and raise.
+Port of ``repro.models.blocks``.  ``model.py`` keeps the reference's stacked
+layer axis and loops over it in Python, slicing the grouped stacks of the
+hybrid (shared attention) and VLM (cross-attention) families.
 """
 from __future__ import annotations
 
@@ -13,12 +13,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_decl, rmsnorm, rmsnorm_decl
-
-_LATER = {
-    "ssm": "SSM (Mamba2) blocks: ROADMAP queue 1, step 13e",
-    "cross": "cross-attention (VLM) blocks: ROADMAP queue 1, step 13g",
-}
 
 
 def decoder_block_decl(cfg: ModelConfig) -> dict:
@@ -95,9 +91,57 @@ def decoder_cache_decl(cfg: ModelConfig, batch: int, s_cache: int) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# ssm (mamba2) blocks
+# ---------------------------------------------------------------------------
+
+
 def ssm_block_decl(cfg: ModelConfig) -> dict:
-    raise NotImplementedError(_LATER["ssm"])
+    return {"ln": rmsnorm_decl(cfg.d_model, cfg.dtype), "ssm": ssm_mod.ssm_decl(cfg)}
+
+
+def ssm_block_forward(params, x, cfg: ModelConfig, *, collect_cache: bool = False):
+    """Returns (x, aux_loss = 0) — or (x, aux_loss, {"ssm", "conv"}) when collecting."""
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if collect_cache:
+        y, cache = ssm_mod.ssm_forward(params["ssm"], h, cfg, return_state=True)
+        return x + y, zero, cache
+    return x + ssm_mod.ssm_forward(params["ssm"], h, cfg), zero
+
+
+def ssm_block_decode(params, x, cache, cfg: ModelConfig):
+    """cache: {"ssm", "conv"}, updated in place. Returns (x, cache)."""
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    y, cache = ssm_mod.ssm_decode(params["ssm"], h, cache, cfg)
+    return x + y, cache
+
+
+def ssm_cache_decl(cfg: ModelConfig, batch: int) -> dict:
+    """Per-layer cache shapes ("ssm" in fp32, "conv" in cfg.dtype)."""
+    ch = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "ssm": (batch, cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_state),
+        "conv": (batch, cfg.ssm_conv_width - 1, ch),
+    }
+
+
+# ---------------------------------------------------------------------------
+# cross-attention block (VLM)
+# ---------------------------------------------------------------------------
 
 
 def cross_block_decl(cfg: ModelConfig) -> dict:
-    raise NotImplementedError(_LATER["cross"])
+    return {
+        "ln_x": rmsnorm_decl(cfg.d_model, cfg.dtype),
+        "ln_mlp": rmsnorm_decl(cfg.d_model, cfg.dtype),
+        "xattn": attn.cross_attn_decl(cfg),
+        "mlp": mlp_decl(cfg),
+    }
+
+
+def cross_block_forward(params, x, img_kv, cfg: ModelConfig):
+    h = rmsnorm(params["ln_x"], x, cfg.norm_eps)
+    x = x + attn.cross_attn_forward(params["xattn"], h, img_kv, cfg)
+    h = rmsnorm(params["ln_mlp"], x, cfg.norm_eps)
+    return x + mlp(params["mlp"], h)

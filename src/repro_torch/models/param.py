@@ -37,7 +37,7 @@ import torch
 @dataclass(frozen=True)
 class ParamDecl:
     shape: tuple[int, ...]
-    init: str = "normal"  # "normal" | "ones" | "std"
+    init: str = "normal"  # "normal" | "std" | "ones" | "zeros" | "ssm_a" | "ssm_dt"
     dtype: Any = torch.float32
     scale: float = 1.0
 
@@ -61,17 +61,29 @@ def _std(d: ParamDecl) -> float:
         return float(d.scale / np.sqrt(fan_in))
     if d.init == "std":  # direct standard deviation (scale IS the std)
         return float(d.scale)
-    # "zeros", "ssm_a" and "ssm_dt" come with the families that declare them
     raise ValueError(f"unknown init {d.init}")
+
+
+def _uniform_init(d: ParamDecl, gen: torch.Generator) -> torch.Tensor:
+    """Mamba2's per-head leaves, drawn whole in fp32 on the host: ``ssm_a``
+    is log U[1, 16] (A = -exp(a_log)), ``ssm_dt`` softplus^-1 of U[1e-3,
+    1e-1] (the dt bias)."""
+    lo, hi = {"ssm_a": (1.0, 16.0), "ssm_dt": (1e-3, 1e-1)}[d.init]
+    u = torch.rand(d.shape, generator=gen) * (hi - lo) + lo
+    return torch.log(u) if d.init == "ssm_a" else torch.log(torch.expm1(u))
 
 
 def _draw(d: ParamDecl, gen: torch.Generator, device) -> torch.Tensor:
     """The leaf on ``device``: ``randn(shape) * std`` from ``gen`` on the
     host, in flat chunks of ``CHUNK`` elements (the last chunk takes the
     remainder and at least 16), each scaled on ``device`` and cast into the
-    leaf's dtype."""
-    if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype, device=device)
+    leaf's dtype; "ones" and "zeros" filled on ``device``; the small SSM
+    leaves drawn whole on the host."""
+    if d.init in ("ones", "zeros"):
+        fill = torch.ones if d.init == "ones" else torch.zeros
+        return fill(d.shape, dtype=d.dtype, device=device)
+    if d.init in ("ssm_a", "ssm_dt"):
+        return _uniform_init(d, gen).to(device=device, dtype=d.dtype)
     std = _std(d)
     out = torch.empty(d.shape, dtype=d.dtype, device=device)
     flat, total, a = out.view(-1), out.numel(), 0

@@ -33,7 +33,11 @@ learning rate; the baselines' accuracies on the card equal to the CPU's
 block at their architectures' widths and fp32 within 1e-3 x max(1, max|x|)
 of the CPU on the tokens routed alike (a token may route differently only at
 a near-tie on the CPU: k-th and (k+1)-th probabilities within 1e-6); an
-``LM.init`` on the card equal to the CPU's bit for bit.
+``LM.init`` on the card equal to the CPU's bit for bit (MoE, SSM, hybrid,
+VLM, audio); ``ssd_chunked`` on the card within 1e-4 x max(1, max|x|) of the
+CPU and 1e-3 of the token recurrence; the four families' reduced LMs at
+fp32 through ``serve.generate``, card against CPU, to 1e-3 of max(1,
+max|logit|).
 """
 import numpy as np
 import pytest
@@ -1185,3 +1189,96 @@ def test_baselines_on_card_match_cpu(card):
         assert fn(card) == fn("cpu")
     assert abs(baselines.source_only(s, t, device=card)
                - baselines.source_only(s, t, device="cpu")) <= 0.02
+
+
+# ---------------------------------------------------------------------------
+# the last four families: SSD, K11 at their prefills, their LMs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv", [(4, 32, 32, 2048, 112, 112),
+                                             (4, 64, 8, 2048, 128, 128),
+                                             (4, 32, 32, 1500, 64, 64)])
+def test_flash_attention_family_prefill_shapes_within_gate(card, b, h, kv, s, d, dv):
+    """bf16 causal at zamba2-7b's shared attention (hd 112), the
+    llama-3.2-vision-90b self layers' (GQA, g = 8) and musicgen-large's 1500
+    frames (a ragged s), 4 prompts each."""
+    g = torch.Generator(device=card).manual_seed(b * h * s + d)
+    q = torch.randn((b, h, s, d), generator=g, device=card).bfloat16()
+    k = torch.randn((b, kv, s, d), generator=g, device=card).bfloat16()
+    v = torch.randn((b, kv, s, dv), generator=g, device=card).bfloat16()
+    before = fa.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v)
+    assert fa.LAUNCHES["flash_attention"] == before + 1
+    plain = fa.flash_attention_plain(q, k, v)
+    err = (out.float() - plain.float()).abs()
+    assert bool((err <= _bf16_ulp(plain) + 2e-5).all())
+    assert err.max().item() <= 3e-2 * max(1.0, plain.float().abs().max().item())
+
+
+def test_ssd_chunked_on_card_matches_cpu(card):
+    """``ssd_chunked`` at a mid size (2 x 512 tokens, 16 heads of 64, state
+    64, chunk 128) in fp32: y and the final state on the card within 1e-4 x
+    max(1, max|x|) of the CPU's, and the recurrence's on the card within
+    1e-3 (tests/test_models.py:61)."""
+    from repro_torch.models import ssm
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 512, 16, 64), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((2, 512, 16), generator=gen))
+    a_log = torch.rand((16,), generator=gen)
+    b_in, c_in = (torch.randn((2, 512, 64), generator=gen) for _ in range(2))
+    args = (x, dt, a_log, b_in, c_in)
+    y, final = ssm.ssd_chunked(*args, 128)
+    y_g, final_g = ssm.ssd_chunked(*(t.to(card) for t in args), 128)
+    y_r, state_r = ssm.ssm_ref_sequential(*(t.to(card) for t in args))
+
+    def rel(a, b):
+        b = b.cpu()
+        return (a.cpu() - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    assert rel(y_g, y) <= 1e-4 and rel(final_g, final) <= 1e-4
+    assert rel(y_g, y_r) <= 1e-3 and rel(final_g, state_r) <= 1e-3
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "llama-3.2-vision-90b",
+                                  "musicgen-large"])
+def test_family_lm_on_card_matches_cpu(card, arch):
+    """The reduced config at fp32 (the VLM's gates at 0.5, seeded images):
+    ``LM.init`` on the card equal to the CPU's bit for bit at bf16, then at
+    fp32 ``serve.generate`` on the card and the CPU decoding the card's
+    inputs, logits within 1e-3 x max(1, max|logit|); K11 launched once a
+    self-attention layer in the card's prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import LM
+
+    bf16 = LM(get_config(arch).reduced(dtype=torch.bfloat16))
+    for a, b in zip(tree_leaves(bf16.init(0, device=card)),
+                    tree_leaves(bf16.init(0, device="cpu"))):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    cfg = get_config(arch).reduced()
+    model = LM(cfg)
+    params = model.init(0, device="cpu")
+    if cfg.family == "vlm":
+        params["cross_blocks"]["xattn"]["gate"].fill_(0.5)
+    on_card = tree_map(lambda t: t.to(card), params)
+    batch = serve.request_batch(cfg, 2, 40)
+    if cfg.family == "vlm":
+        batch["images"] = torch.randn(batch["images"].shape,
+                                      generator=torch.Generator().manual_seed(1)) * 0.1
+    attention = {"ssm": (), "hybrid": ("attn",)}.get(cfg.family, ("block",))
+    before = fa.LAUNCHES["flash_attention"]
+    res = serve.generate(model, on_card, {k: v.to(card) for k, v in batch.items()}, 4)
+    assert fa.LAUNCHES["flash_attention"] == before + sum(
+        kind in attention for kind, _ in model.schedule())
+    frames = torch.randn((3, 2, 1, cfg.d_model),
+                         generator=torch.Generator().manual_seed(serve.FRAME_SEED)) * 0.02
+    logits, cache = model.prefill(params, batch)
+    cache = serve.grow_cache(cache, 4)
+    for i, a in enumerate(res["logits"]):
+        if i:
+            step = ({"embeddings": frames[i - 1]} if cfg.embeddings_in
+                    else {"tokens": res["tokens"][:, i - 1:i]})
+            logits, cache = model.decode_step(params, cache, step, 40 + i - 1)
+        b = logits.float()
+        assert (a.cpu().float() - b).abs().max().item() <= 1e-3 * max(1.0, b.abs().max().item())

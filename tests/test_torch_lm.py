@@ -42,6 +42,7 @@ from repro_torch.models import LM  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import fda_head as tfda  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
+from repro_torch.utils.tree import tree_leaves  # noqa: E402
 
 RULES = ShardRules(model_size=1)
 _DTYPES = {jnp.dtype(jnp.float32): torch.float32, jnp.dtype(jnp.bfloat16): torch.bfloat16}
@@ -239,6 +240,28 @@ def test_port_init_is_seeded_and_device_independent():
     assert abs(float(emb.std()) - 1 / np.sqrt(emb.shape[-2])) < 0.05 / np.sqrt(emb.shape[-2])
     assert torch.equal(a["blocks"]["ln_attn"]["scale"], torch.ones((2, 64)))
     assert a["fda"]["omega"].dtype == torch.float32
+    # an SSM and a VLM in bf16: the "ssm_a", "ssm_dt" and "zeros" inits, the
+    # SSM's fp32 leaves, the VLM's 0-d gate stacked over its cross layers
+    ssm_kw = dict(family="ssm", ssm_state=16, ssm_head_dim=16, ssm_chunk=8, d_ff=0)
+    vlm_kw = dict(family="vlm", cross_attn_every=1, n_layers=3, n_image_tokens=8, d_image=32)
+    for kw in (ssm_kw, vlm_kw):
+        fcfg = port_config(mk(**kw, dtype=jnp.bfloat16))
+        p1, p2 = LM(fcfg).init(0, device="cpu"), LM(fcfg).init(0, device="cpu")
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(p1), tree_leaves(p2)))
+    ssm = LM(port_config(mk(**ssm_kw, dtype=jnp.bfloat16))).init(0, device="cpu")["blocks"]["ssm"]
+    for key in ("a_log", "dt_bias", "d_skip"):
+        assert ssm[key].dtype == torch.float32 and ssm[key].shape == (2, 8)
+    a_init = torch.exp(ssm["a_log"])  # U[1, 16]
+    dt_init = torch.nn.functional.softplus(ssm["dt_bias"])  # U[1e-3, 1e-1]
+    assert float(a_init.min()) >= 1.0 and float(a_init.max()) <= 16.0
+    assert float(dt_init.min()) >= 1e-3 * (1 - 1e-5) and float(dt_init.max()) <= 1e-1 * (1 + 1e-5)
+    assert not torch.equal(ssm["a_log"][0], ssm["a_log"][1])
+    assert torch.equal(ssm["d_skip"], torch.ones((2, 8)))
+    assert ssm["w_z"].dtype == torch.bfloat16
+    gate = LM(port_config(mk(**vlm_kw, dtype=jnp.bfloat16))).init(0, device="cpu")[
+        "cross_blocks"]["xattn"]["gate"]
+    assert gate.dtype == torch.bfloat16 and torch.equal(gate, torch.zeros((1,),
+                                                                          dtype=torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------

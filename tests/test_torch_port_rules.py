@@ -306,23 +306,41 @@ def test_lm_without_device_raises_without_card():
     ("llama-3.2-vision-90b", "step 13g"), ("musicgen-large", "step 13h"),
 ])
 def test_lm_families_outside_the_slice_raise(arch, step):
-    """The dense and MoE families (GQA or MLA) are ported; the others name
-    their step."""
+    """The four families that raised, naming their steps, until those steps
+    were ported (SSM, hybrid, VLM, audio) now build an ``LM``, at full size
+    and reduced, whose declarations have the reference's keys and shapes."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models import LM as JLM
+    from repro.models import ShardRules
+    from repro.models.param import is_decl
     from repro_torch.configs import get_config
     from repro_torch.models import LM
 
-    for cfg in (get_config(arch), get_config(arch).reduced()):
-        with pytest.raises(NotImplementedError, match=step):
-            LM(cfg)
+    def port_shapes(tree, prefix=()):
+        out = {}
+        for k, v in tree.items():
+            out.update(port_shapes(v, (*prefix, k)) if isinstance(v, dict)
+                       else {(*prefix, k): tuple(v.shape)})
+        return out
+
+    for cfg, ref in ((get_config(arch), jget_config(arch)),
+                     (get_config(arch).reduced(), jget_config(arch).reduced())):
+        ref_shapes = {tuple(p.key for p in kp): tuple(d.shape) for kp, d in
+                      jax.tree_util.tree_flatten_with_path(
+                          JLM(ref, ShardRules(model_size=1)).decls(), is_leaf=is_decl)[0]}
+        assert port_shapes(LM(cfg).decls()) == ref_shapes, (arch, step)
 
 
 def test_lm_loss_and_other_blocks_raise():
     """LM.loss runs since step 13b (its parity is tests/test_torch_train.py's);
     MoE and MLA blocks run since steps 13c and 13d (tests/test_torch_moe.py),
-    the expert-parallel MoE waits for the mesh (13i), the SSM and cross blocks
-    for their steps."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import LM, attention, blocks, moe
+    the SSM, hybrid, cross-attention and audio families since 13e-13h
+    (tests/test_torch_ssm.py, tests/test_torch_vlm_audio.py); only the
+    expert-parallel MoE still raises, waiting for the mesh (13i)."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import LM, moe
 
     cfg = get_config("smollm-135m").reduced()
     model = LM(cfg)
@@ -330,14 +348,10 @@ def test_lm_loss_and_other_blocks_raise():
     toks = torch.zeros((2, 4), dtype=torch.long)
     total, parts = model.loss(params, {"tokens": toks, "labels": toks}, 2)
     assert set(parts) == {"ce", "aux", "mmd"} and bool(torch.isfinite(total))
-    for call, step in ((lambda: moe.moe_forward_ep({}, toks, cfg), "13i"),
-                       (lambda: blocks.ssm_block_decl(cfg), "13e"),
-                       (lambda: attention.cross_attn_decl(cfg), "13g"),
-                       (lambda: blocks.cross_block_decl(cfg), "13g")):
-        with pytest.raises(NotImplementedError, match=f"step {step}"):
-            call()
-    for arch in ("smollm-135m", "smollm-360m", "internlm2-1.8b", "command-r-plus-104b",
-                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"):
+    with pytest.raises(NotImplementedError, match="step 13i"):
+        moe.moe_forward_ep({}, toks, cfg)
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS:
         assert LM(get_config(arch)).param_count() > 0
 
 
@@ -357,3 +371,23 @@ def test_moe_slice_modules_are_in_the_import_guard():
         for line in f.read_text().splitlines():
             if "NotImplementedError" in line or "ROADMAP queue 1, step" in line:
                 assert not any(w in line for w in ("MoE blocks", "MLA", "13c", "13d")), line
+
+
+SLICE15_MODULES = ("models/ssm.py",)
+
+
+def test_last_families_slice_modules_are_in_the_import_guard():
+    """The SSM module exists and falls under the jax/repro guard; under
+    ``models/`` the only ``NotImplementedError`` left is the expert-parallel
+    MoE's, naming step 13i."""
+    files = set(_port_files())
+    for rel in SLICE15_MODULES:
+        path = ROOT / "src" / "repro_torch" / rel
+        assert path in files, rel
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}, rel
+    raising = []
+    for f in sorted((ROOT / "src" / "repro_torch" / "models").glob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
+                raising.append((f.name, ast.unparse(node)))
+    assert len(raising) == 1 and raising[0][0] == "moe.py" and "step 13i" in raising[0][1], raising
