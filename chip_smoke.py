@@ -239,7 +239,8 @@ Phases (any failed check raises, and the run exits non-zero):
             plain's and dq, dk, dv within 1e-4 x max(1, max|plain|) of
             autograd through the plain forward on the fp32 inputs (fp32),
             plus one bf16 ULP of it (bf16), the worst gate units reported;
-            at smollm-135m's and internlm2-1.8b's training shapes two
+            at smollm-135m's and internlm2-1.8b's training shapes and at
+            zamba2-7b's shared attention (4, 32, 32, 2048, 112, 112) two
             launches on the same inputs bit for bit, timed beside the plain
             backward and scaled_dot_product_attention's backward, and K11's
             forward with and without the lse store;
@@ -330,7 +331,38 @@ Phases (any failed check raises, and the run exits non-zero):
             128, chunk 128) in fp32 on the card against ``ssm_ref_sequential``
             on the card: y and the final state within 1e-3 x max(1, max|x|)
             (tests/test_models.py:61), timed;
- 18. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 18. the launch tools and the examples (``launch_phase``), each run's
+     launch counts zeroed just before it and read just after:
+       DR   smollm-135m as its config gives it (30 layers, bf16, remat, the FDA
+            head on 2 clients): one AdamW train step at 8 x 2048 and one
+            prefill at 8 x 2048 on the card under ``roofline.count_step``,
+            whose products, bytes and K11 / K11b reported work must equal
+            the same step's count on meta tensors (the dry run); each step
+            timed plainly (3 after a warm-up): step ms, the counted FLOP/s,
+            model FLOPs / time / 989 TFLOP/s, the roofline's ms;
+       EP   one qwen3-moe-235b-a22b MoE layer at full width (128 experts of
+            4096 x 1536, top 8) on 4 x 2048 tokens: ``moe_forward_ep`` over
+            ``launch.mesh.make_host_mesh()`` (world size 1, 1 x 1) equal to
+            ``moe_forward`` bit for bit;
+       EX   the four port examples' ``run()`` on the card and on the CPU:
+            quickstart (eigenvalues rtol 1e-2, TCA's accuracy equal, the
+            MLP-trained ones within 0.02), federated adaptation (20 rounds
+            after 10 of warm-up, and ``--async`` for 8 flushes; warm-up and
+            final accuracy within one of the 400 target points), serve_batch
+            (greedy tokens equal), train_lm ``--full`` (smollm-135m at full
+            width, 3 steps on the card, 1 on the CPU: the first loss within
+            1e-2 relative, the first gradient norm within 1e-2 of the CPU's
+            plus four times what nudging every weight by 2^-9 relative moves
+            the CPU's own: at this random init the norm is ~1e14 and chaotic);
+       FT   one train step of zamba2-7b (6 Mamba2 layers and the shared
+            attention, hd 112) and of mamba2-2.7b (2 layers), full width,
+            fp32, 2 x 128 tokens, card against CPU from one state: loss and
+            every gradient leaf within 1e-4 x max(1, max|leaf|) plus TC's
+            four times the CPU's own 1e-7-nudge movement, K11b once
+            for zamba2 at hd 112 (and the SSD scan's backward through
+            autograd; phase 15 checks and times K11b in bf16 at zamba2's
+            prefill shape);
+ 19. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches, K1, K4 and K5 with the serve runs' launches by run), the
      card's name and power limit, and the result line.
@@ -483,14 +515,15 @@ SO_REQUESTS, SO_DEGENERACY, SO_COLS, SO_RATE, SO_PAIRS, SO_SAMPLE = 40, 16, (96,
 HP_ROUNDS = 10
 # phase 15, training: K11b at phase 11's K11_CHECK shapes (the sweep, the wide
 # head widths, ragged s, smollm-135m's and internlm2-1.8b's shapes) and at
-# K11_LARGE_V's with v x 60, timed at the two training shapes; T (smollm-135m
+# K11_LARGE_V's with v x 60, timed at the two training shapes and at zamba2-7b's
+# shared attention (hd 112); T (smollm-135m
 # as its config gives it: 30 layers, bf16, remat, the FDA head N = 512, m =
 # 64, lambda 0.1) on
 # TokenStream(49152, 8, 2048, seed=1) with 2 clients, AdamW(cosine(3e-4,
 # warmup 10, total 30), wd 0.01), clip 1.0, 30 steps; TC (its width at 2
 # layers, fp32, 2 x 128 tokens, card vs CPU); BL (tests/test_baselines.py's
 # suite on the card and the CPU, RF-TCA at phase 7's width)
-K11B_TIMED = (K11_SERVE, K11_HD128)
+K11B_TIMED = (K11_SERVE, K11_HD128, K11_Z)  # K11_Z: zamba2-7b's hd 112
 K11B_RTOL, K11B_LSE_ATOL = 1e-4, 2e-5  # on max(1, max|plain|); lse absolute
 T_BATCH, T_SEQ, T_CLIENTS, T_STEPS, T_LR, T_WARMUP = 8, 2048, 2, 30, 3e-4, 10
 TC_LAYERS, TC_BATCH, TC_SEQ, TC_RTOL = 2, 2, 128, 1e-4
@@ -532,6 +565,33 @@ F_RUNS = (("M", "mamba2-2.7b"), ("Z", "zamba2-7b"), ("V", "llama-3.2-vision-90b"
           ("U", "musicgen-large"))
 V_LAYERS, V_GATE, V_IMAGE_STD = 5, 0.5, 0.1
 SS_SHAPE = (M_BATCH, M_PROMPT, 80, 64, 128, 128)  # b, s, heads, head dim, state, chunk
+# phase 18, the launch tools and the examples.  DR: smollm-135m as its config
+# gives it (30 layers, bf16, remat, the FDA head on 2 clients), one AdamW
+# train step (T's shape, 8 x 2048) and one prefill (L's, 8 x 2048) on the card
+# under roofline.count_step, against the same config's meta dry run; their
+# steps timed plainly (DR_REPS after a warm-up).  EP: one qwen3-moe-235b-a22b
+# MoE layer at full width (128 experts of 4096 x 1536, top 8) on M_BATCH x
+# M_PROMPT tokens, moe_forward_ep on the host mesh (world size 1) against
+# moe_forward, bit for bit.  EX: the four port examples' run() on the card and
+# the CPU (the federated one at EX_ROUNDS after EX_WARMUP, and --async for
+# EX_FLUSHES flushes; torch_train_lm --full EX_TRAIN_STEPS steps on the card, 1
+# on the CPU).  FT: one train step of zamba2-7b (one attention group: 6 Mamba2
+# layers and the shared attention, hd 112) and of mamba2-2.7b (2 layers), both
+# at full width and fp32, card against CPU from one LM.init state, over FT_BATCH
+# x FT_SEQ tokens: the loss within FT_RTOL x max(1, |loss|) and every gradient
+# leaf within FT_RTOL x max(1, max|leaf|) plus four times what a 1e-7 relative
+# nudge of the weights moves the CPU's own (TC's rule, and the families' CPU
+# tests': the random-init hybrid amplifies fp32 rounding)
+DR_REPS, EP_ARCH = 3, Q_ARCH
+EX_ROUNDS, EX_WARMUP, EX_FLUSHES, EX_TRAIN_STEPS = 20, 10, 8, 3
+EX_ACC_POINTS = 1  # target points of 400 (tests/test_torch_examples.py)
+# train_lm --full's first step, card against CPU: the loss within EX_LOSS_RTOL
+# (bf16, 2^-8 a rounding, through 30 layers); the gradient norm before clipping
+# (~1e14 at this random init: the stack is chaotic, PERF.md section 6) within
+# EX_GNORM_RTOL of the CPU's plus four times what nudging every weight by
+# EX_NUDGE relative (about one bf16 rounding) moves the CPU's own, TC's rule
+EX_LOSS_RTOL, EX_GNORM_RTOL, EX_NUDGE = 1e-2, 1e-2, 2.0**-9
+FT_BATCH, FT_SEQ, FT_RTOL = 2, 128, 1e-4
 
 
 def log(*a) -> None:
@@ -965,21 +1025,14 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
     return runs, cross
 
 
-def k11b_bytes(shape) -> int:
-    """Bytes K11b moves at a bf16 (b, h, kv, s, d, dv): q, do, dq; k, v, dk,
-    dv; the fp32 o_acc and lse."""
-    b, h, kv, s, d, dv = shape
-    return (2 * b * h * s * (d + dv) + 2 * b * kv * s * (d + dv)) * 2 + (
-        b * h * s * dv + b * h * s) * 4
-
-
 def k11b_copies(torch, fa, shape) -> list:
     """K11b's bf16 causal inputs (q, k, v, o_acc, lse, do) at ``shape`` from
     seeds 0, 1, ...: enough copies to cycle past the L2."""
     b, h, kv, s, d, dv = shape
     dev = torch.device("cuda")
     copies = []
-    for i in range(max(2, -(-L2_FLUSH_BYTES // k11b_bytes(shape)))):
+    nbytes = fa.backward_cost(shape, torch.bfloat16, True, 0)[1]
+    for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes))):
         g = torch.Generator(device=dev).manual_seed(i)
         q, k, v, do = (torch.randn(sh, generator=g, device=dev).to(torch.bfloat16) for sh in
                        ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv), (b, h, s, dv)))
@@ -1081,14 +1134,10 @@ def k11b_rows(torch, dev, shapes, timed_shapes) -> dict:
         f"(max abs err {worst['float32']:.3g}) and one bf16 ULP of plain plus that at bf16 "
         f"(max abs err {worst['bfloat16']:.3g}); worst {worst['gate_units']:.3f} gate units")
 
-    def causal_pairs(s):
-        return s * (s + 1) // 2
-
     timed_rows, fwd = {}, {}
     for b, h, kv, s, d, dv in timed_shapes:
         copies = k11b_copies(torch, fa, (b, h, kv, s, d, dv))
-        flops = 2 * (3 * d + 2 * dv) * b * h * causal_pairs(s)
-        nbytes = k11b_bytes((b, h, kv, s, d, dv))
+        flops, nbytes = fa.backward_cost((b, h, kv, s, d, dv), torch.bfloat16, True, 0)
         b_ms, b_by = bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS)
         ffma_ms, _ = bound_ms(flops, nbytes)
         first = fa.flash_attention_backward(*copies[0])
@@ -1133,7 +1182,8 @@ def k11b_rows(torch, dev, shapes, timed_shapes) -> dict:
         library="torch.autograd.grad through scaled_dot_product_attention(is_causal=True, "
                 "enable_gqa=True)",
         **timed_rows[first],
-        hd128=dict(shape=f"{timed_shapes[1]} bf16 causal", **timed_rows[timed_shapes[1]]))
+        **{f"hd{shape[4]}": dict(shape=f"{shape} bf16 causal", **timed_rows[shape])
+           for shape in timed_shapes[1:]})
     return row, fwd
 
 
@@ -1963,6 +2013,299 @@ def families_phase(torch, dev, k11_check_model) -> tuple[dict, dict]:
     del x, dt, b_in, c_in, y, y_ref, final, state
     torch.cuda.empty_cache()
     return runs, k11_runs
+
+
+def launch_phase(torch, dev, counters) -> tuple[dict, dict]:
+    """Phase 18: DR (the roofline counter on the card against the meta dry
+    run), EP (the expert-parallel MoE at world size 1), EX (the four port
+    examples, card against CPU) and FT (zamba2-7b's and mamba2-2.7b's train
+    step, card against CPU).  ``counters`` are the kernels' launch counters
+    (each zeroed just before a run and read just after).  Returns (runs,
+    launches by kernel and run)."""
+    import importlib.util
+    from argparse import Namespace
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_train_step
+    from repro_torch.models import LM, ShardRules, moe
+    from repro_torch.optim import adamw
+    from repro_torch.utils.tree import tree_flatten_with_paths, tree_map
+
+    runs, by_run = {}, {}
+    cpu = torch.device("cpu")
+    counters = dict(counters, flash_attention=fa.LAUNCHES)
+
+    def zero():
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+
+    def launches():
+        return {k: dict(c) for k, c in counters.items()}
+
+    def record(tag, got):
+        for key, group, name in (("K1", "rff", "rff"), ("K7", "rff", "rff_fused"),
+                                 ("K11", "flash_attention", "flash_attention"),
+                                 ("K11b", "flash_attention", "flash_attention_bwd"),
+                                 ("K10", "quantize", "fake_quant"),
+                                 ("K9", "segment_reduce", "segment_reduce"),
+                                 ("K4", "prng", "fused_omega")):
+            if got.get(group, {}).get(name):
+                by_run.setdefault(key, {})[tag] = got[group][name]
+        for key, group in (("K2", "operand_gram"), ("K5", "gram"), ("K8", "centered_gram")):
+            n = sum(got.get(group, {}).values())
+            if n:
+                by_run.setdefault(key, {})[tag] = n
+
+    def rel_err(a, b):  # |a - b| over max(1, max|b|), b the CPU's
+        b = b.float()
+        return float((a.float().cpu() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+    # ---- DR: the roofline's count on the card against the meta dry run -------
+    cfg = get_config(LM_ARCH)
+    model = LM(cfg)
+    opt = adamw(3e-4, weight_decay=0.01)
+    step_fn = build_train_step(model, opt, T_CLIENTS)
+    params = model.init(SEED, device=dev)
+    state = opt.init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+        TokenStream(cfg.vocab_size, T_BATCH, T_SEQ, seed=1)).items()}
+    prompts = {"tokens": batch["tokens"][:L_BATCH, :L_PROMPT].contiguous()}
+    prefill = torch.no_grad()(model.prefill)
+
+    def as_meta(tree):
+        return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+    for tag, kind, fn, args, n_tokens in (
+            ("DR-train", "train", step_fn, (params, state, batch), T_BATCH * T_SEQ),
+            ("DR-prefill", "prefill", prefill, (params, prompts), L_BATCH * L_PROMPT)):
+        step_ms = []
+        for _ in range(DR_REPS + 1):  # the first is the warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        zero()
+        _, card = roofline.count_step(fn, *args)
+        torch.cuda.synchronize()
+        got = launches()
+        _, meta = roofline.count_step(fn, *as_meta(args))
+        if (card.flops, card.hbm_bytes, card.kernels) != (meta.flops, meta.hbm_bytes,
+                                                           meta.kernels):
+            apart = {k: (card.by_op.get(k), meta.by_op.get(k))
+                     for k in set(card.by_op) | set(meta.by_op)
+                     if card.by_op.get(k) != meta.by_op.get(k)}
+            raise AssertionError(
+                f"{tag}: the card's count (products {card.flops}, bytes {card.hbm_bytes}, "
+                f"kernels {card.kernels}) is not the meta dry run's (products {meta.flops}, "
+                f"bytes {meta.hbm_bytes}, kernels {meta.kernels}); operations apart (card, "
+                f"meta): {apart}")
+        if card.kernels["flash_attention"]["calls"] != got["flash_attention"]["flash_attention"]:
+            raise AssertionError(f"{tag}: K11 reported {card.kernels} but launched {got}")
+        record(tag, got)
+        roof = roofline.from_count(card)
+        ms = float(np.median(step_ms[1:]))
+        n_active = dryrun.active_params(model)
+        mf = roofline.model_flops(n_active, n_tokens, kind)
+        runs[tag] = dict(
+            arch=LM_ARCH, kind=kind, tokens=n_tokens, step_ms=step_ms, step_ms_p50=ms,
+            counted_flops=card.total_flops, counted_bytes=card.total_bytes,
+            kernel_flops=card.kernel_flops, kernel_bytes=card.kernel_bytes,
+            kernels=card.kernels, ops=card.ops, meta_equal=True,
+            counted_tflops_per_s=card.total_flops / ms / 1e9,
+            model_flops=mf, mfu=mf / (ms / 1e3) / roofline.PEAK_FLOPS,
+            roofline=roof.as_dict(), roofline_ms=max(roof.compute_s, roof.memory_s) * 1e3)
+        r = runs[tag]
+        log(f"[run {tag}] {LM_ARCH} {kind}, {n_tokens} tokens: step p50 {ms:.2f} ms (plain, "
+            f"{DR_REPS} after a warm-up); counted {card.total_flops:.6g} FLOP ({card.flops:.6g} "
+            f"products, {card.kernel_flops:.6g} K11/K11b) and {card.total_bytes:.6g} bytes "
+            f"over {card.ops} ops, equal to the meta dry run's; {r['counted_tflops_per_s']:.2f} "
+            f"TFLOP/s counted, model FLOPs {mf:.6g} -> {r['mfu']:.4f} of 989 TFLOP/s; roofline "
+            f"{r['roofline_ms']:.2f} ms ({roof.dominant})")
+    del params, state, batch, prompts, step_fn, prefill
+    torch.cuda.empty_cache()
+
+    # ---- EP: the expert-parallel MoE at world size 1 ----------------------------
+    ep_cfg = get_config(EP_ARCH)
+    mesh = make_host_mesh(device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    d, f, e = ep_cfg.d_model, ep_cfg.d_ff, ep_cfg.n_experts
+    ep_params = {"router": torch.randn((d, e), generator=g, device=dev) / d ** 0.5}
+    for name, shape in (("gate", (e, d, f)), ("up", (e, d, f)), ("down", (e, f, d))):
+        ep_params[name] = (torch.randn(shape, generator=g, device=dev)
+                           / shape[1] ** 0.5).to(ep_cfg.dtype)
+    x = torch.randn((M_BATCH, M_PROMPT, d), generator=g, device=dev).to(ep_cfg.dtype)
+    rules = ShardRules(model_size=1, mesh=mesh)
+    with torch.no_grad():
+        y_ep, aux_ep = moe.moe_forward_ep(ep_params, x, ep_cfg, rules)
+        y, aux = moe.moe_forward(ep_params, x, ep_cfg)
+        ep_ms = cuda_ms(torch, lambda: moe.moe_forward_ep(ep_params, x, ep_cfg, rules), 3)
+    if not (torch.equal(y_ep, y) and torch.equal(aux_ep, aux)):
+        raise AssertionError("EP: moe_forward_ep at world size 1 differs from moe_forward")
+    runs["EP"] = dict(arch=EP_ARCH, experts=e, d_model=d, d_ff=f, top_k=ep_cfg.top_k,
+                      tokens=M_BATCH * M_PROMPT, mesh=list(mesh.shape), bit_equal=True,
+                      ms=ep_ms, aux=float(aux))
+    log(f"[run EP] {EP_ARCH} MoE layer ({e} experts of {d} x {f}, top {ep_cfg.top_k}) on "
+        f"{M_BATCH} x {M_PROMPT} tokens, mesh {tuple(mesh.shape)}: moe_forward_ep equals "
+        f"moe_forward bit for bit (y and aux); {ep_ms:.3f} ms a call")
+    del ep_params, x, y, y_ep
+    torch.cuda.empty_cache()
+
+    # ---- EX: the four port examples, card against CPU ---------------------------
+    def example(name):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def points(a, b):  # accuracies on the examples' 400 target points
+        return abs(round(float(a) * 400) - round(float(b) * 400))
+
+    def both(tag, fn):
+        zero()
+        t0 = time.perf_counter()
+        card_out = fn(dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        got = launches()
+        t0 = time.perf_counter()
+        cpu_out = fn(cpu)
+        record(tag, got)
+        return card_out, cpu_out, dict(card_s=card_s, cpu_s=time.perf_counter() - t0,
+                                       launches={k: v for k, c in got.items()
+                                                 for k, v in c.items() if v})
+
+    qs = example("torch_quickstart")
+    a, b, t = both("EX-quickstart", lambda dv: qs.run(Namespace(device=None), device=dv))
+    eig = float(np.max(np.abs(a["eigvals"] / b["eigvals"] - 1)))
+    if not (eig <= 1e-2 and a["acc_tca"] == b["acc_tca"]
+            and abs(a["acc_none"] - b["acc_none"]) <= BL_MLP_ATOL
+            and abs(a["acc_rf"] - b["acc_rf"]) <= BL_MLP_ATOL):
+        raise AssertionError(f"EX quickstart: card {a} vs CPU {b}")
+    runs["EX-quickstart"] = dict(t, eig_rel=eig, **{k: (a[k], b[k]) for k in (
+        "acc_none", "acc_tca", "acc_rf")})
+    fed = example("torch_federated_adaptation")
+    for tag, extra in (("EX-federated", []), ("EX-federated-async", ["--async"])):
+        argv = ["--rounds", str(EX_FLUSHES if extra else EX_ROUNDS), "--warmup",
+                str(EX_WARMUP)] + extra
+        a, b, t = both(tag, lambda dv: fed.run(fed.parse(argv), device=dv))
+        keys = ("final",) if extra else ("warm", "final")
+        apart = {k: points(a[k], b[k]) for k in keys}
+        if max(apart.values()) > EX_ACC_POINTS:
+            raise AssertionError(f"{tag}: card {a} vs CPU {b}: {apart} target points apart")
+        runs[tag] = dict(t, argv=argv, points_apart=apart, **{k: (a[k], b[k]) for k in keys})
+    sb = example("torch_serve_batch")
+    a, b, t = both("EX-serve", lambda dv: sb.run(sb.parse([]), device=dv))
+    if not np.array_equal(a["tokens"], b["tokens"]):
+        raise AssertionError(f"EX serve_batch: card tokens {a['tokens']} vs CPU {b['tokens']}")
+    runs["EX-serve"] = dict(t, tokens_equal=True, shape=list(a["tokens"].shape))
+    tl = example("torch_train_lm")
+
+    def train_lm(dv):
+        return tl.run(tl.parse(["--arch", LM_ARCH, "--full", "--steps", str(
+            EX_TRAIN_STEPS if dv.type == "cuda" else 1)]), device=dv)
+
+    a, b, t = both("EX-train", train_lm)
+    # the CPU's own movement: every weight of LM.init nudged by EX_NUDGE relative
+    real_init = LM.init
+    gen = torch.Generator().manual_seed(SEED + 18)
+
+    def nudged_init(self, seed=0, *, device=None):
+        return tree_map(lambda w: (w.float() * (1 + EX_NUDGE * torch.randn(
+            w.shape, generator=gen))).to(w.dtype), real_init(self, seed, device=device))
+
+    LM.init = nudged_init
+    try:
+        nudged = train_lm(cpu)
+    finally:
+        LM.init = real_init
+    loss_rel = abs(a["losses"][0] - b["losses"][0]) / abs(b["losses"][0])
+    gn_apart = abs(a["grad_norms"][0] - b["grad_norms"][0])
+    gn_moved = abs(nudged["grad_norms"][0] - b["grad_norms"][0])
+    gn_gate = EX_GNORM_RTOL * abs(b["grad_norms"][0]) + 4 * gn_moved
+    if not (loss_rel <= EX_LOSS_RTOL and gn_apart <= gn_gate
+            and np.isfinite(a["losses"]).all()):
+        raise AssertionError(f"EX train_lm --full: card {a} vs CPU {b}, the nudged CPU "
+                             f"{nudged}: loss {loss_rel:.3g} apart, gradient norm {gn_apart:.4g} "
+                             f"apart against a gate of {gn_gate:.4g}")
+    if t["launches"].get("flash_attention_bwd") != EX_TRAIN_STEPS * get_config(LM_ARCH).n_layers:
+        raise AssertionError(f"EX train_lm --full: launches {t['launches']}")
+    runs["EX-train"] = dict(t, losses=a["losses"], cpu_loss=b["losses"][0],
+                            grad_norms=a["grad_norms"], cpu_grad_norm=b["grad_norms"][0],
+                            nudged_cpu_loss=nudged["losses"][0],
+                            nudged_cpu_grad_norm=nudged["grad_norms"][0], loss_rel=loss_rel,
+                            grad_norm_apart=gn_apart, grad_norm_gate=gn_gate)
+    for tag in ("EX-quickstart", "EX-federated", "EX-federated-async", "EX-serve", "EX-train"):
+        r = runs[tag]
+        log(f"[run {tag}] card {r['card_s']:.1f} s, CPU {r['cpu_s']:.1f} s, launches "
+            f"{r['launches']}; " + ", ".join(f"{k} {v}" for k, v in r.items() if k not in (
+                "card_s", "cpu_s", "launches", "losses", "grad_norms")))
+
+    # ---- FT: zamba2-7b and mamba2-2.7b train steps, card against CPU ------------
+    for tag, arch, layers in (("FT-Z", "zamba2-7b", None), ("FT-M", "mamba2-2.7b", 2)):
+        base = get_config(arch)
+        ft_cfg = replace(base, n_layers=layers or base.attn_every, dtype=torch.float32)
+        ft = LM(ft_cfg)
+        p_cpu = ft.init(SEED, device="cpu")
+        tb = {k: torch.from_numpy(v) for k, v in next(TokenStream(
+            ft_cfg.vocab_size, FT_BATCH, FT_SEQ, seed=1)).items()}
+
+        def value_and_grads(p, batch, ft=ft):
+            live = tree_map(lambda t: t.detach().requires_grad_(), p)
+            loss, _ = ft.loss(live, batch, T_CLIENTS)
+            paths, leaves = tree_flatten_with_paths(live)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            return float(loss.detach()), {k: None if x is None else x.detach().cpu()
+                                          for k, x in zip(paths, grads)}
+
+        zero()
+        l_card, g_card = value_and_grads(tree_map(lambda t: t.to(dev), p_cpu),
+                                         {k: v.to(dev) for k, v in tb.items()})
+        torch.cuda.synchronize()
+        got = launches()
+        l_cpu, g_cpu = value_and_grads(p_cpu, tb)
+        gen = torch.Generator().manual_seed(1)
+        _, g_nudge = value_and_grads(
+            tree_map(lambda t: t * (1 + 1e-7 * torch.randn(t.shape, generator=gen)), p_cpu), tb)
+        worst, worst_leaf = abs(l_card - l_cpu) / max(1.0, abs(l_cpu)), "loss"
+        if not worst <= FT_RTOL:
+            raise AssertionError(f"{tag}: loss card {l_card} vs CPU {l_cpu}")
+        units, worst_nudge = 0.0, 0.0
+        for k, gc in g_cpu.items():
+            if (gc is None) != (g_card[k] is None):
+                raise AssertionError(f"{tag}: {k} has a gradient on one device only")
+            if gc is None:
+                continue
+            e, moved = rel_err(g_card[k], gc), rel_err(g_nudge[k], gc)
+            if e / (FT_RTOL + 4 * moved) > units:
+                units, worst, worst_leaf, worst_nudge = e / (FT_RTOL + 4 * moved), e, k, moved
+            if not e <= FT_RTOL + 4 * moved:
+                raise AssertionError(f"{tag}: gradient {k} card vs CPU {e:.3g} of max(1, "
+                                     f"max|leaf|), past {FT_RTOL} + 4 x the CPU's own "
+                                     f"1e-7-nudge movement {moved:.3g}")
+        want = 1 if ft_cfg.family == "hybrid" else 0
+        if got["flash_attention"]["flash_attention_bwd"] != want:
+            raise AssertionError(f"{tag}: K11b launched {got['flash_attention']}, not {want}")
+        record(tag, got)
+        runs[tag] = dict(arch=arch, layers=ft_cfg.n_layers, dtype="float32", batch=FT_BATCH,
+                         seq=FT_SEQ, loss=(l_card, l_cpu), worst_rel=worst,
+                         worst_leaf=worst_leaf, worst_nudge=worst_nudge, gate_units=units,
+                         launches=got["flash_attention"], head_dim=ft_cfg.hd)
+        log(f"[run {tag}] {arch} at full width, {ft_cfg.n_layers} layers, fp32, {FT_BATCH} x "
+            f"{FT_SEQ}: loss {l_card:.6f} card / {l_cpu:.6f} CPU; every gradient leaf within "
+            f"the gate, the worst {worst_leaf} at {worst:.3g} of max(1, max|leaf|) (the CPU's "
+            f"own 1e-7-nudge movement {worst_nudge:.3g}; {units:.3f} of the gate); K11 / K11b "
+            f"{got['flash_attention']}")
+        del p_cpu, g_card, g_cpu, g_nudge, ft
+    return runs, by_run
 
 
 def main() -> int:
@@ -3282,19 +3625,16 @@ def main() -> int:
         f"abs err "
         f"{k11_err['bfloat16']:.3g}), non-finite positions equal")
 
-    def causal_pairs(s, window=0):
-        """(query, key) pairs the causal (and window) mask keeps."""
-        return sum(min(i + 1, window) if window else i + 1 for i in range(s))
-
     k11 = {}
     for b, h, kv, s, d, dv in (K11_SERVE, K11_HD128, K11_MLA, K11_Q, K11_DS, K11_Z, K11_V,
                                K11_U):
-        nbytes = (b * h * s * (d + dv) + b * kv * s * (d + dv)) * 2
+        # the wrapper's own count: QK^T and PV over the causal band, q, k, v
+        # read and o written once
+        flops, nbytes = fa.forward_cost((b, h, kv, s, d, dv), torch.bfloat16, True, 0)
         copies = [k11_inputs(b, h, kv, s, d, dv, torch.bfloat16, i)
                   for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
         turn = itertools.cycle(copies)
-        b_ms, b_by = bound_ms(2 * b * h * causal_pairs(s) * (d + dv), nbytes,
-                              peak_flops=PEAK_BF16_FLOPS)
+        b_ms, b_by = bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS)
         kt = timed(torch, lambda: fa.flash_attention(*next(turn)), 20)
         pt = timed(torch, lambda: fa.flash_attention_plain(*next(turn)), 5)
         lt = timed(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -3303,7 +3643,7 @@ def main() -> int:
         k11[(b, h, kv, s, d, dv)] = dict(
             ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"], plain_ms=pt["ms"],
             library_ms=lt["ms"], bound_ms=b_ms, bound_by=b_by,
-            tflops=2 * b * h * causal_pairs(s) * (d + dv) / kt["ms"] / 1e9,
+            tflops=flops / kt["ms"] / 1e9,
             plan=fa.bf16_plan(b, h, kv, s, d, dv))
         log(f"[K11] ({b}, {h}, {kv}, {s}, {d}, {dv}) bf16 causal: kernel {kt['ms']:.4f} ms (host "
             f"{kt['host_ms']:.4f} ms a call, queued {kt['queued']}, "
@@ -3894,6 +4234,15 @@ def main() -> int:
     runs["SS"]["phase_17_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 17 (M, Z, V, U, MC-UC, MH-UH, SS) {runs['SS']['phase_17_s']:.1f} s")
 
+    # ---- 18. the launch tools and the examples: DR, EP, EX, FT ------------------
+    t_phase = time.perf_counter()
+    launch_runs, launch_by_run = launch_phase(torch, dev, counters)
+    runs.update(launch_runs)
+    report["K11b"]["hd112"]["launches"] = runs["FT-Z"]["launches"]["flash_attention_bwd"]
+    torch.cuda.synchronize()
+    runs["FT-M"]["phase_18_s"] = time.perf_counter() - t_phase
+    log(f"[time] phase 18 (DR, EP, EX, FT) {runs['FT-M']['phase_18_s']:.1f} s")
+
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}
     for key, runs_of, count in (
@@ -3913,6 +4262,9 @@ def main() -> int:
     for key, field in (("K10", "k10_launches"), ("K9", "k9_launches")):
         report[key]["launches_by_run"] = {t: runs[t][field] for t in trained if runs[t][field]}
         report[key]["launches"] = sum(report[key]["launches_by_run"].values())
+    for key, more in launch_by_run.items():  # phase 18's launches, counted in
+        report[key].setdefault("launches_by_run", {}).update(more)
+        report[key]["launches"] += sum(more.values())
     kernels = [dict(id=k, **report[k]) for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7",
                                                  "K8", "K9", "K10", "K11", "K11b")]
     for k in kernels:

@@ -3,10 +3,12 @@
 Port of ``repro.configs.base``: every field is kept, so the architecture files
 copy verbatim; ``dtype`` is a torch dtype.  ``remat`` checkpoints each layer
 in training (``models.model.LM.forward``); ``sharded_ce`` picks the
-reference's second cross-entropy form, which gives the same numbers.  The
-other TPU switches (``unroll_scan``, ``moe_ep``, ``causal_skip``,
-``seq_parallel``) are accepted and change nothing here: none of them changes
-the math, only how XLA schedules or shards it.
+reference's second cross-entropy form, which gives the same numbers.
+``moe_ep`` makes an ``LM`` whose ``ShardRules`` hold a mesh run its MoE
+blocks expert-parallel over that mesh (``models.moe.moe_forward_ep``); with
+no mesh it changes nothing.  The other TPU switches (``unroll_scan``,
+``causal_skip``, ``seq_parallel``) are accepted and change nothing here:
+none of them changes the math, only how XLA schedules or shards it.
 """
 from __future__ import annotations
 
@@ -61,8 +63,9 @@ class ModelConfig:
     fda_lambda: float = 0.1
     fda_seed: int = 1234
     n_clients: int = 0  # 0 => one client per data-parallel shard
-    # remat: per-layer checkpointing in training; the rest are TPU scheduling
-    # and sharding switches, accepted with no effect in the port
+    # remat: per-layer checkpointing in training; moe_ep: the expert-parallel
+    # MoE where the LM's rules hold a mesh; the rest are TPU scheduling and
+    # sharding switches, accepted with no effect in the port
     remat: bool = True
     unroll_scan: bool = False
     sharded_ce: bool = False

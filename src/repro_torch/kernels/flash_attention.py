@@ -30,6 +30,17 @@ the tensor cores through wgmma and TMA, fp32 on the FFMA pipe) or
 has no backward kernel: it differentiates its jnp scan.  ``LAUNCHES``
 counts the forward kernel's launches and the backward calls (one a call,
 whatever kernels it runs).
+
+On meta tensors (a dry run: ``launch.dryrun``) each wrapper returns empty
+outputs of the kernel's shapes and dtypes and runs nothing, not even the
+plain version, whose (s, s) scores are work the kernel never does.  Each
+wrapper has a ``cost(shape, dtype, causal, window)`` giving the (flops,
+bytes) of one call at ``shape = (b, h, kv, s, d, dv)``: the products over
+the causal or window band and each input read and each output written
+once.  Every call on meta or CUDA tensors adds its cost to ``COST``, so a
+roofline (``launch.roofline.from_step``) reads the same work whether the
+kernel or its meta stand-in ran.  On CPU tensors nothing is added: the
+plain version's own operations are what runs.
 """
 from __future__ import annotations
 
@@ -41,6 +52,7 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+COST = {name: {"calls": 0, "flops": 0, "bytes": 0} for name in LAUNCHES}
 NEG_INF = -1e30  # the reference's masked-score sentinel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -171,14 +183,68 @@ def bwd_bf16_plan(d: int, dv: int) -> dict:
     return dict(zip(keys, list(out)))
 
 
-def _on_card(what: str, tensors) -> bool:
-    """False for CPU tensors (the plain version runs), True for CUDA tensors
-    on one device; raises on a mix."""
-    if all(t.device.type == "cpu" for t in tensors):
-        return False
+def band_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs of an (s, s) score matrix that the mask keeps:
+    ``q_pos >= k_pos`` if causal, ``q_pos - k_pos < window`` if window."""
+    w = min(window, s) if window else 0
+    if causal:
+        return w * (w + 1) // 2 + (s - w) * w if w else s * (s + 1) // 2
+    if not w:
+        return s * s
+    # row i keeps keys j >= i - w + 1: all s for i < w, s - (i - w + 1) after
+    n = s - w
+    return w * s + n * s - n * (n + 1) // 2
+
+
+def forward_cost(shape, dtype, causal: bool = True, window: int = 0, *,
+                 return_lse: bool = False) -> tuple[int, int]:
+    """(flops, bytes) of one K11 call at ``shape = (b, h, kv, s, d, dv)``:
+    QK^T and PV over the band (2 flops a multiply-add), q, k, v read and o
+    written once in ``dtype``; with ``return_lse`` also the fp32 lse and,
+    below fp32, the fp32 output."""
+    b, h, kv, s, d, dv = shape
+    e = dtype.itemsize
+    flops = 2 * b * h * band_pairs(s, causal, window) * (d + dv)
+    nbytes = e * (b * h * s * (d + dv) + b * kv * s * (d + dv))
+    if return_lse:
+        nbytes += 4 * b * h * s + (4 * b * h * s * dv if e != 4 else 0)
+    return flops, nbytes
+
+
+def backward_cost(shape, dtype, causal: bool = True, window: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of one K11b call: the five band products (S = QK^T,
+    dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q), q, k, v, do read and
+    dq, dk, dv written once in ``dtype``, the fp32 o and lse read once."""
+    b, h, kv, s, d, dv = shape
+    e = dtype.itemsize
+    flops = 2 * b * h * band_pairs(s, causal, window) * (3 * d + 2 * dv)
+    nbytes = e * (b * h * s * (2 * d + dv) + 2 * b * kv * s * (d + dv)) + 4 * (
+        b * h * s * dv + b * h * s)
+    return flops, nbytes
+
+
+def training_cost(shape, dtype, causal: bool = True, window: int = 0) -> tuple[int, int]:
+    """(flops, bytes) of one training attention: K11 with lse, then K11b."""
+    fwd = forward_cost(shape, dtype, causal, window, return_lse=True)
+    bwd = backward_cost(shape, dtype, causal, window)
+    return fwd[0] + bwd[0], fwd[1] + bwd[1]
+
+
+def _record(name: str, cost: tuple[int, int]) -> None:
+    COST[name]["calls"] += 1
+    COST[name]["flops"] += int(cost[0])
+    COST[name]["bytes"] += int(cost[1])
+
+
+def _placement(what: str, tensors) -> str:
+    """"cpu" (the plain version runs), "meta" (a dry run: empty outputs) or
+    "cuda" (the kernel, all tensors on one device); raises on a mix."""
+    for kind in ("cpu", "meta"):
+        if all(t.device.type == kind for t in tensors):
+            return kind
     if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
         raise ValueError(f"{what}: tensors on " + ", ".join(str(t.device) for t in tensors))
-    return True
+    return "cuda"
 
 
 def _out_like(q: torch.Tensor, b: int, h: int, s: int, width: int, dtype) -> torch.Tensor:
@@ -198,7 +264,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     the rounding to q's dtype (``o`` itself at fp32), as the backward needs
     them.  Without it the kernel writes neither (the serve path's launch)."""
     _check(q, k, v)
-    if not _on_card("flash_attention", (q, k, v)):
+    place = _placement("flash_attention", (q, k, v))
+    if place == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      return_lse=return_lse)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -220,6 +287,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         strides = [st for t in (q, k, v) for st in _tma_strides(t)] + list(out.stride()[:3])
     else:
         strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+    cost = forward_cost((b, h, kv, s, d, dv), q.dtype, causal, window, return_lse=return_lse)
+    if place == "meta":
+        _record("flash_attention", cost)
+        return (out, lse, o_acc) if return_lse else out
     f = _build.fn("flash_attention", "rt_flash_attention",
                   [_build.VP] * 4 + [_build.I32] * 8 + [_build.I64] * 12
                   + [_build.I32, _build.I32, _build.F32, _build.VP, _build.VP, _build.VP])
@@ -231,6 +302,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
                 acc_ptr, _build.stream_ptr())
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    _record("flash_attention", cost)
     if return_lse:
         return out, lse, o_acc
     return out
@@ -251,7 +323,8 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors the plain version."""
     _check(q, k, v)
     tensors = (q, k, v, o_acc, lse, do)
-    if not _on_card("flash_attention_backward", tensors):
+    place = _placement("flash_attention_backward", tensors)
+    if place == "cpu":
         return flash_attention_backward_plain(q, k, v, o_acc, lse, do, causal=causal,
                                               window=window)
     b, h, s, d = q.shape
@@ -276,6 +349,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:
         q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
     strides = [st for t in (q, k, v, o_acc, do, dq, dk, dvv) for st in _tma_strides(t)]
+    cost = backward_cost((b, h, kv, s, d, dv), q.dtype, causal, window)
+    if place == "meta":
+        _record("flash_attention_bwd", cost)
+        return dq, dk, dvv
     f = _build.fn("flash_attention_bwd", "rt_flash_attention_bwd",
                   [_build.VP] * 10 + [_build.I32] * 7 + [_build.I64] * 24
                   + [_build.I32, _build.I32, _build.F32, _build.VP])
@@ -286,6 +363,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 1.0 / math.sqrt(d), _build.stream_ptr())
     _build.check(err, f"flash_attention_bwd ({q.dtype}, d {d}, dv {dv})")
     LAUNCHES["flash_attention_bwd"] += 1
+    _record("flash_attention_bwd", cost)
     return dq, dk, dvv
 
 
@@ -293,7 +371,10 @@ class FlashAttention(torch.autograd.Function):
     """K11 with K11b as its backward: ``apply(q, k, v, causal, window,
     train)``.  With ``train`` (grad mode on) and an input that needs a
     gradient, the forward keeps q, k, v, lse and the fp32 output for the
-    backward; otherwise it is the serve path's launch."""
+    backward; otherwise it is the serve path's launch.  ``cost`` is a
+    training call's: K11 with lse, then K11b."""
+
+    cost = staticmethod(training_cost)
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int, train: bool):
@@ -311,3 +392,7 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_backward(q, k, v, o_acc, lse, do, causal=ctx.causal,
                                               window=ctx.window)
         return dq, dk, dv, None, None, None
+
+
+flash_attention.cost = forward_cost
+flash_attention_backward.cost = backward_cost

@@ -26,7 +26,8 @@ from repro_torch import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
-from repro_torch.models import LM
+from repro_torch.launch.mesh import axis_size, data_axis_size, make_host_mesh
+from repro_torch.models import LM, ShardRules
 from repro_torch.optim import adamw, apply_updates, clip_by_global_norm, cosine_schedule
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -72,10 +73,10 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), remat=False)
-    model = LM(cfg)
-    # one card is a data axis of 1; the reference takes max(2, its mesh's
-    # data axis): the mesh itself is launch/mesh.py, ROADMAP step 13i
-    n_clients = args.clients or max(2, 1)
+    mesh = make_host_mesh(device=dev)
+    rules = ShardRules(model_size=axis_size(mesh, "model"), batch_axes=("data",))
+    model = LM(cfg, rules)
+    n_clients = args.clients or max(2, data_axis_size(mesh))
     if args.batch % n_clients:
         n_clients = 1
 
@@ -93,7 +94,7 @@ def main(argv=None) -> dict:
     stream = TokenStream(cfg.vocab_size, args.batch, args.seq, seed=1)
     step_fn = build_train_step(model, opt, n_clients)
 
-    losses = []
+    losses, grad_norms = [], []
     t0 = time.time()
     for step in range(start_step, args.steps):
         batch = {k: torch.from_numpy(v) for k, v in next(stream).items()}
@@ -106,6 +107,7 @@ def main(argv=None) -> dict:
         batch = {k: v.to(dev) for k, v in batch.items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         losses.append(float(metrics["loss"]))
+        grad_norms.append(float(metrics["grad_norm"]))
         if (step + 1) % args.log_every == 0:
             dt = (time.time() - t0) / args.log_every
             toks = args.batch * args.seq / dt
@@ -122,7 +124,7 @@ def main(argv=None) -> dict:
     first = float(np.mean(losses[:10])) if len(losses) >= 10 else losses[0]
     last = float(np.mean(losses[-10:]))
     print(f"loss: first10={first:.4f} last10={last:.4f} (improved={last < first})")
-    return {"first": first, "last": last, "losses": losses}
+    return {"first": first, "last": last, "losses": losses, "grad_norms": grad_norms}
 
 
 if __name__ == "__main__":

@@ -179,16 +179,19 @@ def mla_decode(params, x, cache_c, cache_kr, pos: int, cfg: ModelConfig):
     """Absorbed decode: scores live in the r-dim latent space, so a token's
     cache is r + rope_head_dim numbers.  x: (b, 1, d); cache_c: (b, S, r);
     cache_kr: (b, S, rd); the new token's columns are written at ``pos`` in
-    place (the reference returns new caches).  Returns (out (b, 1, d),
-    cache_c, cache_kr)."""
+    place (the reference returns new caches), or, past the cache's end, at
+    its last slot: the reference's ``dynamic_update_slice`` clamps its start
+    index so (a windowed config, such as the dry run's long_500k, runs the
+    MLA cache that way).  Returns (out (b, 1, d), cache_c, cache_kr)."""
     q_nope = torch.einsum("bsd,dhk->bshk", x, params["wq_nope"])
     q_rope = torch.einsum("bsd,dhk->bshk", x, params["wq_rope"])
     at = torch.full((1,), pos, device=x.device)
     q_rope = apply_rope(q_rope, at, cfg.rope_theta)
     c_new = x @ params["w_dkv"]  # (b, 1, r)
     kr_new = apply_rope((x @ params["w_krope"])[:, :, None, :], at, cfg.rope_theta)[:, :, 0, :]
-    cache_c[:, pos] = c_new[:, 0].to(cache_c.dtype)
-    cache_kr[:, pos] = kr_new[:, 0].to(cache_kr.dtype)
+    slot = min(pos, cache_c.shape[1] - 1)
+    cache_c[:, slot] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[:, slot] = kr_new[:, 0].to(cache_kr.dtype)
     # absorb W_uk into q: (b, 1, h, hd) x (r, h, hd) -> (b, 1, h, r)
     q_eff = torch.einsum("bqhk,rhk->bqhr", q_nope, params["w_uk"])
     f32 = torch.float32

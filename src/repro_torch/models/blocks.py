@@ -31,8 +31,10 @@ def decoder_block_decl(cfg: ModelConfig) -> dict:
 
 
 def decoder_block_forward(params, x, positions, cfg: ModelConfig, *, window: int | None = None,
-                          collect_cache: bool = False):
-    """Returns (x, aux_loss) — or (x, aux_loss, cache_entry) when collecting."""
+                          collect_cache: bool = False, rules=None):
+    """Returns (x, aux_loss) — or (x, aux_loss, cache_entry) when collecting.
+    With ``cfg.moe_ep`` and ``rules`` holding a mesh, the MoE is the
+    expert-parallel ``moe_forward_ep``."""
     h = rmsnorm(params["ln_attn"], x, cfg.norm_eps)
     cache = None
     if cfg.kv_lora_rank:
@@ -50,7 +52,10 @@ def decoder_block_forward(params, x, positions, cfg: ModelConfig, *, window: int
     x = x + o
     h = rmsnorm(params["ln_mlp"], x, cfg.norm_eps)
     if cfg.n_experts:
-        y, aux = moe_mod.moe_forward(params["moe"], h, cfg)
+        if cfg.moe_ep and rules is not None and getattr(rules, "mesh", None) is not None:
+            y, aux = moe_mod.moe_forward_ep(params["moe"], h, cfg, rules)
+        else:
+            y, aux = moe_mod.moe_forward(params["moe"], h, cfg)
         x = x + y
     else:
         x, aux = x + mlp(params["mlp"], h), torch.zeros((), dtype=torch.float32, device=x.device)

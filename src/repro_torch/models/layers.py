@@ -2,16 +2,40 @@
 
 Port of ``repro.models.layers``.  Parameter trees are declared through
 :mod:`repro_torch.models.param`; activations are computed in the config
-dtype, norms, rotary angles and the cross-entropy in fp32.  The reference's
-``ShardRules`` (mesh sharding) has no counterpart on one card.
+dtype, norms, rotary angles and the cross-entropy in fp32.
+:class:`ShardRules` is the reference's: it names the mesh axes that
+``launch.specs`` places inputs and caches on, and its ``mesh`` (a
+``torch.distributed`` ``DeviceMesh``) is what the expert-parallel MoE
+(``moe.moe_forward_ep``) runs over.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.param import ParamDecl
+
+
+@dataclass(frozen=True, eq=False)
+class ShardRules:
+    """Maps logical dimensions to mesh axes, with divisibility fallbacks."""
+
+    model_size: int = 16  # size of the tensor-parallel mesh axis
+    batch_axes: tuple[str, ...] = ("data",)  # ("pod", "data") for multi-pod
+    model_axis: str = "model"
+    mesh: object = None  # a DeviceMesh: needed only by the expert-parallel MoE
+
+    def tp(self, dim: int):
+        """Tensor-parallel shard ``dim`` if divisible, else replicate."""
+        return self.model_axis if dim % self.model_size == 0 else None
+
+    @property
+    def batch(self):
+        return self.batch_axes if len(self.batch_axes) > 1 else self.batch_axes[0]
+
 
 # ---------------------------------------------------------------------------
 # norms

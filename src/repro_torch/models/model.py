@@ -7,12 +7,13 @@ after every ``cross_attn_every`` self-attention layers) and ``audio``
 (decoder blocks fed frame embeddings, ``embeddings_in``) families.  One
 :class:`LM` wraps a ModelConfig and provides
 
-  decls / init / param_count          — parameter machinery (see param.py)
+  decls / init / abstract / param_count — parameter machinery (see param.py)
   forward(params, batch)              — hidden states (training / prefill)
   loss(params, batch, n_clients)      — CE + aux + the FDA MMD head
   prefill(params, batch)              — last-token logits + the decode cache
   decode_step(params, cache, batch)   — one-token serve step with the cache
-  cache_shapes / init_cache           — cache trees (K/V, MLA's c/kr, SSM
+  cache_shapes / init_cache /         — cache trees (K/V, MLA's c/kr, SSM
+  abstract_cache
                                         state and conv tail, the hybrid's
                                         shared-attention K/V, the VLM's
                                         image K/V)
@@ -25,7 +26,9 @@ A batch holds ``tokens`` (b, s), or ``embeddings`` (b, s, d) for
 the stack (:meth:`LM.schedule`) replaces ``lax.scan``, and with
 ``cfg.remat`` each layer, the hybrid's shared attention and the VLM's cross
 block are checkpointed (``torch.utils.checkpoint``) where the reference
-wraps them in ``jax.checkpoint``.
+wraps them in ``jax.checkpoint``.  ``LM(cfg, rules)`` takes the
+reference's optional ``ShardRules``: where they hold a mesh and
+``cfg.moe_ep`` is set, the MoE blocks run expert-parallel over it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models.attention import gqa_decl, gqa_decode, gqa_forward, image_kv
 from repro_torch.models.fda_head import fda_decl, fda_loss
 from repro_torch.models.layers import (
+    ShardRules,
     cross_entropy,
     embed,
     embedding_decl,
@@ -47,7 +51,7 @@ from repro_torch.models.layers import (
     rmsnorm_decl,
     unembed,
 )
-from repro_torch.models.param import ParamDecl, materialize, param_count, stack_decls
+from repro_torch.models.param import ParamDecl, abstract, materialize, param_count, stack_decls
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _SSM_BLOCKS = ("ssm", "hybrid")
@@ -58,15 +62,26 @@ def layer_slice(tree, i: int):
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
+def layer_list(tree) -> list[dict]:
+    """Every layer of a stacked tree, each leaf unbound once: autograd then
+    assembles a stacked leaf's gradient with one stack, where a select per
+    layer would write a zero-filled copy of the whole stack per layer."""
+    leaves = {k: layer_list(v) if isinstance(v, dict) else torch.unbind(v)
+              for k, v in tree.items()}
+    n = len(next(iter(leaves.values())))
+    return [{k: v[i] for k, v in leaves.items()} for i in range(n)]
+
+
 def _stack(leaves: list[dict]) -> dict:
     return {k: torch.stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
 
 
 class LM:
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, rules: ShardRules | None = None):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family}")
         self.cfg = cfg
+        self.rules = rules or ShardRules()
 
     # ------------------------------------------------------------------
     # parameter declarations
@@ -98,6 +113,10 @@ class LM:
         """Parameters drawn from ``seed`` (see ``param.materialize``) on
         ``device`` (``None``: the CUDA card)."""
         return materialize(self.decls(), seed, device=resolve_device(device))
+
+    def abstract(self) -> dict[str, Any]:
+        """The parameters as empty ``meta`` tensors (a dry run's input)."""
+        return abstract(self.decls())
 
     def param_count(self) -> int:
         return param_count(self.decls())
@@ -149,7 +168,7 @@ class LM:
         if self.cfg.family in _SSM_BLOCKS:
             return B.ssm_block_forward(layer, x, self.cfg, collect_cache=collect_cache)
         return B.decoder_block_forward(layer, x, positions, self.cfg,
-                                       collect_cache=collect_cache)
+                                       collect_cache=collect_cache, rules=self.rules)
 
     def _shared_attn(self, params, x, positions, return_kv=False):
         """The hybrid's shared attention block (pre-norm residual)."""
@@ -176,14 +195,16 @@ class LM:
             return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
         auxs = []
+        blocks = layer_list(params["blocks"])
+        cross = layer_list(params["cross_blocks"]) if "cross_blocks" in params else []
         for kind, i in self.schedule():
             if kind == "block":
-                x, aux = run(self._block, layer_slice(params["blocks"], i), x, positions)
+                x, aux = run(self._block, blocks[i], x, positions)
                 auxs.append(aux)
             elif kind == "attn":
                 x = run(self._shared_attn, params["shared_attn"], x, positions)
             else:
-                x = run(self._cross, layer_slice(params["cross_blocks"], i), x, img)
+                x = run(self._cross, cross[i], x, img)
         return self._finish(params, x), torch.mean(torch.stack(auxs))
 
     def prefill(self, params, batch):
@@ -266,17 +287,26 @@ class LM:
             shapes["img_k"] = shapes["img_v"] = (n_cross, batch, cfg.n_image_tokens, *kv)
         return shapes
 
+    def _cache_tree(self, batch: int, s_cache: int, maker):
+        def walk(tree):
+            return {k: walk(v) if isinstance(v, dict) else maker(
+                v, dtype=torch.float32 if k == "ssm" else self.cfg.dtype)
+                for k, v in tree.items()}
+
+        return walk(self.cache_shapes(batch, s_cache))
+
     def init_cache(self, batch: int, s_cache: int, *, device=None):
         """Zeros of ``cache_shapes``: the SSM state in fp32, the rest in
         ``cfg.dtype``."""
         dev = resolve_device(device)
+        return self._cache_tree(batch, s_cache,
+                                lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev))
 
-        def zeros(tree):
-            return {k: zeros(v) if isinstance(v, dict) else torch.zeros(
-                v, dtype=torch.float32 if k == "ssm" else self.cfg.dtype, device=dev)
-                for k, v in tree.items()}
-
-        return zeros(self.cache_shapes(batch, s_cache))
+    def abstract_cache(self, batch: int, s_cache: int):
+        """``init_cache``'s tree as empty ``meta`` tensors."""
+        return self._cache_tree(batch, s_cache,
+                                lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                                                 device="meta"))
 
     def decode_step(self, params, cache, batch, pos: int):
         """One token for the whole stack. batch: tokens (b, 1), or embeddings

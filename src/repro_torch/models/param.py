@@ -19,8 +19,12 @@ uniform an element, transforms them 16 at a time, and redraws a tail that
 16 does not divide as the last 16.  Leaves have their own generators, so
 they are drawn on ``THREADS`` host threads at once with the same values.
 
-The mesh machinery (``spec``, ``specs``, ``abstract``) has no counterpart:
-the port runs on one card.
+:func:`abstract` is the reference's ``abstract``: every declaration becomes
+an empty tensor on the ``meta`` device, with its shape and dtype and no
+storage and nothing drawn, the input of a dry run (``launch.dryrun``).  The
+reference's ``spec`` and ``specs`` (a PartitionSpec per leaf) have no
+counterpart: the port's ``LM`` has no tensor parallelism
+(``launch.specs`` gives the placements of the inputs and caches).
 """
 from __future__ import annotations
 
@@ -127,6 +131,14 @@ def materialize(decls, seed: int | torch.Generator, path: str = "", *, device=No
         return drawn[tree]
 
     return build(skeleton)
+
+
+def abstract(decls):
+    """The tree of declarations as empty ``meta`` tensors of their shapes and
+    dtypes: nothing is drawn or allocated."""
+    if isinstance(decls, dict):
+        return {k: abstract(v) for k, v in decls.items()}
+    return torch.empty(decls.shape, dtype=decls.dtype, device="meta")
 
 
 def stack_decls(decls, n: int):

@@ -234,12 +234,6 @@ def test_zero_router_ties_route_like_reference(top_k):
         assert abs(float(taux) - 1.0) < 1e-2
 
 
-def test_moe_forward_ep_raises_naming_its_step():
-    cfg = port_config(mk(family="moe", n_experts=4, top_k=2, d_ff=32))
-    with pytest.raises(NotImplementedError, match="step 13i"):
-        tmoe.moe_forward_ep({}, torch.zeros((1, 2, 64)), cfg)
-
-
 # ---------------------------------------------------------------------------
 # MLA: prefill through K11's plain version, absorbed decode
 # ---------------------------------------------------------------------------

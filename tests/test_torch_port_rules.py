@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _port_files():
-    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -337,8 +338,8 @@ def test_lm_loss_and_other_blocks_raise():
     """LM.loss runs since step 13b (its parity is tests/test_torch_train.py's);
     MoE and MLA blocks run since steps 13c and 13d (tests/test_torch_moe.py),
     the SSM, hybrid, cross-attention and audio families since 13e-13h
-    (tests/test_torch_ssm.py, tests/test_torch_vlm_audio.py); only the
-    expert-parallel MoE still raises, waiting for the mesh (13i)."""
+    (tests/test_torch_ssm.py, tests/test_torch_vlm_audio.py), and the
+    expert-parallel MoE since 13i (tests/test_torch_moe_ep.py)."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.models import LM, moe
 
@@ -348,8 +349,7 @@ def test_lm_loss_and_other_blocks_raise():
     toks = torch.zeros((2, 4), dtype=torch.long)
     total, parts = model.loss(params, {"tokens": toks, "labels": toks}, 2)
     assert set(parts) == {"ce", "aux", "mmd"} and bool(torch.isfinite(total))
-    with pytest.raises(NotImplementedError, match="step 13i"):
-        moe.moe_forward_ep({}, toks, cfg)
+    assert callable(moe.moe_forward_ep)
     assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         assert LM(get_config(arch)).param_count() > 0
@@ -378,8 +378,8 @@ SLICE15_MODULES = ("models/ssm.py",)
 
 def test_last_families_slice_modules_are_in_the_import_guard():
     """The SSM module exists and falls under the jax/repro guard; under
-    ``models/`` the only ``NotImplementedError`` left is the expert-parallel
-    MoE's, naming step 13i."""
+    ``models/`` no ``NotImplementedError`` is left (the expert-parallel MoE's,
+    naming step 13i, went with step 13i)."""
     files = set(_port_files())
     for rel in SLICE15_MODULES:
         path = ROOT / "src" / "repro_torch" / rel
@@ -390,4 +390,36 @@ def test_last_families_slice_modules_are_in_the_import_guard():
         for node in ast.walk(ast.parse(f.read_text())):
             if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
                 raising.append((f.name, ast.unparse(node)))
-    assert len(raising) == 1 and raising[0][0] == "moe.py" and "step 13i" in raising[0][1], raising
+    assert raising == [], raising
+
+
+SLICE16_MODULES = ("launch/roofline.py", "launch/mesh.py", "launch/specs.py", "launch/dryrun.py",
+                   "launch/roofline_sweep.py")
+# the abstract base methods (ROADMAP): a subclass implements each
+ABSTRACT_RAISES = {("robust/rules.py", 77), ("comm/codecs.py", 102), ("comm/codecs.py", 105),
+                   ("comm/codecs.py", 108), ("comm/transport.py", 186), ("comm/netsim.py", 50)}
+
+
+def test_every_reference_module_has_a_counterpart_and_nothing_is_left_raising():
+    """Every module of the reference's ``launch/`` and ``models/`` has a file of
+    the same name under ``src/repro_torch/``, the launch tools and the examples
+    fall under the jax/repro guard, and no function of the port raises
+    ``NotImplementedError`` but the abstract base methods."""
+    files = set(_port_files())
+    for pkg in ("launch", "models"):
+        for ref in sorted((ROOT / "src" / "repro" / pkg).glob("*.py")):
+            assert ROOT / "src" / "repro_torch" / pkg / ref.name in files, f"{pkg}/{ref.name}"
+    for rel in SLICE16_MODULES:
+        path = ROOT / "src" / "repro_torch" / rel
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}, rel
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert [p.name for p in examples] == ["torch_federated_adaptation.py",
+                                          "torch_quickstart.py", "torch_serve_batch.py",
+                                          "torch_train_lm.py"]
+    assert all(p in files for p in examples)
+    raising = set()
+    for f in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Raise) and "NotImplementedError" in ast.unparse(node):
+                raising.add((str(f.relative_to(ROOT / "src" / "repro_torch")), node.lineno))
+    assert raising == ABSTRACT_RAISES, sorted(raising ^ ABSTRACT_RAISES)
