@@ -362,7 +362,32 @@ Phases (any failed check raises, and the run exits non-zero):
             for zamba2 at hd 112 (and the SSD scan's backward through
             autograd; phase 15 checks and times K11b in bf16 at zamba2's
             prefill shape);
- 19. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 19. the LM on a (data, model) mesh (``tp_phase``): K11 and K11b at the
+     ranks' local shape (4, 3, 1, 2048, 64) bf16 causal, timed beside plain
+     and ``scaled_dot_product_attention`` (forward and backward); then six
+     processes on this card (``tp_worker``), one gloo rank each, a (data 2,
+     model 3) ``DeviceMesh`` (gloo's all-gathers and reduce-scatters of CUDA
+     tensors staged through host memory, counted and printed), each rank's
+     launch counts zeroed just before a run and read just after:
+       TP   smollm-135m whole (30 layers, bf16, remat, ``sharded_ce``) from
+            T's state (``LM.init(0)``, its TokenStream batches), each rank
+            its shards (3 of 9 heads, 1 of 3 KV heads, d_ff 512, vocabulary
+            16384, d 192 in the embedding) and 4 of 8 sequences: a prefill
+            of 8 x 2048 (first, warm; K11 30 launches, its reported work 30
+            calls at (4, 3, 1, 2048, 64)) and 3 ``build_train_step`` steps
+            (T's optimizer; K11 60 and K11b 30 a step at that shape); rank 0
+            reports each step;
+       TPC  fp32, layer by layer from the unsharded run's state on 2 x 2048
+            tokens: the embedding, each layer's output and K/V, the last
+            logits within 1e-3 x max(1, max|x|) (LC's rule);
+       TPG  TC's model (2 layers at full width, fp32, 2 x 128): the loss and
+            every gradient leaf (summed over data, gathered) against the
+            unsharded run on the card under TC's nudge rule;
+       DRM  ``launch.dryrun`` at ``--mesh single`` (smollm-135m, train_4k,
+            30 layers, the fake group of 256 ranks, meta tensors): its
+            products, collective bytes by kind and K11 / K11b reported work
+            equal to the sandbox CPU's (``DRM_EXPECT``);
+ 20. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches, K1, K4 and K5 with the serve runs' launches by run), the
      card's name and power limit, and the result line.
@@ -452,6 +477,8 @@ K11_SWEEP = ((1, 2, 1, 128, 32, 32), (2, 4, 2, 128, 16, 16), (1, 4, 4, 256, 32, 
              (2, 8, 2, 64, 64, 64))
 LM_ARCH, L_BATCH, L_PROMPT, L_GEN = "smollm-135m", 8, 2048, 32  # SmolLM's context: 2048
 K11_SERVE = (L_BATCH, 9, 3, L_PROMPT, 64, 64)  # smollm-135m: 9 heads, 3 KV heads, hd 64
+# phase 19's local shape: K11_SERVE's batch over data 2, its heads over model 3
+K11_TP = (L_BATCH // 2, 3, 1, L_PROMPT, 64, 64)
 K11_HD128 = (1, 16, 8, 4096, 128, 128)
 # deepseek-v2-lite's MLA prefill (src/repro/configs/deepseek_v2_lite_16b.py:
 # 16 heads, d = 128 + 64 rope, dv 128; src/repro/models/attention.py:248-261)
@@ -484,7 +511,8 @@ K11_CHECK = tuple(
     for dtype in ("float32", "bfloat16") for window in (0, 48)) + (
     (*K11_SERVE, "bfloat16", True, 0), (*K11_HD128, "bfloat16", True, 0),
     (*K11_Q, "bfloat16", True, 0), (*K11_DS, "bfloat16", True, 0),
-    (*K11_Z, "bfloat16", True, 0), (*K11_V, "bfloat16", True, 0), (*K11_U, "bfloat16", True, 0))
+    (*K11_Z, "bfloat16", True, 0), (*K11_V, "bfloat16", True, 0), (*K11_U, "bfloat16", True, 0),
+    (*K11_TP, "bfloat16", True, 0))
 K11_F32_ATOL, K11_BF16_ATOL = 2e-5, 3e-2  # tests/test_kernels.py:174-177
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 # LC: card against CPU at fp32; LH: the prefill -> decode handoff
@@ -527,6 +555,20 @@ K11B_TIMED = (K11_SERVE, K11_HD128, K11_Z)  # K11_Z: zamba2-7b's hd 112
 K11B_RTOL, K11B_LSE_ATOL = 1e-4, 2e-5  # on max(1, max|plain|); lse absolute
 T_BATCH, T_SEQ, T_CLIENTS, T_STEPS, T_LR, T_WARMUP = 8, 2048, 2, 30, 3e-4, 10
 TC_LAYERS, TC_BATCH, TC_SEQ, TC_RTOL = 2, 2, 128, 1e-4
+# phase 19: a (data, model) mesh of gloo ranks on the one card, T's model and state
+TP_DATA, TP_MODEL, TP_STEPS, TP_TIMEOUT_S = 2, 3, 3, 400
+TP_LC_BATCH, TP_LC_SEQ, TP_LC_RTOL = 2, 2048, 1e-3  # LC's rule, layer by layer
+TP_G_BATCH = 2  # TC's batch, one sequence a data rank
+# the (16, 16) mesh's count of smollm-135m's train_4k step on meta tensors (fake
+# group), as ``python -m repro_torch.launch.dryrun --arch smollm-135m --shape
+# train_4k --mesh single`` gives it on the CPU
+DRM_EXPECT = dict(
+    flops=17003257921536,
+    coll_by_kind={"all_reduce": 4676981388, "all_gather": 6517948416, "reduce_scatter": 0,
+                  "all_to_all": 0},
+    kernels={"flash_attention": {"calls": 60, "flops": 18558788567040, "bytes": 21280849920},
+             "flash_attention_bwd": {"calls": 30, "flops": 23198485708800,
+                                     "bytes": 14415298560}})
 BL_MLP_ATOL = 0.02  # MLP-trained accuracies, card vs CPU
 BL_WIDE_N, BL_WIDE_M = 1000, 32
 # phase 16, the MoE family (src/repro/configs/qwen3_moe_235b_a22b.py and
@@ -2306,6 +2348,361 @@ def launch_phase(torch, dev, counters) -> tuple[dict, dict]:
             f"{got['flash_attention']}")
         del p_cpu, g_card, g_cpu, g_nudge, ft
     return runs, by_run
+
+
+def tp_worker(rank: int, port: int, out_path: str) -> int:
+    """One rank of phase 19 (``python3 chip_smoke.py --tp-rank R --tp-port P
+    --tp-out F``, started by :func:`tp_phase`): smollm-135m SPMD over a (data
+    TP_DATA, model TP_MODEL) mesh of gloo ranks, every rank on ``cuda:0``.
+    Rank 0 writes its runs, launches and the staged-collective counts to
+    ``out_path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(SRC))
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import build_train_step, sum_over_data
+    from repro_torch.models import LM, ShardRules
+    from repro_torch.models import parallel
+    from repro_torch.models.model import layer_slice
+    from repro_torch.models.param import shard, unshard
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.utils.tree import tree_flatten_with_paths, tree_map, tree_unflatten_like
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    world = TP_DATA * TP_MODEL
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    runs, launches = {}, {}
+    try:
+        mesh = make_host_mesh(model=TP_MODEL)
+        if tuple(mesh.shape) != (TP_DATA, TP_MODEL):
+            raise AssertionError(f"TP: mesh {tuple(mesh.shape)}")
+        rules = ShardRules(model_size=TP_MODEL, batch_axes=("data",), mesh=mesh)
+        d_idx = mesh.get_local_rank("data")
+
+        def rows(t, b):
+            return t[d_idx * b // TP_DATA:(d_idx + 1) * b // TP_DATA]
+
+        def sync():
+            torch.cuda.synchronize()
+            dist.barrier()
+
+        def zero():
+            fa.LAUNCHES["flash_attention"] = fa.LAUNCHES["flash_attention_bwd"] = 0
+            for k in ("flash_attention", "flash_attention_bwd"):
+                for f in ("calls", "flops", "bytes"):
+                    fa.COST[k][f] = 0
+
+        # ---- TP: the whole model at bf16 (T's state, sharded_ce's logits kept sharded)
+        cfg = replace(get_config(LM_ARCH), sharded_ce=True)
+        model = LM(cfg, rules)
+        whole = LM(cfg).init(SEED, device=dev)
+        params = shard(whole, model.specs(), mesh)
+        del whole
+        stream = TokenStream(cfg.vocab_size, T_BATCH, T_SEQ, seed=1)
+        batches = [{k: rows(torch.from_numpy(v), T_BATCH).to(dev) for k, v in next(
+            stream).items()} for _ in range(TP_STEPS)]
+        prompts = {"tokens": batches[0]["tokens"][:, :L_PROMPT].contiguous()}
+        local = (T_BATCH // TP_DATA, cfg.n_heads // TP_MODEL, cfg.n_kv_heads // TP_MODEL,
+                 L_PROMPT, cfg.hd, cfg.hd)
+        prefill = torch.no_grad()(model.prefill)
+        pre_ms = []
+        for i in range(2):  # first, warm
+            sync()
+            zero()
+            t0 = time.perf_counter()
+            logits, cache = prefill(params, prompts)
+            sync()
+            pre_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                launches["TP-prefill"] = dict(fa.LAUNCHES)
+                cost = dict(fa.COST["flash_attention"])
+        want = fa.forward_cost(local, torch.bfloat16, True, 0)
+        if cost != dict(calls=cfg.n_layers, flops=cfg.n_layers * want[0],
+                        bytes=cfg.n_layers * want[1]):
+            raise AssertionError(f"TP prefill: K11 reported {cost}, not {cfg.n_layers} calls at "
+                                 f"the local shape {local}")
+        if not bool(torch.isfinite(logits.float()).all()):
+            raise AssertionError("TP prefill: non-finite logits")
+        del logits, cache
+        opt = adamw(cosine_schedule(T_LR, warmup=T_WARMUP, total=T_STEPS), weight_decay=0.01)
+        step_fn = build_train_step(model, opt, T_CLIENTS)
+        state = opt.init(params)
+        losses, gnorms, step_ms = [], [], []
+        sync()
+        zero()
+        for i, batch in enumerate(batches):
+            t0 = time.perf_counter()
+            params, state, met = step_fn(params, state, batch)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            if rank == 0:
+                log(f"[run TP] step {i + 1}: loss {losses[-1]:.5f}, ce {float(met['ce']):.5f}, "
+                    f"mmd {float(met['mmd']):.5f}, gradient norm {gnorms[-1]:.4g}, "
+                    f"{step_ms[-1]:.1f} ms")
+        launches["TP-train"] = dict(fa.LAUNCHES)
+        bwd = fa.backward_cost(local, torch.bfloat16, True, 0)
+        if dict(fa.COST["flash_attention_bwd"]) != dict(
+                calls=cfg.n_layers * TP_STEPS, flops=cfg.n_layers * TP_STEPS * bwd[0],
+                bytes=cfg.n_layers * TP_STEPS * bwd[1]):
+            raise AssertionError(f"TP train: K11b reported {fa.COST['flash_attention_bwd']}, "
+                                 f"not {cfg.n_layers} calls a step at {local}")
+        if launches["TP-train"] != {"flash_attention": 2 * cfg.n_layers * TP_STEPS,
+                                    "flash_attention_bwd": cfg.n_layers * TP_STEPS}:
+            raise AssertionError(f"TP train: K11 / K11b launched {launches['TP-train']}")
+        if not np.isfinite(losses + gnorms).all():
+            raise AssertionError(f"TP: non-finite loss or norm {losses} {gnorms}")
+        runs["TP"] = dict(
+            arch=LM_ARCH, dtype="bfloat16", n_layers=cfg.n_layers, remat=cfg.remat,
+            mesh=[TP_DATA, TP_MODEL], ranks_on_one_card=world, sharded_ce=True,
+            batch=T_BATCH, seq=T_SEQ, local_batch=T_BATCH // TP_DATA, k11_local_shape=list(local),
+            prefill_ms=pre_ms, losses=losses, grad_norm=gnorms, step_ms=step_ms,
+            step_ms_p50=float(np.median(step_ms[1:])),
+            tokens_per_s=T_BATCH * T_SEQ / (float(np.median(step_ms[1:])) / 1e3),
+            launches=launches)
+        del params, state, batches, step_fn, prompts
+
+        # ---- TPC: fp32, layer by layer from the unsharded run's state (LC's rule)
+        c32 = replace(cfg, dtype=torch.float32, remat=False)
+        plain, spmd = LM(c32), LM(c32, rules)
+        whole = plain.init(SEED, device=dev)
+        params = shard(whole, spmd.specs(), mesh)
+        toks = torch.from_numpy(next(TokenStream(cfg.vocab_size, TP_LC_BATCH, TP_LC_SEQ,
+                                                 seed=2))["tokens"]).to(dev)
+        worst, pos = 0.0, torch.arange(TP_LC_SEQ, device=dev)
+        par_, one = spmd._par(), plain._par()
+        with torch.no_grad():
+            x = plain._embed_in(whole, {"tokens": toks}, one)
+            xs = spmd._embed_in(params, {"tokens": rows(toks, TP_LC_BATCH)}, par_)
+            worst = max(worst, lc_err(xs, rows(x, TP_LC_BATCH)))
+            kv_sl = slice(mesh.get_local_rank("model") * c32.n_kv_heads // TP_MODEL,
+                          (mesh.get_local_rank("model") + 1) * c32.n_kv_heads // TP_MODEL)
+            for i in range(c32.n_layers):
+                y, _, c = plain._block(layer_slice(whole["blocks"], i), x, pos, one, True)
+                ys, _, cs = spmd._block(layer_slice(params["blocks"], i),
+                                        rows(x, TP_LC_BATCH), pos, par_, True)
+                for a, b in ((ys, y), (cs["k"], c["k"][:, :, kv_sl]),
+                             (cs["v"], c["v"][:, :, kv_sl])):
+                    worst = max(worst, lc_err(a, rows(b, TP_LC_BATCH)))
+                x = y
+            lg = spmd._last_logits(params, rows(x, TP_LC_BATCH), par_)
+            worst = max(worst, lc_err(lg, rows(plain._last_logits(whole, x), TP_LC_BATCH)))
+        errs = torch.tensor([worst], dtype=torch.float64)
+        dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+        worst = float(errs[0])
+        if not worst <= TP_LC_RTOL:
+            raise AssertionError(f"TPC: a layer's output or K/V {worst:.3g} of max(1, max|x|) "
+                                 f"from the unsharded run's, past {TP_LC_RTOL}")
+        runs["TPC"] = dict(dtype="float32", n_layers=c32.n_layers, batch=TP_LC_BATCH,
+                           seq=TP_LC_SEQ, rel_max=worst, gate=TP_LC_RTOL)
+        del whole, params, plain, spmd
+
+        # ---- TPG: TC's model (2 layers at full width, fp32): loss and every
+        # gradient leaf against the unsharded run on the card, TC's nudge rule
+        tg = get_config(LM_ARCH).reduced(
+            n_layers=TC_LAYERS, d_model=cfg.d_model, n_heads=cfg.n_heads,
+            n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, d_ff=cfg.d_ff,
+            vocab_size=cfg.vocab_size, fda_n_rff=cfg.fda_n_rff, fda_m=cfg.fda_m,
+            dtype=torch.float32)
+        plain, spmd = LM(tg), LM(tg, rules)
+        whole = plain.init(SEED, device=dev)
+        params = shard(whole, spmd.specs(), mesh)
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            TokenStream(tg.vocab_size, TP_G_BATCH, TC_SEQ, seed=1)).items()}
+
+        def grads(model, p, batch):
+            live = tree_map(lambda t: t.detach().requires_grad_(), p)
+            loss, _ = model.loss(live, batch, T_CLIENTS)
+            paths, leaves = tree_flatten_with_paths(live)
+            g = torch.autograd.grad(loss, leaves, allow_unused=True)
+            g = [torch.zeros_like(a) if b is None else b for a, b in zip(leaves, g)]
+            return float(loss.detach()), tree_unflatten_like(live, g)
+
+        l_s, g_s = grads(spmd, params, {k: rows(v, TP_G_BATCH) for k, v in tb.items()})
+        g_s = unshard(tree_unflatten_like(g_s, sum_over_data(
+            tree_flatten_with_paths(g_s)[1], parallel.Par(rules))), spmd.specs(), mesh)
+        l_p, g_p = grads(plain, whole, tb)
+        gen = torch.Generator().manual_seed(1)
+        _, g_n = grads(plain, tree_map(
+            lambda t: t * (1 + 1e-7 * torch.randn(t.shape, generator=gen).to(dev)), whole), tb)
+        units = 0.0
+        for (k, a), b, n in zip(zip(*tree_flatten_with_paths(g_s)),
+                                tree_flatten_with_paths(g_p)[1], tree_flatten_with_paths(g_n)[1]):
+            e, moved = lc_err(a, b), lc_err(n, b)
+            units = max(units, e / (TC_RTOL + 4 * moved))
+            if not e <= TC_RTOL + 4 * moved:
+                raise AssertionError(f"TPG: gradient {k} sharded vs unsharded {e:.3g}, past "
+                                     f"{TC_RTOL} + 4 x the 1e-7-nudge movement {moved:.3g}")
+        if not abs(l_s - l_p) <= TC_RTOL * max(1.0, abs(l_p)):
+            raise AssertionError(f"TPG: loss sharded {l_s} unsharded {l_p}")
+        runs["TPG"] = dict(dtype="float32", n_layers=TC_LAYERS, batch=TP_G_BATCH, seq=TC_SEQ,
+                           loss=l_s, loss_unsharded=l_p, gate_units=units)
+        runs["TP"]["staged"] = dict(parallel.STAGED)
+        sync()
+        if rank == 0:
+            Path(out_path).write_text(json.dumps(dict(runs=runs)))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def lc_err(a, b) -> float:
+    """LC's measure: max |a - b| over max(1, max|b|)."""
+    b = b.float()
+    return float((a.float() - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def tp_kernel_errors(torch, fa, q, k, v, o_acc, lse, do) -> dict:
+    """K11 and K11b against their plain versions on one of phase 19's timed
+    inputs (bf16 causal), under phase 11's and phase 15's gates: K11 within
+    one bf16 ULP of plain + K11_F32_ATOL and K11_BF16_ATOL x max(1, max|plain|);
+    lse within K11B_LSE_ATOL; dq, dk, dv within one bf16 ULP of plain plus
+    K11B_RTOL x max(1, max|plain|), plain being autograd of the plain forward
+    on the inputs' fp32 values, rounded once.  Returns the max abs errors."""
+    def ulp(x):
+        return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(2.0**-126))) - 7)
+
+    out = fa.flash_attention(q, k, v, causal=True)
+    plain, lse_p, _ = fa.flash_attention_plain(q, k, v, causal=True, return_lse=True)
+    e = (out.float() - plain.float()).abs()
+    cap = K11_BF16_ATOL * max(1.0, float(plain.float().abs().max()))
+    if not (bool((e <= ulp(plain) + K11_F32_ATOL).all()) and float(e.max()) <= cap):
+        raise AssertionError(f"K11 TP local shape: max abs err {float(e.max())} past the bf16 "
+                             f"gate")
+    res = dict(K11=float(e.max()), lse=float((lse - lse_p).abs().max()), K11b_by_leaf={})
+    if not res["lse"] <= K11B_LSE_ATOL:
+        raise AssertionError(f"K11 TP local shape: lse {res['lse']} > {K11B_LSE_ATOL}")
+    got = fa.flash_attention_backward(q, k, v, o_acc, lse, do, causal=True)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(fa.flash_attention_plain(*leaves, causal=True), leaves,
+                               do.float())
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.to(a.dtype).float()
+        e = (a.float() - w).abs()
+        if not bool((e <= ulp(w) + K11B_RTOL * max(1.0, float(w.abs().max()))).all()):
+            raise AssertionError(f"K11b TP local shape {name}: past the bf16 gate (max abs err "
+                                 f"{float(e.max())})")
+        res["K11b_by_leaf"][name] = float(e.max())
+    res["K11b"] = max(res["K11b_by_leaf"].values())
+    return res
+
+
+def tp_phase(torch, dev) -> tuple[dict, dict, dict]:
+    """Phase 19: K11 and K11b timed at the ranks' local shape, then six rank
+    processes on this card (:func:`tp_worker`), then the (16, 16) mesh's
+    dry-run count of smollm-135m's train step against the sandbox CPU's.
+    Returns (runs, K11 row fields, K11b row fields)."""
+    import socket
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    local = (T_BATCH // TP_DATA, 9 // TP_MODEL, 3 // TP_MODEL, T_SEQ, 64, 64)
+    if local != K11_TP:
+        raise AssertionError(f"TP: the ranks' local shape {local} is not K11_CHECK's {K11_TP}")
+    copies = k11b_copies(torch, fa, local)
+    err = tp_kernel_errors(torch, fa, *copies[0])
+    turn = itertools.cycle(copies)
+    flops, nbytes = fa.forward_cost(local, torch.bfloat16, True, 0)
+    f_ms, f_by = bound_ms(flops, nbytes, peak_flops=PEAK_BF16_FLOPS)
+    kt = timed(torch, lambda: fa.flash_attention(*next(turn)[:3]), 20)
+    pt = timed(torch, lambda: fa.flash_attention_plain(*next(turn)[:3]), 5)
+    lt = timed(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        *next(turn)[:3], is_causal=True, enable_gqa=True), 20)
+    k11 = dict(shape=f"{local} bf16 causal", ms=kt["ms"], host_ms=kt["host_ms"],
+               queued=kt["queued"], plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=f_ms,
+               bound_by=f_by, plan=fa.bf16_plan(*local), max_abs_err=err["K11"])
+    bt = k11b_times(torch, fa, copies)
+    bflops, bbytes = fa.backward_cost(local, torch.bfloat16, True, 0)
+    b_ms, b_by = bound_ms(bflops, bbytes, peak_flops=PEAK_BF16_FLOPS)
+    k11b = dict(shape=f"{local} bf16 causal", ms=bt["ms"], host_ms=bt["host_ms"],
+                queued=bt["queued"], plain_ms=bt["plain_ms"], library_ms=bt["library_ms"],
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err["K11b"],
+                max_abs_err_by_leaf=err["K11b_by_leaf"], lse_err=err["lse"])
+    del copies, turn
+    log(f"[K11] TP local shape {local} bf16 causal against plain: K11 max abs err "
+        f"{err['K11']:.3g} (K11_CHECK's bf16 gate), lse {err['lse']:.3g}; K11b dq, dk, dv "
+        f"{err['K11b_by_leaf']} (K11B_RTOL's bf16 gate)")
+    log(f"[K11] TP local shape {local} bf16 causal: kernel {kt['ms']:.4f} ms (host "
+        f"{kt['host_ms']:.4f} ms), plain {pt['ms']:.4f} ms, scaled_dot_product_attention "
+        f"{lt['ms']:.4f} ms, bound {f_ms:.4f} ms ({f_by}); K11b {bt['ms']:.4f} ms (host "
+        f"{bt['host_ms']:.4f} ms), plain {bt['plain_ms']:.4f} ms, SDPA's backward "
+        f"{bt['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = ROOT / "build" / "tp_rank0.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank", str(r),
+                               "--tp-port", str(port), "--tp-out", str(out)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(TP_DATA * TP_MODEL)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for line in outs[0].splitlines():
+        if line.startswith("[run TP]"):
+            log(line)
+    if any(p.returncode != 0 for p in procs):
+        bad = [(r, p.returncode, outs[r][-3000:]) for r, p in enumerate(procs)
+               if p.returncode != 0]
+        raise AssertionError(f"TP: rank processes failed: {bad}")
+    runs = json.loads(out.read_text())["runs"]
+    runs["TP"]["workers_s"] = time.perf_counter() - t0
+
+    # the dry run's per-card count of the (16, 16) mesh on this machine
+    rec, count = dryrun.lower_combo(LM_ARCH, "train_4k", "single")
+    got = dict(flops=count.flops, coll_by_kind=dict(count.coll_by_kind),
+               kernels={k: dict(v) for k, v in count.kernels.items()})
+    if got != DRM_EXPECT:
+        raise AssertionError(f"DRM: the (16, 16) mesh's count {got} is not the CPU's "
+                             f"{DRM_EXPECT}")
+    runs["DRM"] = dict(arch=LM_ARCH, shape="train_4k", mesh=rec["mesh"], n_chips=rec["n_chips"],
+                       equal_to_cpu=True, roofline=rec["roofline"],
+                       useful_flops_ratio=rec["useful_flops_ratio"], memory=rec["memory"])
+    r = runs["TP"]
+    log(f"[run TP] {LM_ARCH} bf16, {r['n_layers']} layers, mesh (data {TP_DATA}, model "
+        f"{TP_MODEL}) of {r['ranks_on_one_card']} gloo ranks on this one card: prefill "
+        f"{T_BATCH} x {L_PROMPT} first {r['prefill_ms'][0]:.1f} ms, warm {r['prefill_ms'][1]:.1f} "
+        f"ms; {TP_STEPS} train steps p50 {r['step_ms_p50']:.1f} ms ({r['tokens_per_s']:.0f} "
+        f"tokens/s), losses {r['losses']}; K11 / K11b at the local shape {tuple(local)}: "
+        f"{r['launches']}; collectives staged through host memory {r['staged']}; rank "
+        f"processes {r['workers_s']:.1f} s")
+    log(f"[run TPC] fp32, {runs['TPC']['n_layers']} layers layer by layer from the unsharded "
+        f"run's state, {TP_LC_BATCH} x {TP_LC_SEQ}: outputs, K/V and logits within "
+        f"{runs['TPC']['rel_max']:.3g} of max(1, max|x|) (gate {TP_LC_RTOL})")
+    log(f"[run TPG] fp32, {TC_LAYERS} layers at full width, {TP_G_BATCH} x {TC_SEQ}: loss "
+        f"{runs['TPG']['loss']:.6f} (unsharded {runs['TPG']['loss_unsharded']:.6f}), every "
+        f"gradient leaf within {runs['TPG']['gate_units']:.3f} gate units of TC's nudge rule")
+    log(f"[run DRM] {LM_ARCH} train_4k on the 16x16 mesh (fake group, meta): products "
+        f"{count.flops}, collectives {dict(count.coll_by_kind)}, equal to the CPU's count")
+    runs["TP"]["phase_19_s"] = time.perf_counter() - t_phase
+    return runs, k11, k11b
 
 
 def main() -> int:
@@ -4243,6 +4640,17 @@ def main() -> int:
     runs["FT-M"]["phase_18_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 18 (DR, EP, EX, FT) {runs['FT-M']['phase_18_s']:.1f} s")
 
+    # ---- 19. the LM on a (data, model) mesh: TP, TPC, TPG, DRM -------------------
+    tp_runs, k11_tp, k11b_tp = tp_phase(torch, dev)
+    runs.update(tp_runs)
+    report["K11"]["tp_local"], report["K11b"]["tp_local"] = k11_tp, k11b_tp
+    tp_launch = tp_runs["TP"]["launches"]
+    launch_by_run.setdefault("K11", {}).update(
+        {t: tp_launch[t]["flash_attention"] for t in ("TP-prefill", "TP-train")})
+    launch_by_run.setdefault("K11b", {})["TP-train"] = tp_launch["TP-train"][
+        "flash_attention_bwd"]
+    log(f"[time] phase 19 (TP, TPC, TPG, DRM) {tp_runs['TP']['phase_19_s']:.1f} s")
+
     la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
     served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}
     for key, runs_of, count in (
@@ -4280,4 +4688,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-rank"]:  # one rank of phase 19, started by tp_phase
+        sys.exit(tp_worker(int(sys.argv[2]), int(sys.argv[4]), sys.argv[6]))
     sys.exit(main())

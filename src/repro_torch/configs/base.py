@@ -5,10 +5,12 @@ copy verbatim; ``dtype`` is a torch dtype.  ``remat`` checkpoints each layer
 in training (``models.model.LM.forward``); ``sharded_ce`` picks the
 reference's second cross-entropy form, which gives the same numbers.
 ``moe_ep`` makes an ``LM`` whose ``ShardRules`` hold a mesh run its MoE
-blocks expert-parallel over that mesh (``models.moe.moe_forward_ep``); with
-no mesh it changes nothing.  The other TPU switches (``unroll_scan``,
-``causal_skip``, ``seq_parallel``) are accepted and change nothing here:
-none of them changes the math, only how XLA schedules or shards it.
+blocks expert-parallel over that mesh (``models.moe.moe_forward_ep``);
+``seq_parallel`` lays the residual's sequence over the mesh's model axis
+between the blocks of ``forward`` and ``loss`` (the same numbers, other
+collectives); with no mesh neither changes anything.  The other TPU switches
+(``unroll_scan``, ``causal_skip``) are accepted and change nothing here:
+they change how XLA schedules the reference, not the math.
 """
 from __future__ import annotations
 
@@ -64,8 +66,9 @@ class ModelConfig:
     fda_seed: int = 1234
     n_clients: int = 0  # 0 => one client per data-parallel shard
     # remat: per-layer checkpointing in training; moe_ep: the expert-parallel
-    # MoE where the LM's rules hold a mesh; the rest are TPU scheduling and
-    # sharding switches, accepted with no effect in the port
+    # MoE and seq_parallel: the residual's sequence over the model axis, where
+    # the LM's rules hold a mesh; the rest are TPU scheduling switches,
+    # accepted with no effect in the port
     remat: bool = True
     unroll_scan: bool = False
     sharded_ce: bool = False

@@ -19,15 +19,20 @@ optimizer state, batch, cache); ``output_bytes`` its outputs;
 outputs; ``alias_bytes`` the outputs that are the inputs' own storages (a
 decode step writes its cache in place).
 
-The port's ``LM`` has no tensor parallelism, so it has no counterpart of
-the per-chip numbers that XLA's SPMD partitioner gives the reference on a
-(16, 16) mesh: ``--mesh`` takes ``card`` (one H100, a 1 x 1 mesh) and raises
-for ``single`` and ``multi`` (ROADMAP: LM tensor and data parallelism over
-NCCL ranks).
+``--mesh card`` runs the step on one H100 (a 1 x 1 mesh).  ``--mesh single``
+and ``multi`` (and ``both``) run rank 0's step of the reference's (16, 16)
+and (2, 16, 16) production meshes: ``launch.mesh.fake_production_mesh``
+starts a fake process group of 256 or 512 ranks in this process, the LM
+runs SPMD over it (``LM(cfg, ShardRules(16, batch_axes, mesh))``) on this
+rank's shards of the parameters, optimizer state, batch and cache (the
+reference's placements), and every collective the step issues is counted
+with its bytes.  The counts are per card, as the reference's compiled
+module's are; ``useful_flops_ratio`` is the model FLOPs over the per-card
+count times the cards.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch smollm-135m --shape decode_32k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh single
 """
 from __future__ import annotations
 
@@ -43,13 +48,16 @@ import torch
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.specs import input_specs
+from repro_torch.launch.mesh import data_axis_size, fake_production_mesh
+from repro_torch.launch.specs import input_pspecs, input_specs
 from repro_torch.launch.train import build_train_step
-from repro_torch.models import LM
+from repro_torch.models import LM, ShardRules
+from repro_torch.models.param import shard
 from repro_torch.optim import adamw
 from repro_torch.utils.tree import tree_leaves
 
 MESHES = ("card", "single", "multi")
+MESH_NAMES = {"card": "card", "single": "16x16", "multi": "2x16x16"}
 
 
 def active_params(model: LM) -> int:
@@ -72,11 +80,6 @@ def adjusted_config(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
 def check_mesh(mesh: str) -> None:
     if mesh not in MESHES:
         raise ValueError(f"--mesh {mesh!r}: one of {MESHES}")
-    if mesh != "card":
-        raise ValueError(
-            f"--mesh {mesh}: the port's LM has no tensor or data parallelism yet, so it has no "
-            f"per-card counterpart of the reference's SPMD-partitioned (16, 16) step (ROADMAP: "
-            f"LM tensor and data parallelism over NCCL ranks); use --mesh card")
 
 
 def _nbytes(tree) -> int:
@@ -85,13 +88,18 @@ def _nbytes(tree) -> int:
 
 
 def step_of(model: LM, shape: InputShape):
-    """(fn, args) of the real step at ``shape`` on ``meta`` tensors."""
-    cfg = model.cfg
+    """(fn, args) of the real step at ``shape`` on ``meta`` tensors: under a
+    mesh, this rank's step on its shards."""
+    cfg, mesh = model.cfg, model.mesh
     params = model.abstract()
     batch = input_specs(cfg, shape)
+    if mesh is not None:
+        batch = shard(batch, input_pspecs(cfg, shape, model.rules), mesh)
     if shape.kind == "train":
-        # launch.train's client count on one card: max(2, its data axis of 1)
-        n_clients = 2 if shape.global_batch % 2 == 0 else 1
+        if mesh is not None:  # the reference's: one client a data shard
+            n_clients = data_axis_size(mesh)
+        else:  # launch.train's client count on one card: max(2, its data axis of 1)
+            n_clients = 2 if shape.global_batch % 2 == 0 else 1
         opt = adamw(3e-4, weight_decay=0.1)
         return build_train_step(model, opt, n_clients), (params, opt.init(params), batch)
     if shape.kind == "prefill":
@@ -99,21 +107,24 @@ def step_of(model: LM, shape: InputShape):
     cache = model.abstract_cache(shape.global_batch, shape.seq_len)
 
     def serve_step(params, cache, batch):
-        return model.decode_step(params, cache, batch, shape.seq_len - 1)
+        return model.decode_step(params, cache, batch, shape.seq_len - 1,
+                                 global_batch=shape.global_batch)
 
     return torch.no_grad()(serve_step), (params, cache, batch)
 
 
 def lower_combo(arch: str, shape_name: str, mesh: str = "card", depth: int | None = None,
                 opt: bool = False):
-    """Returns (record dict, StepCount) for one (arch, shape) on one card:
-    the record has the reference's keys but its compile and lower times (the
+    """Returns (record dict, StepCount) for one (arch, shape, mesh): the
+    record has the reference's keys but its compile and lower times (the
     count also holds each kernel's reported calls and the operations run).
+    ``card``: the step on one card; ``single`` / ``multi``: rank 0's step
+    on the (16, 16) / (2, 16, 16) production mesh (the module's docstring).
 
     The port's layer loop is always unrolled, so the reference's ``unroll``
-    has no counterpart; ``opt`` sets the reference's §Perf switches, of which only ``sharded_ce``
-    (the same numbers) and ``moe_ep`` (with no mesh, nothing) reach the
-    port."""
+    has no counterpart; ``opt`` sets the reference's §Perf switches
+    (``sharded_ce``, ``moe_ep``, ``causal_skip``, ``seq_parallel``); on one
+    card only ``sharded_ce`` reaches the port (the same numbers)."""
     check_mesh(mesh)
     shape = INPUT_SHAPES[shape_name]
     cfg = adjusted_config(get_config(arch), shape)
@@ -122,7 +133,16 @@ def lower_combo(arch: str, shape_name: str, mesh: str = "card", depth: int | Non
     if opt:
         cfg = dataclasses.replace(cfg, sharded_ce=True, moe_ep=True, causal_skip=True,
                                   seq_parallel=True)
-    model = LM(cfg)
+    if mesh == "card":
+        return _record(arch, shape, mesh, LM(cfg), 1)
+    multi = mesh == "multi"
+    with fake_production_mesh(multi_pod=multi) as dm:
+        rules = ShardRules(model_size=16, batch_axes=("pod", "data") if multi else ("data",),
+                           mesh=dm)
+        return _record(arch, shape, mesh, LM(cfg, rules), dm.size())
+
+
+def _record(arch: str, shape: InputShape, mesh: str, model: LM, n_chips: int):
     fn, args = step_of(model, shape)
     out, count = rl.count_step(fn, *args)
     roof = rl.from_count(count)
@@ -130,11 +150,12 @@ def lower_combo(arch: str, shape_name: str, mesh: str = "card", depth: int | Non
     n_tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
     mf = rl.model_flops(n_active, n_tokens, shape.kind)
     out_bytes = _nbytes(out)
+    flops_global = roof.flops_per_chip * n_chips
     record = {
         "arch": arch,
-        "shape": shape_name,
-        "mesh": mesh,
-        "n_chips": 1,
+        "shape": shape.name,
+        "mesh": MESH_NAMES[mesh],
+        "n_chips": n_chips,
         "kind": shape.kind,
         "params_total": model.param_count(),
         "params_active": n_active,
@@ -146,7 +167,7 @@ def lower_combo(arch: str, shape_name: str, mesh: str = "card", depth: int | Non
         },
         "roofline": roof.as_dict(),
         "model_flops_global": mf,
-        "useful_flops_ratio": (mf / roof.flops_per_chip) if roof.flops_per_chip else 0.0,
+        "useful_flops_ratio": (mf / flops_global) if flops_global else 0.0,
     }
     return record, count
 
@@ -155,13 +176,13 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="all")
     ap.add_argument("--shape", default="all")
-    ap.add_argument("--mesh", default="card", choices=list(MESHES))
+    ap.add_argument("--mesh", default="card", choices=[*MESHES, "both"])
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--unroll", action="store_true",
                     help="accepted: the port's layer loop is always unrolled")
     args = ap.parse_args(argv)
-    check_mesh(args.mesh)
+    meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
 
     archs = ARCH_IDS if args.arch == "all" else [args.arch]
     shapes = list(INPUT_SHAPES) if args.shape == "all" else [args.shape]
@@ -170,31 +191,32 @@ def main(argv=None) -> list:
     failures, records = [], []
     for arch in archs:
         for shape in shapes:
-            tag = f"{arch}_{shape}_{args.mesh}" + ("_unroll" if args.unroll else "")
-            path = os.path.join(args.out, tag + ".json")
-            if os.path.exists(path) and not args.force:
-                print(f"[skip] {tag}")
-                continue
-            try:
-                t0 = time.time()
-                rec, count = lower_combo(arch, shape, args.mesh)
-                run_s = time.time() - t0
-                with open(path, "w") as f:
-                    json.dump(rec, f, indent=1)
-                records.append(rec)
-                r = rec["roofline"]
-                print(
-                    f"[ok]   {tag}: run={run_s:.2f}s ops={count.ops} "
-                    f"flops={r['flops_per_chip']:.3g} "
-                    f"bytes={r['hbm_bytes_per_chip']:.3g} "
-                    f"coll={r['coll_bytes_per_chip']:.3g} "
-                    f"dominant={r['dominant']} "
-                    f"useful={rec['useful_flops_ratio']:.2f}"
-                )
-            except Exception as e:  # noqa: BLE001 — report all failures at end
-                failures.append((tag, repr(e)))
-                print(f"[FAIL] {tag}: {e}")
-                traceback.print_exc()
+            for mesh in meshes:
+                tag = f"{arch}_{shape}_{MESH_NAMES[mesh]}" + ("_unroll" if args.unroll else "")
+                path = os.path.join(args.out, tag + ".json")
+                if os.path.exists(path) and not args.force:
+                    print(f"[skip] {tag}")
+                    continue
+                try:
+                    t0 = time.time()
+                    rec, count = lower_combo(arch, shape, mesh)
+                    run_s = time.time() - t0
+                    with open(path, "w") as f:
+                        json.dump(rec, f, indent=1)
+                    records.append(rec)
+                    r = rec["roofline"]
+                    print(
+                        f"[ok]   {tag}: run={run_s:.2f}s ops={count.ops} "
+                        f"flops/chip={r['flops_per_chip']:.3g} "
+                        f"bytes/chip={r['hbm_bytes_per_chip']:.3g} "
+                        f"coll/chip={r['coll_bytes_per_chip']:.3g} "
+                        f"dominant={r['dominant']} "
+                        f"useful={rec['useful_flops_ratio']:.2f}"
+                    )
+                except Exception as e:  # noqa: BLE001 — report all failures at end
+                    failures.append((tag, repr(e)))
+                    print(f"[FAIL] {tag}: {e}")
+                    traceback.print_exc()
     if failures:
         raise SystemExit(f"{len(failures)} dry-run combos failed: {[t for t, _ in failures]}")
     print("all requested combos ran on meta tensors")

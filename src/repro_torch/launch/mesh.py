@@ -6,8 +6,15 @@ dimensions, ("data", "model") or ("pod", "data", "model"), over the ranks of
 the default process group, one card a rank.  The caller starts the group
 (``torch.distributed.init_process_group`` with its address, world size and
 rank): nothing here discovers a cluster.
+
+:func:`fake_production_mesh` is the dry run's: the production mesh of 256
+or 512 ranks over PyTorch's fake process group in this one process, as rank
+0.  Its collectives do nothing and return at once (on ``meta`` tensors too),
+so one rank's SPMD step runs whole and ``launch.roofline`` counts it.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -33,8 +40,7 @@ def _device_type(device=None) -> str:
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
     """(16, 16) = 256 cards in one pod; (2, 16, 16) = 512 across 2 pods: one
     rank a card.  Raises, with the rank count, where there are fewer."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = MESH_SHAPES[multi_pod]
     n = int(np.prod(shape))
     have = _world()
     if have < n:
@@ -42,6 +48,29 @@ def make_production_mesh(*, multi_pod: bool = False, device=None) -> DeviceMesh:
             f"need {n} ranks for the production mesh, have {have}: start a process group "
             f"of {n} ranks, one a card (torch.distributed.init_process_group)")
     return DeviceMesh(_device_type(device), torch.arange(n).reshape(shape), mesh_dim_names=axes)
+
+
+MESH_SHAPES = {False: ((16, 16), ("data", "model")),
+               True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@contextlib.contextmanager
+def fake_production_mesh(*, multi_pod: bool = False):
+    """The production mesh, (16, 16) or (2, 16, 16), over a fake process
+    group of 256 or 512 ranks started here (``FakeStore``, this process
+    rank 0), destroyed on exit.  Raises where a process group already runs."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group already runs in this process: the fake production "
+                           "mesh starts its own")
+    shape, axes = MESH_SHAPES[multi_pod]
+    n = int(np.prod(shape))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield DeviceMesh("cpu", torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    finally:
+        dist.destroy_process_group()
 
 
 def make_host_mesh(model: int = 1, *, device=None) -> DeviceMesh:

@@ -24,7 +24,11 @@ below autograd, on any device, the ``meta`` device included:
   the counter adds what they reported during the step.  On CPU tensors a
   wrapper runs its plain version, whose own operations are counted instead;
 - collectives: the result bytes of each ``torch.distributed`` collective
-  the step issues (``c10d`` operations), by kind, the reference's rule.
+  the step issues, by kind, the reference's rule: the ``c10d`` operations
+  (``torch.distributed.all_reduce`` and its kin, in place) and the
+  functional ones (``_c10d_functional``).  Under a mesh each rank's step
+  is counted, so the counts are per card, as the reference's
+  ``from_compiled`` gives them.
 
 :class:`StepCounter` also tracks the bytes of the storages the step creates
 while they live (a ``weakref.finalize`` on every tensor an operation returns,
@@ -60,6 +64,16 @@ _C10D_KINDS = {
     "reduce_scatter_": "reduce_scatter", "_reduce_scatter_base_": "reduce_scatter",
     "reduce_scatter_tensor_coalesced_": "reduce_scatter",
     "alltoall_": "all_to_all", "alltoall_base_": "all_to_all",
+}
+# functional collectives (``_c10d_functional``) -> their kind; each returns its result
+_FUNCTIONAL_KINDS = {
+    "all_reduce": "all_reduce", "all_reduce_": "all_reduce",
+    "all_reduce_coalesced": "all_reduce", "all_reduce_coalesced_": "all_reduce",
+    "all_gather_into_tensor": "all_gather", "all_gather_into_tensor_out": "all_gather",
+    "all_gather_into_tensor_coalesced": "all_gather",
+    "reduce_scatter_tensor": "reduce_scatter", "reduce_scatter_tensor_out": "reduce_scatter",
+    "reduce_scatter_tensor_coalesced": "reduce_scatter",
+    "all_to_all_single": "all_to_all",
 }
 _ALLOCATORS = ("empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided")
 # the kernels whose wrappers report their work (``COST``)
@@ -159,6 +173,11 @@ class StepCounter(TorchDispatchMode):
             if kind is not None:
                 moved = sum(_nbytes(t) for t in _tensors(args[0]))
                 self.count.coll_by_kind[kind] += moved
+            return out
+        if ns == "_c10d_functional":
+            kind = _FUNCTIONAL_KINDS.get(name)
+            if kind is not None:
+                self.count.coll_by_kind[kind] += sum(_nbytes(t) for t in _tensors(out))
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         packet = func.overloadpacket

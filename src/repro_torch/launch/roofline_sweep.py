@@ -1,5 +1,5 @@
 """Roofline sweep: per-step FLOPs, bytes and collective bytes for every
-(arch x input-shape) on one card.
+(arch x input-shape), per card of the (16, 16) production mesh.
 
 Port of ``repro.launch.roofline_sweep``.  The reference compiles each combo
 unrolled at two reduced depths and extrapolates every cost term linearly in
@@ -7,7 +7,9 @@ depth, because XLA counts a scanned layer once and fully unrolled stacks do
 not compile.  The port's counter sees every operation of a meta-tensor run
 (``launch.dryrun``), so a full-depth run is exact (``--exact``); the
 two-depth linear extrapolation is kept as the default, cheap mode, exact for
-uniform stacks and within the reference's stated 2% for grouped ones.
+uniform stacks and within the reference's stated 2% for grouped ones.  The
+step is rank 0's of the "16x16" mesh, as the reference's sweep compiles it
+(``launch.dryrun --mesh single``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline_sweep --arch all --shape all
@@ -40,11 +42,12 @@ def probe_depths(arch: str) -> tuple[int, int]:
 def sweep_combo(arch: str, shape_name: str, opt: bool = False, *, probe: bool = True) -> dict:
     """The roofline at full depth: extrapolated linearly from the two probe
     depths (``probe=True``, the reference's method) or counted on a
-    full-depth meta run (``probe=False``, exact)."""
+    full-depth meta run (``probe=False``, exact), per card of the 16x16
+    mesh."""
     cfg_full = get_config(arch)
     l1, l2 = probe_depths(arch)
     if probe:
-        recs = [lower_combo(arch, shape_name, "card", depth=depth, opt=opt)[0]
+        recs = [lower_combo(arch, shape_name, "single", depth=depth, opt=opt)[0]
                 for depth in (l1, l2)]
 
         def extrapolate(a, b):
@@ -64,7 +67,7 @@ def sweep_combo(arch: str, shape_name: str, opt: bool = False, *, probe: bool = 
             coll_by_kind=coll_kinds,
         )
     else:
-        recs = [lower_combo(arch, shape_name, "card", opt=opt)[0]]
+        recs = [lower_combo(arch, shape_name, "single", opt=opt)[0]]
         r = recs[0]["roofline"]
         roof = rl.Roofline(r["flops_per_chip"], r["hbm_bytes_per_chip"],
                            r["coll_bytes_per_chip"], dict(r["coll_by_kind"]))
@@ -74,10 +77,11 @@ def sweep_combo(arch: str, shape_name: str, opt: bool = False, *, probe: bool = 
     n_active = active_params(model)
     n_tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
     mf = rl.model_flops(n_active, n_tokens, shape.kind)
+    flops_global = roof.flops_per_chip * recs[0]["n_chips"]
     return {
         "arch": arch,
         "shape": shape_name,
-        "mesh": "card",
+        "mesh": recs[0]["mesh"],
         "kind": shape.kind,
         "probe_depths": [l1, l2] if probe else [],
         "full_depth": cfg_full.n_layers,
@@ -85,7 +89,7 @@ def sweep_combo(arch: str, shape_name: str, opt: bool = False, *, probe: bool = 
         "params_active": n_active,
         "roofline": roof.as_dict(),
         "model_flops_global": mf,
-        "useful_flops_ratio": (mf / roof.flops_per_chip) if roof.flops_per_chip else 0.0,
+        "useful_flops_ratio": (mf / flops_global) if flops_global else 0.0,
         "probe_records": recs,
     }
 

@@ -8,10 +8,12 @@ one entry a dimension: a mesh-axis name, a tuple of them, or ``None``
 Batch dims go over the data axes when divisible; for ``long_500k``
 (global_batch = 1) attention caches place their *sequence* dim over the data
 axes instead (context parallelism for the cache), and SSM states place their
-head dim over model.
+head dim over model.  ``LM.init_cache`` and ``LM.decode_step`` place their
+caches by these placements under a mesh.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
@@ -29,7 +31,12 @@ def _bspec(rules: ShardRules, batch: int):
 
 
 def rules_data_size(rules: ShardRules) -> int:
-    # data axes sizes are fixed by the production mesh: 16 per axis, pod = 2
+    """The ranks over the batch axes: the mesh's, where the rules hold one,
+    else the production mesh's (16 per axis, pod = 2)."""
+    mesh = getattr(rules, "mesh", None)
+    if mesh is not None:
+        names = list(mesh.mesh_dim_names)
+        return int(np.prod([mesh.size(names.index(a)) for a in rules.batch_axes if a in names]))
     sizes = {"data": 16, "pod": 2, "model": rules.model_size}
     n = 1
     for a in rules.batch_axes:
@@ -70,7 +77,12 @@ def input_pspecs(cfg: ModelConfig, shape: InputShape, rules: ShardRules) -> dict
 
 def cache_pspecs(model: LM, shape: InputShape, rules: ShardRules) -> dict:
     """Placement tree matching ``LM.cache_shapes()``."""
-    bs = _bspec(rules, shape.global_batch)
+    return cache_placements(model, shape.global_batch, shape.seq_len, rules)
+
+
+def cache_placements(model: LM, batch: int, s_cache: int, rules: ShardRules) -> dict:
+    """:func:`cache_pspecs` for a global ``batch`` and a cache of ``s_cache``."""
+    bs = _bspec(rules, batch)
     # when the batch can't shard, shard the attention cache's sequence over data
     seq_spec = None if bs is not None else rules.batch
     m = rules.model_axis
@@ -96,4 +108,4 @@ def cache_pspecs(model: LM, shape: InputShape, rules: ShardRules) -> dict:
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict) else leaf_spec(k, v) for k, v in tree.items()}
 
-    return walk(model.cache_shapes(shape.global_batch, shape.seq_len))
+    return walk(model.cache_shapes(batch, s_cache))

@@ -1,4 +1,5 @@
-"""Training driver: any arch (full or reduced) on one CUDA card.
+"""Training driver: any arch (full or reduced) on one CUDA card, or SPMD over
+a (data, model) mesh of ``torch.distributed`` ranks.
 
 Port of ``repro.launch.train``::
 
@@ -12,6 +13,14 @@ the batch.  Attention's forward and backward are K11 and K11b.  As in the
 reference, an ``embeddings_in`` (audio) model trains on frame embeddings
 (normal x 0.02, a CPU generator seeded by the step) against the stream's
 labels, and the VLM on zero images.
+
+Under a mesh (``LM(cfg, rules)`` with ``rules.mesh``), ``build_train_step``
+runs each rank's step on its shards and its batch: every gradient leaf is
+summed over the data axes (each rank's gradient is its batch's part), the
+clip's global norm is taken over the unique shards (the model-sharded
+leaves' squares all-reduced over the model axis, the replicated leaves
+counted once), and AdamW stays local.  ``main`` takes ``ShardRules(model_size
+=...)`` from the host mesh, as the reference does.
 """
 from __future__ import annotations
 
@@ -28,24 +37,70 @@ from repro_torch.data import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import axis_size, data_axis_size, make_host_mesh
 from repro_torch.models import LM, ShardRules
-from repro_torch.optim import adamw, apply_updates, clip_by_global_norm, cosine_schedule
+from repro_torch.models.parallel import Par, all_reduce
+from repro_torch.optim import adamw, apply_updates, cosine_schedule
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
+
+
+def sum_over_data(grads: list[torch.Tensor], par: Par) -> list[torch.Tensor]:
+    """Each leaf summed over the data axes: one all-reduce a dtype, of the
+    leaves flattened into one buffer."""
+    if not par.data:
+        return grads
+    out = list(grads)
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = par.data_reduce(torch.cat([grads[i].reshape(-1) for i in idx]))
+        for i, part in zip(idx, torch.split(flat, [grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out
+
+
+def clip_sharded(grads, sharded: list[bool], par: Par, max_norm: float):
+    """``optim.clip_by_global_norm`` over the unique shards: the squares of
+    the model-sharded leaves all-reduced over the model axis, the replicated
+    leaves' counted once (with no mesh, ``clip_by_global_norm`` bit for bit)."""
+    leaves = tree_leaves(grads)
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    sq = [torch.sum(torch.square(g.float())) for g in leaves]
+    split = sum((q for q, s in zip(sq, sharded) if s), zero)
+    whole = sum((q for q, s in zip(sq, sharded) if not s), zero)
+    gn = torch.sqrt(all_reduce(split, par.m_group) + whole) if par.tp else torch.sqrt(
+        split + whole)
+    scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
+    return tree_map(lambda g: g.to(torch.promote_types(g.dtype, scale.dtype)) * scale,
+                    grads), gn
 
 
 def build_train_step(model: LM, opt, n_clients: int):
     """``step(params, opt_state, batch) -> (params, opt_state, metrics)``:
     the loss's value and gradient, clipping to a global norm of 1, one
     optimizer update.  A leaf the loss does not reach (the FDA head's
-    frozen Omega) gets a zero gradient."""
+    frozen Omega) gets a zero gradient.  Under a mesh (the module's
+    docstring) ``params`` and ``batch`` are this rank's."""
+    par = Par(model.rules)
+    axis = model.rules.model_axis
+    # whether each leaf (in tree_leaves' order: sorted keys) lies over the model axis
+    sharded = []
+
+    def walk(spec):
+        if isinstance(spec, dict):
+            for k in sorted(spec):
+                walk(spec[k])
+        else:
+            sharded.append(par.tp and any(axis == a or (isinstance(a, tuple) and axis in a)
+                                          for a in spec))
+
+    walk(model.specs())
 
     def train_step(params, opt_state, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, metrics = model.loss(live, batch, n_clients)
         leaves = tree_leaves(live)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = tree_unflatten_like(live, [torch.zeros_like(p) if g is None else g
-                                           for p, g in zip(leaves, grads)])
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = tree_unflatten_like(live, sum_over_data(grads, par))
+        grads, gnorm = clip_sharded(grads, sharded, par, 1.0)
         with torch.no_grad():
             updates, opt_state = opt.update(grads, opt_state, params)
             params = apply_updates(params, updates)
@@ -75,6 +130,9 @@ def main(argv=None) -> dict:
         cfg = dataclasses.replace(cfg.reduced(), remat=False)
     mesh = make_host_mesh(device=dev)
     rules = ShardRules(model_size=axis_size(mesh, "model"), batch_axes=("data",))
+    # the host mesh is 1 x 1 unless a process group runs: then the LM runs over it
+    if mesh.size() > 1:
+        rules = ShardRules(model_size=axis_size(mesh, "model"), batch_axes=("data",), mesh=mesh)
     model = LM(cfg, rules)
     n_clients = args.clients or max(2, data_axis_size(mesh))
     if args.batch % n_clients:

@@ -3,10 +3,14 @@
 Port of ``repro.models.layers``.  Parameter trees are declared through
 :mod:`repro_torch.models.param`; activations are computed in the config
 dtype, norms, rotary angles and the cross-entropy in fp32.
-:class:`ShardRules` is the reference's: it names the mesh axes that
-``launch.specs`` places inputs and caches on, and its ``mesh`` (a
-``torch.distributed`` ``DeviceMesh``) is what the expert-parallel MoE
-(``moe.moe_forward_ep``) runs over.
+:class:`ShardRules` is the reference's: every declaration takes it and
+places its tensor by ``ShardRules.tp``, and its ``mesh`` (a
+``torch.distributed`` ``DeviceMesh``) is what ``LM`` runs SPMD over.  The
+functions take a ``par`` (``models.parallel.Par``, this rank's view of the
+mesh; ``None``: one rank): the MLP is column-parallel in gate and up and
+row-parallel in down, the embedding (sharded on d) is gathered over the
+model axis after the lookup, the logits stay sharded on the vocabulary, and
+the cross-entropy's two forms both run on them.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ class ShardRules:
     model_size: int = 16  # size of the tensor-parallel mesh axis
     batch_axes: tuple[str, ...] = ("data",)  # ("pod", "data") for multi-pod
     model_axis: str = "model"
-    mesh: object = None  # a DeviceMesh: needed only by the expert-parallel MoE
+    mesh: object = None  # a DeviceMesh: the LM runs SPMD over it (models.parallel)
 
     def tp(self, dim: int):
         """Tensor-parallel shard ``dim`` if divisible, else replicate."""
@@ -43,13 +47,16 @@ class ShardRules:
 
 
 def rmsnorm_decl(d: int, dtype) -> dict:
-    return {"scale": ParamDecl((d,), "ones", dtype)}
+    return {"scale": ParamDecl((d,), "ones", dtype, spec=(None,))}
 
 
-def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5, par=None) -> torch.Tensor:
+    """RMSNorm over the last dimension; ``par``: x may be a sequence shard
+    (``Par.norm_scale``)."""
+    scale = params["scale"] if par is None else par.norm_scale(params["scale"])
     h = x.to(torch.float32)
     h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
-    return (h * params["scale"].to(torch.float32)).to(x.dtype)
+    return (h * scale.to(torch.float32)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -80,18 +87,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 # ---------------------------------------------------------------------------
 
 
-def mlp_decl(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+def mlp_decl(cfg: ModelConfig, rules: ShardRules | None = None,
+             d_ff: int | None = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    ff_spec = (rules or ShardRules()).tp(f)
     return {
-        "gate": ParamDecl((d, f), "normal", cfg.dtype),
-        "up": ParamDecl((d, f), "normal", cfg.dtype),
-        "down": ParamDecl((f, d), "normal", cfg.dtype),
+        "gate": ParamDecl((d, f), "normal", cfg.dtype, spec=(None, ff_spec)),
+        "up": ParamDecl((d, f), "normal", cfg.dtype, spec=(None, ff_spec)),
+        "down": ParamDecl((f, d), "normal", cfg.dtype, spec=(ff_spec, None)),
     }
 
 
-def mlp(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_local(params, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU on whatever part of d_ff this rank holds (partial sums
+    where it is a shard)."""
     h = F.silu(x @ params["gate"]) * (x @ params["up"])
     return h @ params["down"]
+
+
+def mlp(params, x: torch.Tensor, par=None, d_ff: int = 0) -> torch.Tensor:
+    """x on the residual's layout; ``d_ff``: the global width, which decides
+    (``Par.shards``) whether ``params`` are column/row shards."""
+    if par is None:
+        return mlp_local(params, x)
+    sharded = par.shards(d_ff)
+    return par.leave(mlp_local(params, par.enter(x, sharded)), partial=sharded)
 
 
 # ---------------------------------------------------------------------------
@@ -99,31 +119,55 @@ def mlp(params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embedding_decl(cfg: ModelConfig) -> dict:
+def embedding_decl(cfg: ModelConfig, rules: ShardRules | None = None) -> dict:
     v, d = cfg.vocab_padded, cfg.d_model
+    rules = rules or ShardRules()
     return {
-        "embed": ParamDecl((v, d), "normal", cfg.dtype),
-        "unembed": ParamDecl((d, v), "normal", cfg.dtype),
+        # embed sharded along d_model: the row lookup stays local, a small all-gather
+        "embed": ParamDecl((v, d), "normal", cfg.dtype, spec=(None, rules.tp(d))),
+        # unembed sharded along the vocabulary: the logits stay sharded into the CE
+        "unembed": ParamDecl((d, v), "normal", cfg.dtype, spec=(None, rules.tp(v))),
     }
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def embed(params, tokens: torch.Tensor, par=None, d: int = 0) -> torch.Tensor:
+    """The rows of ``tokens``; with ``par`` and a width ``d`` the model axis
+    shards, this rank's d-shard of each row gathered over the model axis
+    (replicated output)."""
+    x = params["embed"][tokens]
+    if par is not None and par.shards(d):
+        x = par.gather_rep(x, -1)
+    return x
 
 
-def unembed(params, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, x: torch.Tensor, par=None, vocab: int = 0) -> torch.Tensor:
+    """Logits; with ``par`` and a vocabulary ``vocab`` the model axis shards,
+    this rank's vocabulary shard of them (x replicated)."""
+    if par is not None and par.shards(vocab):
+        x = par.copy(x)
     return x @ params["unembed"]
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int, *,
-                  sharded: bool = False) -> torch.Tensor:
+                  sharded: bool = False, par=None) -> torch.Tensor:
     """Mean next-token CE over the real (unpadded) vocabulary, in fp32.
 
     The reference's two forms, kept as it writes them: ``sharded=False``
     adds -1e9 to the padded vocab entries and gathers the gold logit;
     ``sharded=True`` masks them to -inf and picks the gold logit with an
     index mask (on its TPU mesh that avoids an all-gather of the logits).
-    Both give the same numbers."""
+    Both give the same numbers.
+
+    With ``par``, ``logits`` is this rank's shard of the vocabulary over the
+    model axis: ``sharded=False`` gathers the whole logits first (the cost
+    the reference's mesh shows without ``sharded_ce``); ``sharded=True``
+    computes a distributed logsumexp (the max and the sum of exponents
+    all-reduced, the gold logit a masked sum all-reduced).  The mean is over
+    this rank's tokens (``LM.loss`` takes the mean over the data axes)."""
+    if par is not None and par.tp:
+        if sharded:
+            return _sharded_ce(logits, labels, vocab_size, par)
+        logits = par.gather_rep(logits, -1)
     v_padded = logits.shape[-1]
     if not sharded:
         logits = logits.to(torch.float32)
@@ -142,4 +186,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int, *
     sumexp = torch.sum(torch.where(valid, torch.exp(x - m), 0.0), dim=-1)
     logz = torch.log(sumexp) + m[..., 0]
     gold = torch.sum(torch.where(iota == labels[..., None], x, 0.0), dim=-1)
+    return torch.mean(logz - gold)
+
+
+def _sharded_ce(logits, labels, vocab_size: int, par) -> torch.Tensor:
+    v_loc = logits.shape[-1]
+    iota = par.m_rank * v_loc + torch.arange(v_loc, device=logits.device)
+    valid = iota < vocab_size
+    x = torch.where(valid, logits.to(torch.float32), -torch.inf)
+    m = par.model_max(torch.amax(x, dim=-1, keepdim=True))
+    sumexp = par.reduce(torch.sum(torch.where(valid, torch.exp(x - m), 0.0), dim=-1))
+    logz = torch.log(sumexp) + m[..., 0]
+    gold = par.reduce(torch.sum(torch.where(iota == labels[..., None], x, 0.0), dim=-1))
     return torch.mean(logz - gold)

@@ -26,9 +26,23 @@ A batch holds ``tokens`` (b, s), or ``embeddings`` (b, s, d) for
 the stack (:meth:`LM.schedule`) replaces ``lax.scan``, and with
 ``cfg.remat`` each layer, the hybrid's shared attention and the VLM's cross
 block are checkpointed (``torch.utils.checkpoint``) where the reference
-wraps them in ``jax.checkpoint``.  ``LM(cfg, rules)`` takes the
-reference's optional ``ShardRules``: where they hold a mesh and
-``cfg.moe_ep`` is set, the MoE blocks run expert-parallel over it.
+wraps them in ``jax.checkpoint``.
+
+``LM(cfg, rules)`` takes the reference's ``ShardRules``.  Every declaration
+carries the reference's placement (:meth:`LM.specs`, :meth:`LM.cache_specs`).
+Where ``rules.mesh`` is a ``DeviceMesh`` with the axes ("data", "model") or
+("pod", "data", "model"), the LM runs SPMD over it, one process a rank:
+``init`` and ``abstract`` give this rank's shards, each method takes this
+rank's batch (split over the data axes) and runs the blocks on this rank's
+heads, d_ff, experts and d_inner (``models.parallel`` places the
+collectives where XLA's partitioner places the reference's), and ``loss``
+returns the global loss on every rank (the CE's mean over the global
+tokens, the MoE's global aux, the FDA head's federation mean).  With
+``cfg.seq_parallel`` the residual's sequence lies over the model axis
+between the blocks in ``forward`` and ``loss`` (the reference's ``_sp``):
+the row-parallel reduces become reduce-scatters, each block's input an
+all-gather, and the norms run on sequence shards.  ``cfg.moe_ep`` runs the
+MoE blocks expert-parallel over the mesh.
 """
 from __future__ import annotations
 
@@ -51,7 +65,17 @@ from repro_torch.models.layers import (
     rmsnorm_decl,
     unembed,
 )
-from repro_torch.models.param import ParamDecl, abstract, materialize, param_count, stack_decls
+from repro_torch.models.param import (
+    ParamDecl,
+    abstract,
+    local_shape,
+    materialize,
+    param_count,
+    shard,
+    specs,
+    stack_decls,
+)
+from repro_torch.models.parallel import Par
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _SSM_BLOCKS = ("ssm", "hybrid")
@@ -87,39 +111,55 @@ class LM:
     # parameter declarations
     # ------------------------------------------------------------------
     def decls(self) -> dict:
-        cfg = self.cfg
+        cfg, rules = self.cfg, self.rules
         d: dict[str, Any] = {}
         if cfg.embeddings_in:
-            d["embedding"] = {"unembed": ParamDecl((cfg.d_model, cfg.vocab_padded), "normal",
-                                                   cfg.dtype)}
+            v = cfg.vocab_padded
+            d["embedding"] = {"unembed": ParamDecl((cfg.d_model, v), "normal", cfg.dtype,
+                                                   spec=(None, rules.tp(v)))}
         else:
-            d["embedding"] = embedding_decl(cfg)
+            d["embedding"] = embedding_decl(cfg, rules)
         d["ln_f"] = rmsnorm_decl(cfg.d_model, cfg.dtype)
         d["fda"] = fda_decl(cfg)
         if cfg.family in _SSM_BLOCKS:
-            d["blocks"] = stack_decls(B.ssm_block_decl(cfg), cfg.n_layers)
+            d["blocks"] = stack_decls(B.ssm_block_decl(cfg, rules), cfg.n_layers)
         elif cfg.family == "vlm":
             n_cross, _, _ = self._vlm_groups()
-            d["blocks"] = stack_decls(B.decoder_block_decl(cfg), cfg.n_layers - n_cross)
-            d["cross_blocks"] = stack_decls(B.cross_block_decl(cfg), n_cross)
+            d["blocks"] = stack_decls(B.decoder_block_decl(cfg, rules), cfg.n_layers - n_cross)
+            d["cross_blocks"] = stack_decls(B.cross_block_decl(cfg, rules), n_cross)
         else:
-            d["blocks"] = stack_decls(B.decoder_block_decl(cfg), cfg.n_layers)
+            d["blocks"] = stack_decls(B.decoder_block_decl(cfg, rules), cfg.n_layers)
         if cfg.family == "hybrid":
             d["shared_attn"] = {"ln": rmsnorm_decl(cfg.d_model, cfg.dtype),
-                                "attn": gqa_decl(cfg)}
+                                "attn": gqa_decl(cfg, rules)}
         return d
+
+    @property
+    def mesh(self):
+        return getattr(self.rules, "mesh", None)
 
     def init(self, seed: int | torch.Generator = 0, *, device=None) -> dict[str, Any]:
         """Parameters drawn from ``seed`` (see ``param.materialize``) on
-        ``device`` (``None``: the CUDA card)."""
-        return materialize(self.decls(), seed, device=resolve_device(device))
+        ``device`` (``None``: the CUDA card); under a mesh, this rank's
+        shards of them (the whole draw, then cut)."""
+        params = materialize(self.decls(), seed, device=resolve_device(device))
+        return params if self.mesh is None else shard(params, self.specs(), self.mesh)
 
     def abstract(self) -> dict[str, Any]:
-        """The parameters as empty ``meta`` tensors (a dry run's input)."""
-        return abstract(self.decls())
+        """The parameters as empty ``meta`` tensors (a dry run's input);
+        under a mesh, this rank's shards."""
+        params = abstract(self.decls())
+        return params if self.mesh is None else shard(params, self.specs(), self.mesh)
+
+    def specs(self):
+        """The placement of every parameter (``param.specs``)."""
+        return specs(self.decls())
 
     def param_count(self) -> int:
         return param_count(self.decls())
+
+    def _par(self, *, seq: bool = False, batch: bool = True) -> Par:
+        return Par(self.rules, seq=seq, batch=batch)
 
     # ------------------------------------------------------------------
     # layer-group geometry for the non-uniform families
@@ -156,40 +196,49 @@ class LM:
     # ------------------------------------------------------------------
     # forward (training / prefill)
     # ------------------------------------------------------------------
-    def _embed_in(self, params, batch):
+    def _embed_in(self, params, batch, par: Par):
         if self.cfg.embeddings_in:
             return batch["embeddings"].to(self.cfg.dtype)
-        return embed(params["embedding"], batch["tokens"])
+        return embed(params["embedding"], batch["tokens"], par, self.cfg.d_model)
 
     def _images(self, batch):
         return batch["images"].to(self.cfg.dtype) if self.cfg.family == "vlm" else None
 
-    def _block(self, layer, x, positions, collect_cache=False):
+    def _block(self, layer, x, positions, par: Par, collect_cache=False):
         if self.cfg.family in _SSM_BLOCKS:
-            return B.ssm_block_forward(layer, x, self.cfg, collect_cache=collect_cache)
+            return B.ssm_block_forward(layer, x, self.cfg, collect_cache=collect_cache, par=par)
         return B.decoder_block_forward(layer, x, positions, self.cfg,
-                                       collect_cache=collect_cache, rules=self.rules)
+                                       collect_cache=collect_cache, rules=self.rules, par=par)
 
-    def _shared_attn(self, params, x, positions, return_kv=False):
+    def _shared_attn(self, params, x, positions, par: Par, return_kv=False):
         """The hybrid's shared attention block (pre-norm residual)."""
-        h = rmsnorm(params["ln"], x, self.cfg.norm_eps)
+        h = rmsnorm(params["ln"], x, self.cfg.norm_eps, par)
         if return_kv:
-            o, kv = gqa_forward(params["attn"], h, positions, self.cfg, return_kv=True)
+            o, kv = gqa_forward(params["attn"], h, positions, self.cfg, return_kv=True, par=par)
             return x + o, kv
-        return x + gqa_forward(params["attn"], h, positions, self.cfg)
+        return x + gqa_forward(params["attn"], h, positions, self.cfg, par=par)
 
-    def _cross(self, params, x, img):
-        return B.cross_block_forward(params, x, image_kv(params["xattn"], img), self.cfg)
+    def _cross(self, params, x, img, par: Par):
+        return B.cross_block_forward(params, x, image_kv(params["xattn"], img), self.cfg,
+                                     par=par)
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (hidden (b, s, d), aux_loss).  With ``cfg.remat`` and grad
         mode on, each layer (and each shared attention or cross block) keeps
-        only its input and runs its forward again in the backward."""
+        only its input and runs its forward again in the backward (its
+        collectives too, in the same order on every rank).  Under a mesh the
+        hidden states are this rank's batch, whole over the model axis."""
         cfg = self.cfg
-        x = self._embed_in(params, batch)
+        par = self._par(seq=cfg.seq_parallel)
+        x = self._embed_in(params, batch, par)
         img = self._images(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         remat = cfg.remat and torch.is_grad_enabled()
+        if par.seq:
+            if x.shape[1] % par.m_size:
+                raise ValueError(f"seq_parallel: the sequence {x.shape[1]} is not divisible by "
+                                 f"the model axis {par.m_size}")
+            x = par.split(x, 1)
 
         def run(fn, *args):
             return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
@@ -199,13 +248,16 @@ class LM:
         cross = layer_list(params["cross_blocks"]) if "cross_blocks" in params else []
         for kind, i in self.schedule():
             if kind == "block":
-                x, aux = run(self._block, blocks[i], x, positions)
+                x, aux = run(self._block, blocks[i], x, positions, par)
                 auxs.append(aux)
             elif kind == "attn":
-                x = run(self._shared_attn, params["shared_attn"], x, positions)
+                x = run(self._shared_attn, params["shared_attn"], x, positions, par)
             else:
-                x = run(self._cross, cross[i], x, img)
-        return self._finish(params, x), torch.mean(torch.stack(auxs))
+                x = run(self._cross, cross[i], x, img, par)
+        x = self._finish(params, x, par)
+        if par.seq:
+            x = par.gather_rep(x, 1)
+        return x, torch.mean(torch.stack(auxs))
 
     def prefill(self, params, batch):
         """Returns (last-token logits (b, vocab_padded), cache).  The cache's
@@ -213,39 +265,43 @@ class LM:
         kv, hd), MLA's ``c``/``kr``, or the SSM's ``ssm`` (n, b, h, p, n_state)
         in fp32 and ``conv`` (n, b, w-1, ch); the hybrid adds ``attn_k`` /
         ``attn_v`` (n_groups, b, s, kv, hd), the VLM ``img_k`` / ``img_v``
-        (n_cross, b, n_image_tokens, kv, hd)."""
-        x = self._embed_in(params, batch)
+        (n_cross, b, n_image_tokens, kv, hd).  Under a mesh: this rank's
+        batch, the logits whole, each cache leaf this rank's shard as
+        ``launch.specs.cache_pspecs`` places it."""
+        par = self._par()
+        x = self._embed_in(params, batch, par)
         img = self._images(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         layers, extra = [], {}
         for kind, i in self.schedule():
             if kind == "block":
-                x, _, cache = self._block(layer_slice(params["blocks"], i), x, positions,
+                x, _, cache = self._block(layer_slice(params["blocks"], i), x, positions, par,
                                           collect_cache=True)
                 layers.append(cache)
             elif kind == "attn":
-                x, (k, v) = self._shared_attn(params["shared_attn"], x, positions,
+                x, (k, v) = self._shared_attn(params["shared_attn"], x, positions, par,
                                               return_kv=True)
                 extra.setdefault("attn_k", []).append(k)
                 extra.setdefault("attn_v", []).append(v)
             else:
                 cp = layer_slice(params["cross_blocks"], i)
                 k, v = image_kv(cp["xattn"], img)
-                x = B.cross_block_forward(cp, x, (k, v), self.cfg)
+                x = B.cross_block_forward(cp, x, (k, v), self.cfg, par=par)
                 extra.setdefault("img_k", []).append(k)
                 extra.setdefault("img_v", []).append(v)
         cache = {"layers": _stack(layers), **{k: torch.stack(v) for k, v in extra.items()}}
-        return self._last_logits(params, x), cache
+        return self._last_logits(params, x, par), cache
 
-    def _last_logits(self, params, x):
-        x = self._finish(params, x[:, -1:, :])
-        return self.logits(params, x)[:, 0, :]
+    def _last_logits(self, params, x, par: Par | None = None):
+        return self._decode_logits(params, x[:, -1:, :], par)
 
-    def _finish(self, params, x):
-        return rmsnorm(params["ln_f"], x, self.cfg.norm_eps)
+    def _finish(self, params, x, par: Par | None = None):
+        return rmsnorm(params["ln_f"], x, self.cfg.norm_eps, par)
 
-    def logits(self, params, hidden):
-        return unembed(params["embedding"], hidden)
+    def logits(self, params, hidden, par: Par | None = None):
+        """Logits; under a mesh, this rank's shard of the vocabulary where
+        the model axis divides it."""
+        return unembed(params["embedding"], hidden, par, self.cfg.vocab_padded)
 
     # ------------------------------------------------------------------
     # training loss: CE + MoE aux + the paper's FDA MMD head
@@ -253,15 +309,21 @@ class LM:
     def loss(self, params, batch, n_clients: int = 1):
         """Returns (total, {"ce", "aux", "mmd"}): the mean next-token CE plus
         0.01 aux plus, with more than one client, ``fda_lambda`` times the
-        FDA head's MMD (the batch laid out as (n_clients, per_client, ...))."""
+        FDA head's MMD (the batch laid out as (n_clients, per_client, ...)).
+        Under a mesh every term is the global one, on every rank; each
+        rank's gradient is its batch's part (``launch.train`` sums them over
+        the data axes)."""
         cfg = self.cfg
+        par = self._par()
         hidden, aux = self.forward(params, batch)
-        logits = self.logits(params, hidden)
-        ce = cross_entropy(logits, batch["labels"], cfg.vocab_size, sharded=cfg.sharded_ce)
+        logits = self.logits(params, hidden, par)
+        ce_par = par if par.shards(cfg.vocab_padded) else None
+        ce = par.data_mean(cross_entropy(logits, batch["labels"], cfg.vocab_size,
+                                         sharded=cfg.sharded_ce, par=ce_par))
         total = ce + 0.01 * aux
         mmd = torch.zeros((), dtype=torch.float32, device=hidden.device)
         if cfg.fda_lambda and n_clients > 1:
-            mmd = fda_loss(params["fda"], hidden, n_clients)
+            mmd = fda_loss(params["fda"], hidden, n_clients, par)
             total = total + cfg.fda_lambda * mmd
         return total, {"ce": ce, "aux": aux, "mmd": mmd}
 
@@ -287,17 +349,40 @@ class LM:
             shapes["img_k"] = shapes["img_v"] = (n_cross, batch, cfg.n_image_tokens, *kv)
         return shapes
 
-    def _cache_tree(self, batch: int, s_cache: int, maker):
+    def cache_specs(self):
+        """The reference's ``LM.cache_specs``: every leaf's batch dimension
+        over the data axes (``launch.specs.cache_pspecs`` gives the
+        placements the dry run and :meth:`decode_step` use)."""
         def walk(tree):
-            return {k: walk(v) if isinstance(v, dict) else maker(
-                v, dtype=torch.float32 if k == "ssm" else self.cfg.dtype)
+            return {k: walk(v) if isinstance(v, dict)
+                    else (None, self.rules.batch, *([None] * (len(v) - 2)))
+                    for k, v in tree.items()}
+
+        return walk(self.cache_shapes(1, 1))
+
+    def cache_placements(self, batch: int, s_cache: int):
+        """The placement of every cache leaf for a global ``batch``
+        (``launch.specs.cache_pspecs``)."""
+        from repro_torch.launch.specs import cache_placements
+
+        return cache_placements(self, batch, s_cache, self.rules)
+
+    def _cache_tree(self, batch: int, s_cache: int, maker):
+        """``maker(shape, dtype)`` of every leaf: under a mesh, of this
+        rank's shard of a cache for the global ``batch``."""
+        placed = self.cache_placements(batch, s_cache) if self.mesh is not None else None
+
+        def walk(tree, where):
+            return {k: walk(v, where and where[k]) if isinstance(v, dict) else maker(
+                v if where is None else local_shape(v, where[k], self.mesh),
+                dtype=torch.float32 if k == "ssm" else self.cfg.dtype)
                 for k, v in tree.items()}
 
-        return walk(self.cache_shapes(batch, s_cache))
+        return walk(self.cache_shapes(batch, s_cache), placed)
 
     def init_cache(self, batch: int, s_cache: int, *, device=None):
         """Zeros of ``cache_shapes``: the SSM state in fp32, the rest in
-        ``cfg.dtype``."""
+        ``cfg.dtype``; under a mesh, this rank's shards (``batch`` global)."""
         dev = resolve_device(device)
         return self._cache_tree(batch, s_cache,
                                 lambda shape, dtype: torch.zeros(shape, dtype=dtype, device=dev))
@@ -308,33 +393,45 @@ class LM:
                                 lambda shape, dtype: torch.empty(shape, dtype=dtype,
                                                                  device="meta"))
 
-    def decode_step(self, params, cache, batch, pos: int):
+    def decode_step(self, params, cache, batch, pos: int, *, global_batch: int | None = None):
         """One token for the whole stack. batch: tokens (b, 1), or embeddings
         (b, 1, d) for ``embeddings_in``; the VLM reads its image K/V from the
         cache.  pos: the position (the same across the batch).  Returns
-        (logits (b, vocab_padded), cache); the cache is updated in place."""
+        (logits (b, vocab_padded), cache); the cache is updated in place.
+
+        Under a mesh the cache is placed as ``init_cache`` places it for the
+        ``global_batch`` (``None``: a batch the data axes divide): the batch
+        over the data axes, or, where they do not divide it, the same tokens
+        on every data rank and the attention caches' sequence over them."""
         cfg = self.cfg
-        x = self._embed_in(params, batch)
+        par = self._par()
+        if global_batch is not None and par.d_size > 1 and global_batch % par.d_size:
+            par = self._par(batch=False)
+        x = self._embed_in(params, batch, par)
         layers = cache["layers"]
         pos = int(pos)
         for kind, i in self.schedule():
             if kind == "block":
                 layer, lc = layer_slice(params["blocks"], i), layer_slice(layers, i)
                 if cfg.family in _SSM_BLOCKS:
-                    x, _ = B.ssm_block_decode(layer, x, lc, cfg)
+                    x, _ = B.ssm_block_decode(layer, x, lc, cfg, par=par)
                 else:
-                    x, _ = B.decoder_block_decode(layer, x, lc, pos, cfg)
+                    x, _ = B.decoder_block_decode(layer, x, lc, pos, cfg, par=par)
             elif kind == "attn":
                 sp = params["shared_attn"]
                 h = rmsnorm(sp["ln"], x, cfg.norm_eps)
                 o, _, _ = gqa_decode(sp["attn"], h, cache["attn_k"][i], cache["attn_v"][i], pos,
-                                     cfg)
+                                     cfg, par=par)
                 x = x + o
             else:
                 x = B.cross_block_forward(layer_slice(params["cross_blocks"], i), x,
-                                          (cache["img_k"][i], cache["img_v"][i]), cfg)
-        return self._decode_logits(params, x), cache
+                                          (cache["img_k"][i], cache["img_v"][i]), cfg, par=par)
+        return self._decode_logits(params, x, par), cache
 
-    def _decode_logits(self, params, x):
+    def _decode_logits(self, params, x, par: Par | None = None):
+        """The logits of x (b, 1, d), whole over the model axis."""
         x = self._finish(params, x)
-        return self.logits(params, x)[:, 0, :]
+        logits = self.logits(params, x, par)
+        if par is not None and par.shards(self.cfg.vocab_padded):
+            logits = par.model_gather(logits, -1)
+        return logits[:, 0, :]

@@ -16,6 +16,16 @@ in choice order into a zero of the config dtype, rounding after each add, as
 the reference's scatter-add does (``index_add_`` would add with atomics on
 the card, in an order and with a rounding that change from run to run).
 
+Under a (data, model) mesh (``par``, ``models.parallel.Par``) the experts
+lie over the model axis where it divides E, and :func:`moe_forward` keeps
+the reference's global semantics (XLA replicates its dispatch): the
+capacity of the global T = b s tokens, each pair's position in its
+expert's buffer counting the pairs of every data rank before it (each
+rank's per-expert counts, all-reduced over the data axes), and the aux loss
+from the global means of the probabilities and counts.  Each rank runs its
+own tokens through its own experts; one reduce over the model axis sums the
+experts' (and a sharded shared expert's) partial outputs.
+
 ``moe_forward_ep`` is the reference's expert-parallel dispatch over a
 ``torch.distributed`` mesh (``launch.mesh``): each (data, model) rank routes
 its own tokens to its own E / M experts, with the same steps and a capacity
@@ -25,24 +35,26 @@ the experts' outputs.
 from __future__ import annotations
 
 import torch
-import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import ShardRules, mlp, mlp_decl
+from repro_torch.models.layers import ShardRules, mlp_decl, mlp_local
 from repro_torch.models.param import ParamDecl
+from repro_torch.models.parallel import Par
 
 
-def moe_decl(cfg: ModelConfig) -> dict:
+def moe_decl(cfg: ModelConfig, rules: ShardRules | None = None) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    rules = rules or ShardRules()
+    e_spec = rules.tp(e)
     decl = {
-        "router": ParamDecl((d, e), "normal", torch.float32),
-        "gate": ParamDecl((e, d, f), "normal", cfg.dtype),
-        "up": ParamDecl((e, d, f), "normal", cfg.dtype),
-        "down": ParamDecl((e, f, d), "normal", cfg.dtype),
+        "router": ParamDecl((d, e), "normal", torch.float32, spec=(None, None)),
+        "gate": ParamDecl((e, d, f), "normal", cfg.dtype, spec=(e_spec, None, None)),
+        "up": ParamDecl((e, d, f), "normal", cfg.dtype, spec=(e_spec, None, None)),
+        "down": ParamDecl((e, f, d), "normal", cfg.dtype, spec=(e_spec, None, None)),
     }
     if cfg.n_shared_experts:
-        decl["shared"] = mlp_decl(cfg, d_ff=cfg.n_shared_experts * cfg.d_ff)
+        decl["shared"] = mlp_decl(cfg, rules, d_ff=cfg.n_shared_experts * cfg.d_ff)
     return decl
 
 
@@ -116,8 +128,12 @@ def _experts(xt, top_p, slot, keep, c: int, gate, up, down, cfg: ModelConfig) ->
     return y
 
 
-def moe_forward(params, x: torch.Tensor, cfg: ModelConfig):
-    """x: (b, s, d) -> (y, aux_loss)."""
+def moe_forward(params, x: torch.Tensor, cfg: ModelConfig, par=None):
+    """x: (b, s, d) -> (y, aux_loss).  With ``par`` (a mesh), x is on the
+    residual's layout and the dispatch keeps the reference's global
+    semantics (the module's docstring)."""
+    if par is not None and (par.tp or par.data):
+        return _moe_spmd(params, x, cfg, par)
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
@@ -127,8 +143,61 @@ def moe_forward(params, x: torch.Tensor, cfg: ModelConfig):
     slot, keep = dispatch(top_e, cfg.n_experts, c)
     y = _experts(xt, top_p, slot, keep, c, params["gate"], params["up"], params["down"], cfg)
     if cfg.n_shared_experts:
-        y = y + mlp(params["shared"], xt)
+        y = y + mlp_local(params["shared"], xt)
     return y.reshape(b, s, d), aux
+
+
+def _moe_spmd(params, x: torch.Tensor, cfg: ModelConfig, par: Par):
+    """This rank's tokens through this rank's experts, with the global
+    capacity, positions and aux; the partial outputs reduced over model."""
+    x = par.enter(x, sharded=False)
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xt = x.reshape(t, d)
+    probs, top_p, top_e = route(params, xt, cfg)
+    flat_e = top_e.reshape(-1)
+    counts = torch.zeros((e,), dtype=torch.float32, device=x.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e, dtype=torch.float32))
+    over_data = par.batch and par.d_size > 1
+    t_all = t * (par.d_size if over_data else 1)
+    if over_data:  # every data rank's counts (exact in fp32), row r rank r's
+        rows = torch.zeros((par.d_size, e), dtype=torch.float32, device=x.device)
+        rows[par.d_rank] = counts
+        rows = par.data_reduce(rows)
+        me = par.data_sum_rep(torch.sum(probs, dim=0)) / t_all
+        ce = torch.sum(rows, dim=0) / (t_all * k)
+        before = torch.sum(rows[:par.d_rank], dim=0).to(torch.int32)
+    else:
+        me, ce = torch.mean(probs, dim=0), counts / flat_e.numel()
+        before = torch.zeros((e,), dtype=torch.int32, device=x.device)
+    aux = e * torch.sum(me * ce)
+
+    c = capacity(cfg, t_all)
+    pos_local = _positions(flat_e, e)
+    keep = pos_local + before[flat_e] < c
+    es = par.shards(e)
+    e_loc, lo = (e // par.m_size, par.m_rank * (e // par.m_size)) if es else (e, 0)
+    local_e = flat_e - lo
+    keep = keep & (local_e >= 0) & (local_e < e_loc)
+    slot = torch.where(keep, local_e * c + pos_local, torch.full_like(flat_e, e_loc * c))
+    xe, pe = (par.copy(xt), par.copy(top_p)) if es else (xt, top_p)
+    y = _experts(xe, pe, slot, keep, c, params["gate"], params["up"], params["down"], cfg)
+    partial, whole = (y, None) if es else (None, y)
+    if cfg.n_shared_experts:
+        if par.shards(cfg.n_shared_experts * cfg.d_ff):
+            ysh = mlp_local(params["shared"], par.copy(xt))
+            partial = ysh if partial is None else partial + ysh
+        else:
+            ysh = mlp_local(params["shared"], xt)
+            whole = ysh if whole is None else whole + ysh
+    out = None
+    if partial is not None:
+        out = par.leave(partial.reshape(b, s, d), partial=True)
+    if whole is not None:
+        w = par.leave(whole.reshape(b, s, d), partial=False)
+        out = w if out is None else out + w
+    return out, aux
 
 
 def moe_forward_ep(params, x: torch.Tensor, cfg: ModelConfig, rules: ShardRules):
@@ -137,38 +206,33 @@ def moe_forward_ep(params, x: torch.Tensor, cfg: ModelConfig, rules: ShardRules)
     rank's (b_loc, s, d) tokens: the batch split over the data axes, the same
     on every rank of a model group.  The expert weights are the whole (E,
     ...) stacks, of which this rank takes its E / M experts, or this rank's
-    (E / M, ...) shard.  Returns this rank's (y (b_loc, s, d), aux).
+    (E / M, ...) shard; the shared experts whole or this rank's d_ff shard.
+    Returns this rank's (y (b_loc, s, d), aux).
 
     The reference's ``shard_map`` body (``repro.models.moe``): every rank
     routes its T = b_loc s tokens over all E experts, with the capacity of T
     tokens; a pair is kept where its position is under the capacity and its
     expert is this rank's; each token adds its kept rows in choice order
     (the others add zero); one all-reduce over the model axis sums the
-    ranks' outputs, then the shared experts are added.  The load-balance
+    ranks' outputs, then the shared experts are added (a sharded shared
+    expert's partial output joins the same all-reduce).  The load-balance
     loss is averaged over the data axes (x is the same across the model
-    axis).  The all-reduces are ``torch.distributed.nn``'s, which autograd
-    differentiates, as ``jax.grad`` does the reference's ``psum``.  At a mesh
-    of one rank this is :func:`moe_forward` bit for bit, and a mesh axis of
-    size 1 issues no collective."""
-    mesh = rules.mesh
-    names = list(mesh.mesh_dim_names)
-
-    def size(axis):
-        return int(mesh.size(names.index(axis)))
-
+    axis).  The collectives are ``models.parallel``'s, whose backwards are
+    JAX's transposes: the tokens and the routing weights enter the experts
+    through ``copy`` (the gradient's parts summed over the model axis), the
+    output leaves through ``reduce`` and the aux through ``pmean`` (identity
+    backwards).  At a mesh of one rank this is :func:`moe_forward` bit for
+    bit, and a mesh axis of size 1 issues no collective."""
+    par = Par(rules)
     b, s, d = x.shape
     t = b * s
-    e_total, m_axis = cfg.n_experts, rules.model_axis
-    m_size = size(m_axis)
-    e_loc = e_total // m_size
-    m_idx = mesh.get_local_rank(m_axis) if m_size > 1 else 0
+    e_total = cfg.n_experts
+    e_loc = e_total // par.m_size
+    m_idx = par.m_rank
     xt = x.reshape(t, d)
 
     probs, top_p, top_e = route(params, xt, cfg)
-    aux = _aux(probs, top_e, e_total)
-    for axis in rules.batch_axes:  # the mean over the data axes
-        if size(axis) > 1:
-            aux = dist_fn.all_reduce(aux, group=mesh.get_group(axis)) / size(axis)
+    aux = par.data_mean(_aux(probs, top_e, e_total))
 
     c = capacity(cfg, t)
     flat_e = top_e.reshape(-1)
@@ -180,10 +244,14 @@ def moe_forward_ep(params, x: torch.Tensor, cfg: ModelConfig, rules: ShardRules)
     def local(w):
         return w if w.shape[0] == e_loc else w[m_idx * e_loc:(m_idx + 1) * e_loc]
 
-    y = _experts(xt, top_p, slot, keep, c, local(params["gate"]), local(params["up"]),
-                 local(params["down"]), cfg)
-    if m_size > 1:  # combine the contributions of every expert shard
-        y = dist_fn.all_reduce(y, group=mesh.get_group(m_axis))
-    if cfg.n_shared_experts:
-        y = y + mlp(params["shared"], xt)
+    y = _experts(par.copy(xt), par.copy(top_p), slot, keep, c, local(params["gate"]),
+                 local(params["up"]), local(params["down"]), cfg)
+    shared = params.get("shared") if cfg.n_shared_experts else None
+    sharded_shared = (shared is not None and par.tp
+                      and shared["gate"].shape[-1] != cfg.n_shared_experts * cfg.d_ff)
+    if sharded_shared:
+        y = y + mlp_local(shared, par.copy(xt))
+    y = par.reduce(y)  # combine the contributions of every expert shard
+    if shared is not None and not sharded_shared:
+        y = y + mlp_local(shared, xt)
     return y.reshape(b, s, d), aux

@@ -21,10 +21,17 @@ they are drawn on ``THREADS`` host threads at once with the same values.
 
 :func:`abstract` is the reference's ``abstract``: every declaration becomes
 an empty tensor on the ``meta`` device, with its shape and dtype and no
-storage and nothing drawn, the input of a dry run (``launch.dryrun``).  The
-reference's ``spec`` and ``specs`` (a PartitionSpec per leaf) have no
-counterpart: the port's ``LM`` has no tensor parallelism
-(``launch.specs`` gives the placements of the inputs and caches).
+storage and nothing drawn, the input of a dry run (``launch.dryrun``).
+
+Each declaration carries the reference's ``spec``: its placement on a
+(data, model) mesh, a tuple with one entry a dimension, position for
+position the reference's ``PartitionSpec`` (a mesh-axis name, a tuple of
+them, or ``None``: replicated; ``None`` for the whole spec is ``P()``).
+:func:`specs` gives the tree of them.  :func:`shard` cuts a whole tree to
+this rank's shards of a ``DeviceMesh`` and :func:`unshard` puts them back
+together through all-gathers.  A sharded init is ``materialize`` of the
+whole tree, then ``shard``: the unsharded init's slice, as the
+reference's global init is.
 """
 from __future__ import annotations
 
@@ -44,10 +51,12 @@ class ParamDecl:
     init: str = "normal"  # "normal" | "std" | "ones" | "zeros" | "ssm_a" | "ssm_dt"
     dtype: Any = torch.float32
     scale: float = 1.0
+    spec: tuple | None = None  # the placement (see the module's docstring)
 
     def stacked(self, n: int) -> "ParamDecl":
-        """Prepend a layer axis (the reference scans over it)."""
-        return ParamDecl((n, *self.shape), self.init, self.dtype, self.scale)
+        """Prepend a layer axis (the reference scans over it), replicated."""
+        spec = (None, *self.spec) if self.spec is not None else None
+        return ParamDecl((n, *self.shape), self.init, self.dtype, self.scale, spec)
 
 
 def _leaf_seed(seed: int, path: str) -> int:
@@ -139,6 +148,92 @@ def abstract(decls):
     if isinstance(decls, dict):
         return {k: abstract(v) for k, v in decls.items()}
     return torch.empty(decls.shape, dtype=decls.dtype, device="meta")
+
+
+def specs(decls):
+    """The placement tree, the parameters' structure: ``()`` for a
+    declaration without a spec (the reference's ``P()``)."""
+    if isinstance(decls, dict):
+        return {k: specs(v) for k, v in decls.items()}
+    return decls.spec if decls.spec is not None else ()
+
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _axis_sizes(mesh, entry) -> list[tuple[int, int]]:
+    """(size, this rank's index) of each mesh axis of a spec entry."""
+    names = list(mesh.mesh_dim_names)
+    out = []
+    for a in _axes(entry):
+        n = int(mesh.size(names.index(a)))
+        out.append((n, int(mesh.get_local_rank(a)) if n > 1 else 0))
+    return out
+
+
+def local_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The shape of this rank's shard of a tensor of ``shape`` placed by
+    ``spec`` on ``mesh``."""
+    out = list(shape)
+    for dim, entry in enumerate(spec or ()):
+        for n, _ in _axis_sizes(mesh, entry):
+            if out[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(shape)} is not divisible by {n}")
+            out[dim] //= n
+    return tuple(out)
+
+
+def shard_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of ``t``: each placed dimension cut into as many
+    chunks as its axes have ranks (outer axis first), this rank's chunk
+    kept.  A meta tensor gives a new meta tensor; any other a copy that owns
+    its storage."""
+    if t.device.type == "meta":
+        return torch.empty(local_shape(t.shape, spec, mesh), dtype=t.dtype, device="meta")
+    out = t
+    for dim, entry in enumerate(spec or ()):
+        sizes = _axis_sizes(mesh, entry)
+        n = int(np.prod([s for s, _ in sizes])) if sizes else 1
+        if n == 1:
+            continue
+        i = 0
+        for s, r in sizes:
+            i = i * s + r
+        chunk = out.shape[dim] // n
+        out = out.narrow(dim, i * chunk, chunk)
+    return out.clone() if out is not t else t
+
+
+def shard(params, spec_tree, mesh):
+    """Cut a whole tree to this rank's shards (``spec_tree``: ``specs``'s
+    form, or ``launch.specs``' placements)."""
+    if isinstance(params, dict):
+        return {k: shard(v, spec_tree[k], mesh) for k, v in params.items()}
+    return shard_tensor(params, spec_tree, mesh)
+
+
+def unshard_tensor(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The whole tensor from this rank's shard, through all-gathers over
+    each placed dimension's axes (the inner axis first); no gradient."""
+    from repro_torch.models.parallel import all_gather
+
+    names = list(mesh.mesh_dim_names)
+    for dim, entry in enumerate(spec or ()):
+        for a in reversed(_axes(entry)):
+            n = int(mesh.size(names.index(a)))
+            if n > 1:
+                t = all_gather(t.detach(), dim, mesh.get_group(a), n)
+    return t
+
+
+def unshard(params, spec_tree, mesh):
+    """:func:`shard`'s inverse: the whole tree on every rank."""
+    if isinstance(params, dict):
+        return {k: unshard(v, spec_tree[k], mesh) for k, v in params.items()}
+    return unshard_tensor(params, spec_tree, mesh)
 
 
 def stack_decls(decls, n: int):

@@ -18,7 +18,9 @@ tensors, on the CPU, held to analytic counts.
   other shapes, 2.8% of the products at prefill_32k: PERF.md.)
 - The CLI in process on one combo: the record has the reference's keys but
   its compile and lower times (read from ``repro/launch/dryrun.py``'s
-  source), and ``--mesh single`` raises naming the ROADMAP item.
+  source); ``--mesh single`` and ``multi`` write per-card records of the
+  (16, 16) and (2, 16, 16) meshes (tests/test_torch_spmd_dryrun.py holds
+  their counts).
 """
 import ast
 import json
@@ -190,10 +192,14 @@ def test_cli_writes_the_reference_record_keys(tmp_path):
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes"}
     assert dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k", "--out",
                         str(tmp_path)]) == []  # exists: skipped without --force
-    for mesh in ("single", "multi"):
-        with pytest.raises(ValueError, match="LM tensor and data parallelism"):
-            dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k", "--mesh", mesh,
-                         "--out", str(tmp_path)])
+    for mesh, name, chips in (("single", "16x16", 256), ("multi", "2x16x16", 512)):
+        (rec_mesh,) = dryrun.main(["--arch", "smollm-135m", "--shape", "decode_32k", "--mesh",
+                                   mesh, "--out", str(tmp_path)])
+        assert rec_mesh == json.loads(
+            (tmp_path / f"smollm-135m_decode_32k_{name}.json").read_text())
+        assert set(rec_mesh) == set(rec) and rec_mesh["mesh"] == name
+        assert rec_mesh["n_chips"] == chips and rec_mesh["roofline"]["coll_bytes_per_chip"] > 0
+        assert rec_mesh["roofline"]["flops_per_chip"] < rec["roofline"]["flops_per_chip"]
 
 
 def test_mla_decode_past_its_cache_clamps_like_reference():

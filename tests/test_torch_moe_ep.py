@@ -9,9 +9,20 @@ file store, over ``launch.mesh.make_host_mesh(model=2)``: each rank holds its
 data shard of the batch and routes it to its two of the four experts.  The
 same numpy parameters and inputs go to both.  Tolerances are those of
 tests/test_torch_moe.py for ``moe_forward``: y and aux within 2e-5 at fp32,
-y within 3e-2 of max(1, max|y|) at bf16 (aux 2e-5: it is fp32 in both).  At
-one rank, ``moe_forward_ep`` is ``moe_forward`` bit for bit, alone and as an
-``LM``'s MoE blocks under ``cfg.moe_ep``.
+y within 3e-2 of max(1, max|y|) at bf16 (aux 2e-5: it is fp32 in both).
+
+Both sides also take the gradient of one scalar of y and aux (a fixed
+weighting of y plus 3 aux): ``jax.grad`` through the reference's
+``shard_map``, autograd through the port's collectives on each rank.  The
+port's rank holds its part of each gradient: x's for its data shard, the
+router's and the shared expert's for its tokens (summed here over the data
+axis), the expert stacks' for its experts and tokens (summed over both
+axes).  Each leaf is held to 1e-5 x max(1, max|leaf|) at fp32 and to the
+bf16 rule above.  (With ``torch.distributed.nn``'s all-reduce, whose
+backward all-reduces again, every upstream gradient came out twice too
+large at a model axis of 2.)  At one rank, ``moe_forward_ep`` is
+``moe_forward`` bit for bit, alone and as an ``LM``'s MoE blocks under
+``cfg.moe_ep``.
 """
 import dataclasses
 import os
@@ -32,7 +43,9 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 RANKS, DATA, MODEL = 4, 2, 2
-F32_TOL, BF16_RTOL = 2e-5, 3e-2
+F32_TOL, BF16_RTOL, GRAD_RTOL = 2e-5, 3e-2, 1e-5
+AUX_WEIGHT = 3.0
+GRAD_LEAVES = ("x", "router", "gate", "up", "down", "shared/gate", "shared/up", "shared/down")
 TIMEOUT_S = 240
 SIZES = dict(arch_id="moe-ep", family="moe", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
              d_ff=32, vocab_size=128, n_experts=4, top_k=2, n_shared_experts=1)
@@ -70,7 +83,8 @@ def _inputs(seed: int = 0) -> dict:
 
     return {"router": w(d, e), "gate": w(e, d, f), "up": w(e, d, f), "down": w(e, f, d),
             "shared/gate": w(d, f), "shared/up": w(d, f), "shared/down": w(f, d),
-            "x": rng.normal(size=(B, S, d)).astype(np.float32)}
+            "x": rng.normal(size=(B, S, d)).astype(np.float32),
+            "wy": rng.normal(size=(B, S, d)).astype(np.float32)}
 
 
 REFERENCE = textwrap.dedent('''
@@ -99,8 +113,19 @@ REFERENCE = textwrap.dedent('''
         y, aux = moe_forward_ep(params, x, cfg, rules)
         out[name + "/y"] = np.asarray(jnp.asarray(y, jnp.float32))
         out[name + "/aux"] = np.asarray(aux, np.float32)
+        wy = jnp.asarray(inp["wy"])
+
+        def scalar(params, x):
+            y, aux = moe_forward_ep(params, x, cfg, rules)
+            return jnp.sum(y.astype(jnp.float32) * wy) + AUX_WEIGHT * aux
+
+        gp, gx = jax.jit(jax.grad(scalar, argnums=(0, 1)))(params, x)
+        grads = {"x": gx, **{k: gp[k] for k in ("router", "gate", "up", "down")},
+                 **{"shared/" + k: gp["shared"][k] for k in ("gate", "up", "down")}}
+        for k, g in grads.items():
+            out[name + "/g/" + k] = np.asarray(jnp.asarray(g, jnp.float32))
     np.savez(out_path, **out)
-    ''')
+    ''').replace("AUX_WEIGHT", repr(AUX_WEIGHT))
 
 # one (data, model) rank of the port's expert-parallel MoE on a file store
 PORT = textwrap.dedent('''
@@ -132,13 +157,27 @@ PORT = textwrap.dedent('''
             params["shared"] = {k: torch.tensor(inp["shared/" + k]).to(dtype)
                                 for k in ("gate", "up", "down")}
             x = torch.tensor(inp["x"][data_idx * b_loc:(data_idx + 1) * b_loc]).to(dtype)
+            leaves = {"x": x, **{k: params[k] for k in ("router", "gate", "up", "down")},
+                      **{"shared/" + k: params["shared"][k] for k in ("gate", "up", "down")}}
+            for t in leaves.values():
+                t.requires_grad_()
             y, aux = moe_forward_ep(params, x, cfg, rules)
-            out[name + "/y"] = y.float().numpy()
-            out[name + "/aux"] = aux.float().numpy()
+            out[name + "/y"] = y.detach().float().numpy()
+            out[name + "/aux"] = aux.detach().float().numpy()
+            wy = torch.tensor(inp["wy"][data_idx * b_loc:(data_idx + 1) * b_loc])
+            scalar = torch.sum(y.float() * wy) + AUX_WEIGHT * aux
+            grads = dict(zip(leaves, torch.autograd.grad(scalar, list(leaves.values()))))
+            for k, g in grads.items():
+                g = g.detach().float()
+                if k != "x":  # each rank's part: its tokens (and its experts)
+                    dist.all_reduce(g, group=mesh.get_group("data"))
+                if k in ("gate", "up", "down"):
+                    dist.all_reduce(g, group=mesh.get_group("model"))
+                out[name + "/g/" + k] = g.numpy()
         np.savez(out_path, **out)
     finally:
         dist.destroy_process_group()
-    ''')
+    ''').replace("AUX_WEIGHT", repr(AUX_WEIGHT))
 
 
 def _env():
@@ -149,7 +188,11 @@ def _env():
     return env
 
 
-def test_expert_parallel_matches_reference_on_four_gloo_ranks(tmp_path):
+@pytest.fixture(scope="module")
+def four_ranks(tmp_path_factory):
+    """The reference on four forced devices and the port on four gloo
+    ranks, once for the module: (reference outputs, each rank's)."""
+    tmp_path = tmp_path_factory.mktemp("moe_ep")
     src = tmp_path / "inputs.npz"
     np.savez(src, **_inputs())
     ref_path = tmp_path / "ref.npz"
@@ -170,10 +213,14 @@ def test_expert_parallel_matches_reference_on_four_gloo_ranks(tmp_path):
                 p.kill()
                 p.wait()
     assert all(p.returncode == 0 for p in procs), "\n".join(e[-2000:] for e in errs)
-    ref = dict(np.load(ref_path))
+    return (dict(np.load(ref_path)),
+            [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(RANKS)])
+
+
+def test_expert_parallel_matches_reference_on_four_gloo_ranks(four_ranks):
+    ref, ranks = four_ranks
     b_loc = B // DATA
-    for r in range(RANKS):
-        out = dict(np.load(tmp_path / f"rank{r}.npz"))
+    for r, out in enumerate(ranks):
         i = int(out["data_idx"])
         assert i == r // MODEL
         want = ref["f32/y"][i * b_loc:(i + 1) * b_loc]
@@ -182,6 +229,25 @@ def test_expert_parallel_matches_reference_on_four_gloo_ranks(tmp_path):
         want = ref["bf16/y"][i * b_loc:(i + 1) * b_loc]
         assert np.abs(out["bf16/y"] - want).max() <= BF16_RTOL * max(1.0, np.abs(want).max())
         np.testing.assert_allclose(out["bf16/aux"], ref["bf16/aux"], rtol=0, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("leaf", GRAD_LEAVES)
+def test_expert_parallel_gradient_matches_reference_on_four_gloo_ranks(four_ranks, leaf):
+    """``jax.grad`` through the reference's ``shard_map`` (step 0) against
+    autograd through the port's collectives, every rank."""
+    ref, ranks = four_ranks
+    b_loc = B // DATA
+    for name, rtol in (("f32", GRAD_RTOL), ("bf16", BF16_RTOL)):
+        want = ref[f"{name}/g/{leaf}"]
+        for r, out in enumerate(ranks):
+            if leaf == "x":
+                i = int(out["data_idx"])
+                want_r = want[i * b_loc:(i + 1) * b_loc]
+            else:
+                want_r = want
+            got = out[f"{name}/g/{leaf}"]
+            err = np.abs(got - want_r).max() / max(1.0, np.abs(want_r).max())
+            assert err <= rtol, (name, leaf, r, err)
 
 
 def _params(dtype) -> tuple[dict, torch.Tensor]:
