@@ -19,12 +19,14 @@ Phases (any failed check raises, and the run exits non-zero):
      512} (split over p there where the output tiles are fewer than the
      SMs; ``rff.split_plan``): max abs error <= 2e-5, each timed beside its
      split-TF32 bound and ``torch.matmul(Omega, X)``; K1 with a Cauchy Omega
-     (``draw_omega``'s laplace) at N = 1000, n = 3612, timed: within 2e-5 of
-     plain, or, where plain itself is past that from the float64 answer,
-     no farther from it than plain, and every element within 2e-5 plus
-     2^-20 of sum_k |omega_k x_k| / sqrt(N) of plain (the split products'
-     rounding where a phase cancels), with the share of phases recomputed
-     as fp32's FMA chain counted by the kernel (``counters=``);
+     (``draw_omega``'s laplace) at N = 1000, n = 3612, timed, under the
+     reference's rule element by element: within 2e-5 of plain, or, where
+     plain itself is past that from the float64 answer, no farther from it
+     than plain, with the share of phases recomputed as fp32's FMA chain
+     (|z| >= 64, or terms large enough to cancel past the gate) counted by
+     the kernel (``counters=``); the same counts at a request's 300 columns,
+     reported, not gated (split over p there, plain's sgemm may sum k in
+     another order than the chain);
   4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}, and
      the tensor-core tiles' edges ``FUSED_GRAM_EDGES``: N 65, p 7 and 40,
      n 795, each at the data's sigma and at the slice's own): atol 2e-5 on
@@ -32,32 +34,37 @@ Phases (any failed check raises, and the run exits non-zero):
      misses it, the float64 answer from the same Omega must itself be
      beyond 2e-5 of plain on that metric and the kernel no farther from it
      than plain (each edge reports both distances from that answer);
-     whether two identical K5 calls agree bit for bit (its k is
-     split across blocks with atomic adds; reported, not gated); the Omega
+     two identical K5 calls at S = 1 and 4 bit for bit (its k is split
+     across blocks, the partials added in split order: gated); the Omega
      draws per element of K5 and K6, counted by the kernel; K5 with Cauchy
      draws (laplace) timed, with the share of phases the featurize
-     recomputes as fp32's FMA chain and its distance from plain (reported);
+     recomputes as fp32's FMA chain, under this phase's float64 rule;
   5. operand Gram (K2/K3) at N in {1000, 4096} with Omega from the port's
      ``draw_omega`` and at ``OPERAND_GRAM_EDGES`` (N 65 and 1000, p 7, 40
      and 2048, n 795, each at both sigmas): atol 2e-5 on G_H / max|G_H| and
-     on u, under phase 4's float64 rule at an edge; K2 with a Cauchy Omega
+     on u, under phase 4's float64 rule at an edge; two identical K2 calls
+     at N = 1000 bit for bit (gated); K2 with a Cauchy Omega
      (laplace, N = 1000) under the same gate and rule, timed, with the share
      of phases its featurize recomputes as fp32's FMA chain (the kernel's
      count); seed-fused featurize (K7) at N = 4096 and at
      ``FUSED_K7_EDGES`` (N 65 and 1000, p 7 and 40, n 1 and 795, each at
      both sigmas): atol 2e-5, and its draws per Omega element as the kernel
      counts them (at most ceil(n / 1024)); K7 with laplace draws timed as K5
-     is; centered Gram (K8) at 2N in {2000, 8192} on K1's Sigma and at
+     is, under phase 3's element rule; centered Gram (K8) at 2N in {2000, 8192} on K1's Sigma and at
      ``K8_EDGES`` (K1's Sigma at the data's sigma on 7 and 40 rows: nearly
      constant rows; n 795 and 3611, not multiples of 4; 2N 130 and 2000,
      not multiples of 128): atol 1e-5 on G / max|G|, or, where plain itself
      is past that from the float64 answer, no farther from it than plain
-     (each edge reports both distances), G exactly symmetric; whether two
-     identical K8 calls agree bit for bit (its k is split across blocks at
-     2N = 2000; reported, not gated); the ptxas line (registers, spills) of
+     (each edge reports both distances), G exactly symmetric; two identical
+     K8 calls at 2N = 2000 bit for bit (its k split across blocks: gated);
+     bf16 operands as the reference takes them: K1 at N = 4096, p = 2048, n =
+     3612 in bf16 (one bf16 ULP of plain + 2e-5) and K8 on that Sigma (2N =
+     8192; fp32 G under K8's gate and float64 rule, mu rounded to bf16 as
+     the reference's), each timed beside its bound and
+     ``torch.matmul`` in bf16; the ptxas line (registers, spills) of
      each tensor-core kernel of the ``rff``, ``rff_gram_stream_fused`` and
-     ``centered_gram`` libraries (K2/K3, K5-K8) and their HGMMA count
-     (``cuobjdump -sass``): no spills, HGMMA present;
+     ``centered_gram`` libraries (K1-K3, K5-K8, bf16 included) and their
+     HGMMA count (``cuobjdump -sass``): no spills, HGMMA present;
   6. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
      1e-2, subspace projector within 1e-3); ``draw_omega`` (the materialized
      Omega, gauss and laplace, sigma != 1) gives the card the CPU's Omega
@@ -72,6 +79,9 @@ Phases (any failed check raises, and the run exits non-zero):
        C  w_rf=None, stream, N = 1000, m = 32, eigh (K2, K1);
        D  w_rf=None, stream, N = 4096, m = 8, lobpcg (K3, K1);
        E  dense, N = 1000, m = 32, eigh then cholesky (K1 + K8);
+       EB E's statistics on bf16 operands through ``ops.rff`` and
+          ``ops.centered_gram`` (K1 and K8 in bf16), against plain;
+     fit A fitted again from scratch: W_RF and eigenvalues bit for bit;
      cross-checks: C and E share Omega and agree (eigenvalues rtol 1e-3); E's
      two solvers agree (rtol 1e-4, subspace cosines above 1 - 1e-4); on D's
      own (G_H, u), the fit's LOBPCG (the reference's stopping rule, a
@@ -205,7 +215,9 @@ Phases (any failed check raises, and the run exits non-zero):
             (benchmarks/bench_serve.py), 400 transform requests of 4-64
             columns a level: every served output within 1e-5 of max|whole| of
             W_RF^T times K1's plain version on its columns, by the state that
-            served it (so K1 at each bucket width is held to plain), each bucket's
+            served it (so K1 at each bucket width is held to plain), that
+            state's W_RF the pair's first fit's bit for bit whichever LRU
+            refit made it, each bucket's
             plane one sentinel signature over the warm-up and the levels, K1
             once per dispatch (and once per refit: the target mean), K4 once
             per pair (the transform Omega's memo); latency p50 / p99,
@@ -225,10 +237,11 @@ Phases (any failed check raises, and the run exits non-zero):
             pools only shifted ones), the drifted target's discrepancy lower
             under the refreshed aligner than the stale one; detection latency
             and the fires;
-       SO   two servers behind one fitted state, telemetry off and on
-            (``RequestTracer(rate=0.1)``, an ``SloEngine``, the drift monitor's
-            probed planes), 96-224 columns at 400 requests/s: outputs equal
-            bit for bit; the wall-clock overhead ratio (reported);
+       SO   two servers, each fitting the pair itself (tests/test_serve.py:305),
+            telemetry off and on (``RequestTracer(rate=0.1)``, an
+            ``SloEngine``, the drift monitor's probed planes), 96-224 columns
+            at 400 requests/s: the two fits' W_RF and the outputs equal bit
+            for bit; the wall-clock overhead ratio (reported);
        HP   phase 10's H batched for 10 rounds with ``probe=True`` against
             the same rounds without: parameters bit for bit, ``engine.round``
             one signature, ``last_probes`` finite;
@@ -387,7 +400,8 @@ Phases (any failed check raises, and the run exits non-zero):
             30 layers, the fake group of 256 ranks, meta tensors): its
             products, collective bytes by kind and K11 / K11b reported work
             equal to the sandbox CPU's (``DRM_EXPECT``);
- 20. the runs line, the kernels line (times, bounds (K1-K3, K5-K8 with
+ 20. the runs line, the kernels line (K1-K11b with K1-bf16 and K8-bf16;
+     times, bounds (K1-K3, K5-K8 with
      both their fp32 and split-TF32 bounds), plain and library times,
      launches, K1, K4 and K5 with the serve runs' launches by run), the
      card's name and power limit, and the result line.
@@ -779,13 +793,18 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
         srv.dispatcher._dispatch = recording
         return served
 
+    first_w = {}  # each pair's first fit's W_RF: every LRU refit must give it again
+
     def check_served(tag, served):
         """Each output against W_RF^T of K1's plain version on its columns,
-        by the state that served it (an LRU refit's state may part from an
-        earlier one by K5's split-k order), relative to max|whole| (phase 7's
-        gate): every bucket width and split plan K1 ran at is held to plain."""
+        by the state that served it, relative to max|whole| (phase 7's gate):
+        every bucket width and split plan K1 ran at is held to plain.  The
+        state's W_RF is the pair's first fit's, bit for bit, whichever LRU
+        refit made it."""
         worst, scale = 0.0, 0.0
         for r, state, out in served:
+            if not torch.equal(state.w_rf, first_w[r.key]):
+                raise AssertionError(f"run {tag}: a refit of {r.key} parts from its first fit")
             x = torch.as_tensor(r.x, dtype=torch.float32, device=dev)
             ref = state.w_rf.T @ rff.rff_plain(x, rf_tca.fused_transform_omega(state, P))
             if tuple(ref.shape) != out.shape or not bool(torch.isfinite(ref).all()):
@@ -809,6 +828,7 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
     regen0 = rf_tca.fused_omega_cache_info()["regenerations"]
     for key, (xs, xt, _, fit_kw) in pairs.items():
         srv.fit_domain(key, xs, xt, **fit_kw)
+        first_w[key] = srv.store.get(key).state.w_rf.clone()
     sync()
     fits_s = time.perf_counter() - t0
     rungs, b = [], SV_BUCKETS[0]
@@ -990,9 +1010,10 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
         f"{sd['disc_refreshed']:.4g} refreshed; launches {sd['launches']}")
     del srv, stale
 
-    # SO: telemetry off and on behind one fitted state: bit for bit, and the
-    # wall-clock overhead of the request tracer, an SLO engine and the drift
-    # monitor (its probed planes)
+    # SO: telemetry off and on, each server fitting the pair itself
+    # (tests/test_serve.py:305): bit for bit, and the wall-clock overhead of
+    # the request tracer, an SLO engine and the drift monitor (its probed
+    # planes)
     zero()
     key = keys[2]
     xs, xt, held, fit_kw = pairs[key]
@@ -1002,8 +1023,8 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
                        device=dev)
     off.fit_domain(key, xs, xt, **fit_kw)
     on.fit_domain(key, xs, xt, **fit_kw)
-    # one state behind both: two fits may part by a rounding (K5's split-k order)
-    on.store.put(key, off.store.get(key))
+    if not torch.equal(off.store.get(key).state.w_rf, on.store.get(key).state.w_rf):
+        raise AssertionError("run SO: two fits of one pair differ")
     on.attach(request_tracer=obs.RequestTracer(rate=SO_SAMPLE),
               slo=obs.SloEngine([obs.Slo("serve.latency", target=0.9, bound=10.0,
                                          window_fast_s=0.05, window_slow_s=0.5)]),
@@ -1028,13 +1049,14 @@ def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
             run_open_loop(on, reqs, rate=SO_RATE, seed=32)
             t_on = time.perf_counter() - t1
         ratios.append(t_on / t_off)
-    so = dict(bitwise_equal=True, overhead_ratio_median=float(np.median(ratios)),
+    so = dict(bitwise_equal=True, independent_fits=True,
+              overhead_ratio_median=float(np.median(ratios)),
               overhead_ratio_min=min(ratios), overhead_ratios=ratios,
               drift_fires=on.drift.fires, traced_requests=on.reqtrace.emitted,
               launches=launches())
     runs["SO"] = so
-    log(f"[run SO] {SO_DEGENERACY} requests bit for bit with telemetry on; wall-clock "
-        f"on/off {so['overhead_ratio_median']:.3f} (median of {SO_PAIRS}, min "
+    log(f"[run SO] two fits bit for bit; {SO_DEGENERACY} requests bit for bit with telemetry on; "
+        f"wall-clock on/off {so['overhead_ratio_median']:.3f} (median of {SO_PAIRS}, min "
         f"{so['overhead_ratio_min']:.3f}); {so['traced_requests']} request trees")
     del off, on
 
@@ -2792,6 +2814,37 @@ def main() -> int:
     )
     log(f"[K4] (4096, {P}) kernel {k4_ms:.4f} ms, plain {k4_plain:.4f} ms")
 
+    def bf16_units(k, plain):
+        """A bf16 feature map against plain in units of its gate, one bf16 ULP
+        of the larger plus 2e-5 (an fp32 phase's rounding near a zero of cos
+        moves a tiny value by more than its own ULP); raises past 1."""
+        k, plain = k.float(), plain.float()
+        mag = torch.maximum(k.abs(), plain.abs())
+        lim = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8) + RFF_ATOL
+        d = (k - plain).abs()
+        res = dict(max_abs_err=float(d.max()), units=float((d / lim).max()))
+        if not res["units"] <= 1.0:
+            raise AssertionError(f"bf16 feature map past one bf16 ULP + {RFF_ATOL}: {res}")
+        return res
+
+    def featurize_rule(what, k, plain, exact, gate=True):
+        """The reference's gate on a feature map, element by element: within
+        2e-5 of plain, or, where plain is past 2e-5 from the float64 answer
+        ``exact``, no farther from it than plain.  Raises on any other
+        element (``gate``); returns the counts and distances."""
+        within = (k - plain).abs() <= RFF_ATOL
+        d_k, d_p = (k.double() - exact).abs(), (plain.double() - exact).abs()
+        plain_off = d_p > RFF_ATOL
+        res = dict(max_abs_err=float((k - plain).abs().max()), past_gate=int((~within).sum()),
+                   past_gate_plain_within_gate_of_exact=int((~within & ~plain_off).sum()),
+                   past_gate_farther_than_plain=int((~within & plain_off & (d_k > d_p)).sum()),
+                   kernel_vs_exact=float(d_k.max()), plain_vs_exact=float(d_p.max()))
+        if gate and (res["past_gate_plain_within_gate_of_exact"]
+                     or res["past_gate_farther_than_plain"]):
+            raise AssertionError(f"{what}: elements past {RFF_ATOL} of plain outside the "
+                                 f"float64 rule ({res})")
+        return res
+
     # ---- 3. K1 ------------------------------------------------------------
     n = x.shape[1]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2832,8 +2885,9 @@ def main() -> int:
         max_abs_err_all=max(r["max_abs_err"] for r in (*k1.values(), *k1_req.values())),
         n1000=k1[1000], requests=k1_req,
     )
-    # a Cauchy Omega at the data's sigma: about half the phases reach |z| >= 64
-    # and are recomputed as fp32's FMA chain from the operand
+    # a Cauchy Omega at the data's sigma: every phase's terms are large enough
+    # to cancel past the gate (or reach |z| >= 64), so the recompute takes
+    # each as fp32's FMA chain from the operand
     nf = 1000
     om = draw_omega(SEED, nf, P, sigma=sigma, kernel="laplace", device=dev)
     cnt = torch.zeros(3, dtype=torch.int64, device=dev)
@@ -2842,42 +2896,26 @@ def main() -> int:
     if drawn or redrawn or not recomputed:
         raise AssertionError(f"K1 laplace: counters {cnt.tolist()}, expected only recomputed "
                              "phases")
-    sig_p = rff.rff_plain(x, om)
-    diff = (sig_k - sig_p).abs()
-    res = dict(max_abs_err=float(diff.max()))
     z = om.double() @ x.double()
-    sig_x = torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf)
-    del z
-    plain_x = (sig_p.double() - sig_x).abs()
-    res.update(kernel_vs_exact=float((sig_k.double() - sig_x).abs().max()),
-               plain_vs_exact=float(plain_x.max()))
-    # a phase under 64 summed from large terms cancels: there the split
-    # products round at 2^-20 of sum_k |omega_k x_k| (tests/test_torch_cuda.py)
-    terms = (om.abs() @ x.abs()) * (rff.inv_sqrt(nf) * 2.0 ** -20)
-    past = diff > RFF_ATOL
-    res.update(past_gate=int(past.sum()),
-               past_gate_plain_within_gate_of_exact=int((past & (plain_x <= RFF_ATOL)).sum()),
-               past_gate_and_rounding_bound=int((diff > RFF_ATOL + torch.cat([terms, terms]))
-                                                .sum()))
-    del sig_k, sig_p, sig_x, diff, plain_x, terms, past
-    if res["past_gate_and_rounding_bound"]:
-        raise AssertionError(f"K1 laplace: past 2e-5 plus the split products' rounding ({res})")
-    if not res["max_abs_err"] <= RFF_ATOL:
-        if res["plain_vs_exact"] <= RFF_ATOL:
-            raise AssertionError(f"K1 laplace: {res['max_abs_err']} > {RFF_ATOL} from plain, "
-                                 f"where the float64 answer is {res['plain_vs_exact']}")
-        if not res["kernel_vs_exact"] <= res["plain_vs_exact"]:
-            raise AssertionError(f"K1 laplace: farther from float64 than plain ({res})")
+    res = featurize_rule("K1 laplace", sig_k, rff.rff_plain(x, om),
+                         torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf))
+    del sig_k, z
     res.update(ms=cuda_ms(torch, lambda: rff.rff(x, om), 10),
                plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x, om), 10),
                recomputed_share=recomputed / (nf * n))
     report["K1"]["laplace"] = res
     log(f"[K1] laplace N={nf} p={P} n={n}: kernel {res['ms']:.3f} ms, plain "
         f"{res['plain_ms']:.3f} ms, {100 * res['recomputed_share']:.2f} % of phases recomputed "
-        f"(kernel's count); max abs err {res['max_abs_err']:.3g}, {res['past_gate']} elements "
-        f"past {RFF_ATOL} ({res['past_gate_plain_within_gate_of_exact']} where plain is within "
-        f"it of float64); from float64: kernel {res['kernel_vs_exact']:.3g}, plain "
-        f"{res['plain_vs_exact']:.3g}")
+        f"(kernel's count); {res}")
+    # at a request's width (split over p) plain's sgemm may sum k in another
+    # order than the chain: reported, not gated
+    xr = xt[:, :300].contiguous()
+    z = om.double() @ xr.double()
+    res_r = featurize_rule("K1 laplace n=300", rff.rff(xr, om), rff.rff_plain(xr, om),
+                           torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf), gate=False)
+    report["K1"]["laplace"]["request_300"] = res_r
+    log(f"[K1] laplace N={nf} n=300 (split over p; reported, not gated): {res_r}")
+    del xr, z
     del om
     torch.cuda.synchronize()
 
@@ -2964,11 +3002,17 @@ def main() -> int:
                 f"{res['G_H']:.3g}, u {res['u']:.3g}; G_H from float64: kernel "
                 f"{res['G_H_kernel_vs_exact']:.3g}, plain {res['G_H_plain_vs_exact']:.3g}")
     torch.cuda.synchronize()
-    k5_kw = dict(n_features=1000, seed=SEED, ensemble=1, sigma=sigma)
-    k5_same = all(torch.equal(a, b) for a, b in zip(gram.rff_gram_stream_fused(x, ell, **k5_kw),
-                                                     gram.rff_gram_stream_fused(x, ell, **k5_kw)))
-    log(f"[gram] two identical K5 calls bit-identical: {k5_same} (k split across blocks, "
-        f"atomic adds)")
+    # two identical K5 calls, whose Gram splits k across blocks: bit for bit
+    k5_same = {}
+    for draws in (1, 4):
+        kw = dict(n_features=1000, seed=SEED, ensemble=draws, sigma=sigma)
+        if not all(torch.equal(a, b) for a, b in zip(gram.rff_gram_stream_fused(x, ell, **kw),
+                                                     gram.rff_gram_stream_fused(x, ell, **kw))):
+            raise AssertionError(f"K5 S={draws}: two identical calls differ")
+        block = gram.gram_tile_plan(1000, n=n, ensemble=draws)["block"]
+        k5_same[f"S={draws}"] = gram.gram_split_plan(1000, draws * block)
+    log(f"[gram] two identical K5 calls bit for bit at S = 1 and 4 (k split {k5_same}, the "
+        f"partials added in split order)")
 
     def fused_counts(fn, **kw):
         """One check launch with the featurize's counters: (Omega elements
@@ -3020,13 +3064,13 @@ def main() -> int:
             f"torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms split-TF32 "
             f"({bounds['bound_fp32_ms']:.3f} fp32), Omega drawn {draws_per:g}x per element "
             f"(kernel's count), {recomputed} phases recomputed")
-    report["K5"]["bit_identical_repeat"] = k5_same
+    report["K5"]["bit_identical_repeat"] = dict(k5_same, gated=True)
     report["K5"]["edges"] = gram_edges
 
     def laplace_run(key, fn, plain, nf, draws, err, **kw):
         """``key`` with Cauchy draws at the main shape: time, plain time,
-        the share of phases recomputed as fp32's FMA chain, the distance
-        from plain (reported, not gated)."""
+        the share of phases recomputed as fp32's FMA chain, and ``err`` of
+        the kernel's and plain's outputs (which gates them)."""
         kw.update(n_features=nf, seed=SEED, sigma=sigma, rf_kernel="laplace")
         drawn, recomputed, redrawn = fused_counts(fn, **kw)
         res = dict(ms=cuda_ms(torch, lambda: fn(**kw), 3),
@@ -3041,9 +3085,13 @@ def main() -> int:
             f"recomputed (Omega redrawn {res['recompute_draws_per_omega_element']:g}x per "
             f"element), from plain {res}")
 
+    def k5_laplace_exact():
+        om = prng.fused_omega_block_plain(SEED, 1000, P, sigma=sigma, rf_kernel="laplace",
+                                          device=dev)
+        return gram_exact(x, ell, [om], gram.feature_scale(1000, 1))
+
     laplace_run("K5", gram.rff_gram_stream_fused, gram.rff_gram_stream_fused_plain, 1000, 1,
-                lambda a, b: gram_errs(*assemble_streamed_gram_ensemble(*a, n=n, ensemble=1),
-                                       *assemble_streamed_gram_ensemble(*b, n=n, ensemble=1)),
+                lambda a, b: gram_gate("K5 laplace", a, b, k5_laplace_exact, n, 1, True),
                 x=x, ell=ell, ensemble=1)
     torch.cuda.synchronize()
 
@@ -3090,6 +3138,14 @@ def main() -> int:
         log(f"[{key}] N={nf}: G_H/max {eg:.3g}, u {eu:.3g}; kernel {k_ms:.3f} ms, plain "
             f"{p_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, bound {b_ms:.3f} ms split-TF32 "
             f"({bounds['bound_fp32_ms']:.3f} fp32)")
+        if key == "K2":  # its Gram splits k across blocks: two calls bit for bit
+            if not all(torch.equal(a, b) for a, b in zip(gram.rff_gram_stream(x, om, ell),
+                                                         gram.rff_gram_stream(x, om, ell))):
+                raise AssertionError("K2: two identical calls differ")
+            report[key]["bit_identical_repeat"] = dict(
+                gram.gram_split_plan(nf, gram.gram_tile_plan(nf, n=n)["block"]), gated=True)
+            log(f"[K2] two identical calls bit for bit (k split "
+                f"{report[key]['bit_identical_repeat']})")
         del om
     report["K2"]["edges"] = operand_edges
     # K2 with a Cauchy Omega at the data's sigma: about half the phases reach
@@ -3155,8 +3211,16 @@ def main() -> int:
         f"drawn {draws_per:g}x per element (kernel's count; ceil(n / 1024) = {-(-n // 1024)}), "
         f"{recomputed} phases recomputed")
     del om
-    laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1,
-                lambda a, b: dict(max_abs_err=float((a - b).abs().max())), x=x, ensemble_index=1)
+    def k7_laplace_rule(k, plain):
+        om = prng.fused_omega_block_plain(SEED, nf, P, ensemble_index=1, sigma=sigma,
+                                          rf_kernel="laplace", device=dev)
+        z = om.double() @ x.double()
+        del om
+        return featurize_rule("K7 laplace", k, plain,
+                              torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf))
+
+    laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1, k7_laplace_rule, x=x,
+                ensemble_index=1)
 
     def centered_check(sig, what, exact=False):
         """K8's gate, G/max within 1e-5 of plain, or, where plain itself is
@@ -3167,7 +3231,13 @@ def main() -> int:
             raise AssertionError(f"K8 {what}: G is not symmetric")
         res = dict(G=float((g_k - g_p).abs().max() / g_p.abs().max()))
         if not res["G"] <= CENTERED_ATOL or exact:
-            g_x = centered.centered_gram_plain(sig.double())
+            # float64 from the same operands: Sigma less mu as the kernel takes
+            # it (bf16 Sigma: its fp32 mean rounded to bf16)
+            mu = (centered.row_mean(sig) if sig.dtype == torch.bfloat16
+                  else sig.mean(dim=1, keepdim=True)).double()
+            c64 = sig.double() - mu
+            g_x = c64 @ c64.T
+            del c64
             scale = float(g_x.abs().max())
             res["G_kernel_vs_exact"] = float((g_k.double() - g_x).abs().max()) / scale
             res["G_plain_vs_exact"] = float((g_p.double() - g_x).abs().max()) / scale
@@ -3203,15 +3273,17 @@ def main() -> int:
             library_ms=cuda_ms(torch, lambda: torch.matmul(c, c.T), 5),
             bound_ms=b_ms, bound_by=b_by, **product_bounds(*k8_work),
         )
-        if rows == 2000:
-            k8[rows]["bit_identical_repeat"] = torch.equal(centered.centered_gram(sig),
-                                                           centered.centered_gram(sig))
+        if rows == 2000:  # its k split across blocks: two calls bit for bit
+            if not torch.equal(centered.centered_gram(sig), centered.centered_gram(sig)):
+                raise AssertionError("K8 2N=2000: two identical calls differ")
+            k8[rows]["bit_identical_repeat"] = dict(
+                gram.gram_split_plan(rows, n, centered=True), gated=True)
         del sig, c
         log(f"[K8] 2N={rows} n={n}: G/max {err:.3g}; kernel {k8[rows]['ms']:.3f} ms, plain "
             f"{k8[rows]['plain_ms']:.3f} ms, torch.matmul {k8[rows]['library_ms']:.3f} ms, "
             f"bound {b_ms:.3f} ms split-TF32 ({k8[rows]['bound_fp32_ms']:.3f} fp32)")
-    log(f"[K8] two identical calls at 2N=2000 bit-identical: "
-        f"{k8[2000]['bit_identical_repeat']} (k split across blocks, atomic adds)")
+    log(f"[K8] two identical calls at 2N=2000 bit for bit (k split "
+        f"{k8[2000]['bit_identical_repeat']}, the partials added in split order)")
     report["K8"] = dict(
         name="centered_gram", route="cuda", source="src/repro_torch/kernels/csrc/centered_gram.cu",
         headers=["src/repro_torch/kernels/csrc/gram_tf32.cuh",
@@ -3223,16 +3295,69 @@ def main() -> int:
         small=dict(shape=f"2N=2000 n={n}", **k8[2000]), edges=k8_edges,
     )
     torch.cuda.synchronize()
+
+    # bf16 operands, as the reference's K1 and K8 take them (its tests sweep
+    # them): K1 at N = 4096 on all of X, K8 on that Sigma (2N = 8192); each
+    # against plain and timed beside its bound and torch.matmul in bf16
+    nf = 4096
+    om16 = prng.fused_omega(SEED, nf, P, sigma=sigma, device=dev).bfloat16()
+    x16 = x.bfloat16()
+    s16 = rff.rff(x16, om16)
+    if s16.dtype != torch.bfloat16 or tuple(s16.shape) != (2 * nf, n):
+        raise AssertionError(f"K1 bf16: {s16.dtype} {tuple(s16.shape)}")
+    units = bf16_units(s16, rff.rff_plain(x16, om16))
+    k1_work = (2 * nf * P * n, (nf * P + P * n) * 2 + 2 * nf * n * 2)
+    b_ms, b_by = bound_ms(*k1_work, peak_flops=PEAK_BF16_FLOPS)
+    report["K1-bf16"] = dict(
+        name="rff (bf16)", route="cuda", source="src/repro_torch/kernels/csrc/rff.cu",
+        headers=["src/repro_torch/kernels/csrc/featurize_bf16.cuh",
+                 "src/repro_torch/kernels/csrc/hopper.cuh"],
+        replaces="src/repro/kernels/rff.py:48", tolerance=f"one bf16 ULP of plain + {RFF_ATOL}",
+        shape=f"N={nf} p={P} n={n} bf16", max_abs_err=units["max_abs_err"],
+        gate_units=units["units"], ms=cuda_ms(torch, lambda: rff.rff(x16, om16), 20),
+        plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x16, om16), 10),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(om16, x16), 20), bound_ms=b_ms,
+        bound_by=b_by)
+    log(f"[K1-bf16] N={nf} p={P} n={n}: {units}; kernel {report['K1-bf16']['ms']:.4f} ms, plain "
+        f"{report['K1-bf16']['plain_ms']:.4f} ms, torch.matmul bf16 "
+        f"{report['K1-bf16']['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16)")
+    del om16
+    rows = 2 * nf
+    if centered.centered_gram(s16).dtype != torch.float32:
+        raise AssertionError("K8 bf16: G is not float32")
+    k8_bf16 = centered_check(s16, f"bf16 2N={rows}", exact=True)
+    err = k8_bf16["G"]
+    k8_work = (rows * (rows + 1) * n, rows * n * 2 + rows * rows * 4)
+    b_ms, b_by = bound_ms(*k8_work, peak_flops=PEAK_SPLIT_TF32_FLOPS)
+    report["K8-bf16"] = dict(
+        name="centered_gram (bf16 Sigma)", route="cuda",
+        source="src/repro_torch/kernels/csrc/centered_gram.cu",
+        headers=["src/repro_torch/kernels/csrc/gram_tf32.cuh",
+                 "src/repro_torch/kernels/csrc/hopper.cuh"],
+        replaces="src/repro/kernels/centered_gram.py:38",
+        tolerance=f"atol {CENTERED_ATOL} on G/max|G|", shape=f"2N={rows} n={n} bf16",
+        max_abs_err=err, **{k: v for k, v in k8_bf16.items() if k != "G"},
+        ms=cuda_ms(torch, lambda: centered.centered_gram(s16), 5),
+        plain_ms=cuda_ms(torch, lambda: centered.centered_gram_plain(s16), 5),
+        library_ms=cuda_ms(torch, lambda: torch.matmul(s16, s16.T), 5), bound_ms=b_ms,
+        bound_by=b_by, **product_bounds(*k8_work))
+    log(f"[K8-bf16] 2N={rows} n={n}: {k8_bf16}; kernel {report['K8-bf16']['ms']:.3f} ms, "
+        f"plain {report['K8-bf16']['plain_ms']:.3f} ms, torch.matmul bf16 (uncentred) "
+        f"{report['K8-bf16']['library_ms']:.3f} ms, bound {b_ms:.3f} ms split-TF32")
+    del s16, x16
+    torch.cuda.synchronize()
     # the tensor-core kernels of K1-K3, K5-K8: registers, spills, HGMMA in the
     # SASS (featurize_tf32_kernel<false> draws Omega, <true> loads it; K1's
-    # split over p ends in featurize_finish_kernel)
+    # split over p ends in featurize_finish_kernel; featurize_bf16_kernel is
+    # K1's bf16 route; gram_tf32_kernel<true, true> K8's on bf16 Sigma)
     for lib, key, entries in (("rff", "K7", ("featurize_tf32_kernelILb0",
                                              "featurize_tf32_kernelILb1",
-                                             "featurize_finish_kernel")),
+                                             "featurize_finish_kernel", "featurize_bf16_kernel")),
                               ("rff_gram_stream_fused", "K5",
                                ("featurize_tf32_kernelILb0", "featurize_tf32_kernelILb1",
                                 "gram_tf32_kernel")),
-                              ("centered_gram", "K8", ("gram_tf32_kernel",))):
+                              ("centered_gram", "K8", ("gram_tf32_kernelILb1ELb0",
+                                                       "gram_tf32_kernelILb1ELb1"))):
         lines = ptxas_entries(_build.ptxas(lib), entries)
         hgmma = sum("HGMMA" in line for line in _build.sass(lib).splitlines())
         for line in lines:
@@ -3251,6 +3376,9 @@ def main() -> int:
             report[key][field] = report["K5"][field]
     for field in ("ptxas_rff", "hgmma_rff"):
         report["K1"][field] = report["K7"][field]
+        report["K1-bf16"][field] = report["K7"][field]
+    for field in ("ptxas_centered_gram", "hgmma_centered_gram"):
+        report["K8-bf16"][field] = report["K8"][field]
 
     # ---- 6. small fit: card vs the CPU plain path --------------------------
     small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
@@ -3295,7 +3423,7 @@ def main() -> int:
          ("prng.fused_omega", "rff.rff", "rff.rff_fused", "gram.*")),
         ("C", 1000, 32, 1, "stream", "eigh", ("rff.rff", "operand_gram.*")),
         ("D", 4096, 8, 1, "stream", "lobpcg", ("rff.rff", "operand_gram.*")),
-        ("E", 1000, 32, 1, "dense", "eigh", ("rff.rff", "centered_gram.*")),
+        ("E", 1000, 32, 1, "dense", "eigh", ("rff.rff", "centered_gram.centered_gram")),
     )
     for tag, nf, m, draws, mode, solver, needed in plan:
         sizes = rng.integers(64, 513, size=16)
@@ -3406,7 +3534,45 @@ def main() -> int:
             f"launches {launches}")
         states[tag] = state
         del outs, whole, msg_s, msg_t
+        if tag == "A":  # a second fit from scratch: every split-k sum in one order
+            again, _ = rf_tca.rf_tca_fit_with_stats(
+                xs, xt, n_features=nf, m=m, w_rf=f"fused:{SEED}", ensemble=draws, **fit_kw)
+            if not (torch.equal(again.w_rf, state.w_rf)
+                    and torch.equal(again.eigvals, state.eigvals)):
+                raise AssertionError("fit A twice: W_RF or the eigenvalues differ")
+            runs[tag]["refit_bit_identical"] = True
+            log("[fit A] fitted again from scratch: W_RF and eigenvalues bit for bit")
+            del again
         torch.cuda.synchronize()
+
+    # EB: E's dense statistics on bf16 operands through the public entry
+    # points (the reference's bf16 K1 and K8): Sigma = ops.rff in bf16 from
+    # E's Omega, G = ops.centered_gram of it in fp32; counts zeroed just
+    # before and read just after
+    om16, x16 = states["E"].omega.bfloat16(), x.bfloat16()
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s16 = ops.rff(x16, om16)
+    g16 = ops.centered_gram(s16)
+    torch.cuda.synchronize()
+    eb_s = time.perf_counter() - t0
+    launches = {k: dict(c) for k, c in counters.items()}
+    if launches["rff"]["rff_bf16"] != 1 or launches["centered_gram"]["centered_gram_bf16"] != 1:
+        raise AssertionError(f"run EB: launches {launches}")
+    if (s16.dtype, g16.dtype) != (torch.bfloat16, torch.float32) or not bool(
+            torch.isfinite(g16).all()) or not torch.equal(g16, g16.T):
+        raise AssertionError(f"run EB: Sigma {s16.dtype}, G {g16.dtype}, finite and symmetric "
+                             f"{bool(torch.isfinite(g16).all())}, {torch.equal(g16, g16.T)}")
+    eb_units = bf16_units(s16, rff.rff_plain(x16, om16))
+    eb_g = centered_check(s16, "run EB", exact=True)
+    runs["EB"] = dict(n_features=states["E"].omega.shape[0], dtype="bfloat16", stats_s=eb_s,
+                      sigma_gate_units=eb_units["units"], G=eb_g, launches=launches)
+    log(f"[run EB] bf16 Sigma and its centered Gram: {eb_s:.4f} s, Sigma {eb_units}, G {eb_g}; "
+        f"launches {launches}")
+    del om16, x16, s16, g16
 
     # ---- cross-checks between the runs ---------------------------------------
     def cosines(wa, wb):
@@ -4651,7 +4817,7 @@ def main() -> int:
         "flash_attention_bwd"]
     log(f"[time] phase 19 (TP, TPC, TPG, DRM) {tp_runs['TP']['phase_19_s']:.1f} s")
 
-    la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E")}
+    la = {t: runs[t]["launches"] for t in ("A", "B", "C", "D", "E", "EB")}
     served = {t: serve_runs[t]["launches"] for t in serve_runs if t != "HP"}
     for key, runs_of, count in (
             ("K4", {**la, **served}, lambda c: c["prng"]["fused_omega"]),
@@ -4666,6 +4832,8 @@ def main() -> int:
         report[key]["launches"] = sum(la[tag][group].values())
         report[key]["parts"] = la[tag][group]
     report["K8"]["launches"] = la["E"]["centered_gram"]["centered_gram"]
+    report["K1-bf16"]["launches"] = la["EB"]["rff"]["rff_bf16"]
+    report["K8-bf16"]["launches"] = la["EB"]["centered_gram"]["centered_gram_bf16"]
     trained = [t for t in runs if "k10_launches" in runs[t]]
     for key, field in (("K10", "k10_launches"), ("K9", "k9_launches")):
         report[key]["launches_by_run"] = {t: runs[t][field] for t in trained if runs[t][field]}
@@ -4673,8 +4841,9 @@ def main() -> int:
     for key, more in launch_by_run.items():  # phase 18's launches, counted in
         report[key].setdefault("launches_by_run", {}).update(more)
         report[key]["launches"] += sum(more.values())
-    kernels = [dict(id=k, **report[k]) for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7",
-                                                 "K8", "K9", "K10", "K11", "K11b")]
+    kernels = [dict(id=k, **report[k]) for k in ("K1", "K1-bf16", "K2", "K3", "K4", "K5", "K6",
+                                                 "K7", "K8", "K8-bf16", "K9", "K10", "K11",
+                                                 "K11b")]
     for k in kernels:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['id']} was not launched on the main path")

@@ -6,9 +6,9 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
 3612, sigma by the median heuristic).  Families:
 
   seed_fused  the seed-fused featurize (K7, N = 4096) and streamed Gram (K5,
-              N = 1000, S = 1) with Gaussian and Cauchy (``laplace``) draws.
-              With Cauchy draws about half the phases reach |z| >= 64, where
-              the featurize recomputes them as fp32's FMA chain.
+              N = 1000, S = 1) with Gaussian and Cauchy (``laplace``) draws,
+              and K6 (N = 4096, S = 4) with Gaussian draws.  With Cauchy
+              draws the featurize recomputes the phases as fp32's FMA chain.
   operand     the operand-Omega streamed Gram (K2 at N = 1000, one chunk; K3
               at N = 4096, two chunks; Omega from ``draw_omega``, and K2 also
               with a Cauchy Omega) and the centered Gram (K8 at 2N = 2000 and
@@ -20,6 +20,12 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
               request's 64, 300 and 512 (the first target columns), and at
               N = 1000 on all columns with a Cauchy Omega (``draw_omega``'s
               laplace), each beside ``torch.matmul(Omega, X)``.
+  all         seed_fused, operand and k1 on one copy of the data.
+  split       the Grams whose k is split across blocks (K2 and K5 at N =
+              1000, K8 at 2N = 2000) under ``torch.profiler``
+              (``device_profile.profile_calls``): each call's device time
+              by kernel, the split's sum (``gram_split_reduce_kernel``,
+              where the checkout has one) apart from the products.
   k11b        K11's backward (``flash_attention_backward``, bf16, causal) at
               ``chip_smoke.py``'s two training shapes (``K11B_TIMED``),
               (8, 9, 3, 2048, 64) and (1, 16, 8, 4096, 128), beside the plain backward and
@@ -35,6 +41,8 @@ one card.
     python3 scripts/time_kernels.py seed_fused
     python3 scripts/time_kernels.py operand
     python3 scripts/time_kernels.py k1
+    python3 scripts/time_kernels.py all
+    python3 scripts/time_kernels.py split
     python3 scripts/time_kernels.py k11b
 
 Prints one JSON object: milliseconds per call (CUDA events, after a warm-up
@@ -52,7 +60,8 @@ from pathlib import Path
 ROOT = Path.cwd()
 # the package from the working directory's checkout; the data, shapes and
 # timing (chip_smoke.py) from this script's, so two checkouts are timed alike
-sys.path[:0] = [str(ROOT / "src"), str(Path(__file__).resolve().parents[1])]
+sys.path[:0] = [str(ROOT / "src"), str(Path(__file__).resolve().parents[1]),
+                str(Path(__file__).resolve().parent)]
 
 
 def seed_fused(cs, torch, x, ell, sigma, out) -> None:
@@ -65,6 +74,8 @@ def seed_fused(cs, torch, x, ell, sigma, out) -> None:
         kw = dict(n_features=1000, seed=cs.SEED, ensemble=1, sigma=sigma, rf_kernel=kind)
         out[f"K5_{kind}_ms"] = cs.cuda_ms(
             torch, lambda: gram.rff_gram_stream_fused(x, ell, **kw), 3)
+    kw = dict(n_features=4096, seed=cs.SEED, ensemble=4, sigma=sigma)
+    out["K6_gauss_ms"] = cs.cuda_ms(torch, lambda: gram.rff_gram_stream_fused(x, ell, **kw), 3)
 
 
 def operand(cs, torch, x, ell, sigma, out) -> None:
@@ -111,6 +122,24 @@ def k1(cs, torch, x, ell, sigma, out) -> None:
     out["K1_laplace_ms"] = cs.cuda_ms(torch, lambda: rff.rff(x, om), 10)
 
 
+def split(cs, torch, x, ell, sigma, out) -> None:
+    from device_profile import profile_calls
+
+    from repro_torch.core.rff import draw_omega
+    from repro_torch.kernels import rff
+    from repro_torch.kernels import centered_gram as centered
+    from repro_torch.kernels import rff_gram_stream as gram
+
+    om = draw_omega(cs.SEED, 1000, cs.P, sigma=sigma, device=x.device)
+    sig = rff.rff(x, om)
+    kw = dict(n_features=1000, seed=cs.SEED, ensemble=1, sigma=sigma)
+    for key, fn in (("K2", lambda: gram.rff_gram_stream(x, om, ell)),
+                    ("K5", lambda: gram.rff_gram_stream_fused(x, ell, **kw)),
+                    ("K8_2000", lambda: centered.centered_gram(sig))):
+        fn()
+        out[f"{key}_kernels_ms"] = profile_calls(fn, 5, 8)["top_kernels_ms_per_call"]
+
+
 def k11b(cs, torch, out) -> None:
     from repro_torch.kernels import flash_attention as fa
 
@@ -123,7 +152,7 @@ def k11b(cs, torch, out) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "k11b"))
+    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "all", "split", "k11b"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -148,8 +177,9 @@ def main() -> int:
                      device=dev)
     ell = ell_vector(cs.N_S, cs.N_T, device=dev)
     sigma = median_sigma(x)
-    {"seed_fused": seed_fused, "operand": operand, "k1": k1}[args.family](
-        cs, torch, x, ell, sigma, out)
+    families = {"seed_fused": seed_fused, "operand": operand, "k1": k1, "split": split}
+    for name in ("seed_fused", "operand", "k1") if args.family == "all" else (args.family,):
+        families[name](cs, torch, x, ell, sigma, out)
     print(json.dumps(out))
     return 0
 

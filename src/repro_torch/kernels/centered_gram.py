@@ -6,8 +6,13 @@ mu is a torch reduction outside the kernel; on a CUDA tensor
 :func:`centered_gram` launches ``csrc/centered_gram.cu`` (the tensor-core
 Gram of ``csrc/gram_tf32.cuh``: three tf32 products a product), which
 subtracts mu from both operands as tiles are loaded, masks the ragged sample
-count after that and computes the upper output tiles only; on a CPU tensor
-it runs :func:`centered_gram_plain`.
+count after that and computes the upper output tiles only (mirrored by the
+split's sum where k is split, here otherwise), its k split from the shape
+alone and summed in a fixed order
+(``rff_gram_stream.gram_split_plan``); on a CPU tensor it runs
+:func:`centered_gram_plain`.  Sigma may be float32 or bfloat16, and G is
+float32 either way, as the reference's: a bfloat16 Sigma is loaded as such
+and widened in the kernel, mu being its row mean rounded to bfloat16.
 ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
@@ -16,37 +21,55 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rff import tma_rows
-from repro_torch.kernels.rff_gram_stream import mirror_upper
+from repro_torch.kernels.rff_gram_stream import gram_split_plan, mirror_upper, split_workspace
 
-LAUNCHES = {"centered_gram": 0}
+LAUNCHES = {"centered_gram": 0, "centered_gram_bf16": 0}
+
+
+def row_mean(sigma: torch.Tensor) -> torch.Tensor:
+    """mu (rows, 1) as the reference takes it: the fp32 mean rounded to
+    Sigma's dtype (centered_gram.py:53), then widened back."""
+    return sigma.mean(dim=1, keepdim=True, dtype=torch.float32).to(sigma.dtype).float()
 
 
 def centered_gram_plain(sigma: torch.Tensor) -> torch.Tensor:
-    """Plain version: (2N, n) -> (2N, 2N) fp32."""
-    c = sigma - sigma.mean(dim=1, keepdim=True)
+    """Plain version: (2N, n) -> (2N, 2N), fp32 for float32 or bfloat16 Sigma
+    (both operands widened less mu, the product in fp32); wider dtypes keep
+    their own."""
+    if sigma.dtype.itemsize >= 4:
+        c = sigma - sigma.mean(dim=1, keepdim=True)
+    else:
+        c = sigma.float() - row_mean(sigma)
     return c @ c.T
 
 
 def centered_gram(sigma: torch.Tensor) -> torch.Tensor:
-    """Sigma H Sigma^T (2N, 2N) fp32 from Sigma (2N, n)."""
+    """Sigma H Sigma^T (2N, 2N) fp32 from Sigma (2N, n), float32 or bfloat16."""
     if sigma.device.type == "cpu":
         return centered_gram_plain(sigma)
     if not sigma.is_cuda:
         raise ValueError(f"centered_gram: sigma on {sigma.device}")
-    if sigma.dtype != torch.float32 or sigma.ndim != 2 or not sigma.is_contiguous():
-        raise ValueError(f"sigma: expected contiguous float32 (2N, n), got {sigma.dtype} "
-                         f"{tuple(sigma.shape)}")
+    if sigma.dtype not in (torch.float32, torch.bfloat16) or sigma.ndim != 2 \
+            or not sigma.is_contiguous():
+        raise ValueError(f"sigma: expected contiguous float32 or bfloat16 (2N, n), got "
+                         f"{sigma.dtype} {tuple(sigma.shape)}")
     rows, n = sigma.shape
     out = torch.zeros((rows, rows), dtype=torch.float32, device=sigma.device)
     if rows == 0 or n == 0:
         return out
-    mu = sigma.mean(dim=1).contiguous()
+    bf16 = sigma.dtype == torch.bfloat16
+    mu = (row_mean(sigma) if bf16 else sigma.mean(dim=1)).reshape(rows).contiguous()
     sr = tma_rows(sigma)
+    plan = gram_split_plan(rows, n, centered=True)
+    ws = split_workspace(plan, sigma.device)
+    vp, i32 = _build.VP, _build.I32
     f = _build.fn("centered_gram", "rt_centered_gram",
-                  [_build.VP, _build.I64, _build.VP, _build.I32, _build.I32, _build.VP, _build.VP])
+                  [vp, _build.I64, i32, vp, i32, i32, vp, i32, i32, vp, vp])
     with torch.cuda.device(sigma.device):
-        err = f(sr.data_ptr(), sr.shape[1], mu.data_ptr(), rows, n, out.data_ptr(),
+        err = f(sr.data_ptr(), sr.shape[1], int(bf16), mu.data_ptr(), rows, n, out.data_ptr(),
+                plan["split"], plan["kt_per_split"], None if ws is None else ws.data_ptr(),
                 _build.stream_ptr())
     _build.check(err, "centered_gram")
-    LAUNCHES["centered_gram"] += 1
-    return mirror_upper(out)
+    LAUNCHES["centered_gram_bf16" if bf16 else "centered_gram"] += 1
+    # a split's sum writes G mirrored; otherwise the upper tiles are mirrored here
+    return mirror_upper(out) if plan["split"] == 1 else out

@@ -69,21 +69,29 @@
 //     thrashed the instruction cache) and writes C and S a warp per 32
 //     consecutive columns; columns at or past n_valid are written as 0 (a
 //     masked sample, not cos(0) = 1), features at or past nf are not written.
-//   - Phases of |z| >= 64 are recomputed there as fp32's sequential FMA chain
-//     over k, the plain version's sgemm order.  At such phases one ULP of z
-//     moves cos by >= 4e-6 and the split products round differently: on
-//     Cauchy draws with phases up to ~1e4 even the float64 phase rounded once
-//     is 2.8e-5 from plain in G_H, past the 2e-5 gate, while the recompute
-//     (7 % of the phases there) lands within 2e-6
-//     (tests/test_torch_split_tf32_numerics.py).  A CTA with any such phase
-//     runs one FFMA pass over its whole 128 x 128 tile and keeps the chain's
-//     value where |z| >= 64.  The pass is the main loop again in fp32: two
+//   - Phases the split products may round past the gate are recomputed there
+//     as fp32's sequential FMA chain over k, the plain version's sgemm order:
+//     phases of |z| >= 64, where one ULP of z moves cos by >= 4e-6 and the
+//     split products round differently (on Cauchy draws with phases up to ~1e4
+//     even the float64 phase rounded once is 2.8e-5 from plain in G_H, past
+//     the 2e-5 gate), and phases whose terms are large, where a phase under
+//     64 summed from Cauchy terms of ~1e4 cancels: the split products round
+//     at ~2^-20 of sum_k |omega_fk x_kc| where fp32's chain rounds at 2^-24.
+//     That sum is bounded by |omega_f|_2 |x_c|_2, from norms the kernel takes
+//     on the way (the producers square each Omega element they draw or split
+//     into per-row slots, the consumers each X element they split), and a
+//     phase takes the chain where 2^-20 |omega_f| |x_c| scale exceeds a
+//     quarter of the 2e-5 gate (FT_CANCEL).  Gaussian draws at the
+//     median-heuristic sigma stay below both (the bound under two thirds of
+//     the threshold at the smoke's widths); Cauchy draws exceed the bound in
+//     every phase (tests/test_torch_split_tf32_numerics.py).  A CTA with
+//     any such phase runs one FFMA pass over its whole 128 x 128 tile and
+//     keeps the chain's value where the rule asks.  The pass is the main
+//     loop again in fp32: two
 //     buffers of 32 k, X by TMA, Omega redrawn once per cluster (each CTA
 //     draws its share of the rows and pushes it to the others by bulk
 //     copies), the consumers running the FMAs 8 x 8 outputs a thread; the
-//     cluster takes it when any of its CTAs has such a phase.  Gaussian phases at the
-//     median-heuristic sigma stay far below 64; Cauchy phases at the data's
-//     width take the pass in every tile (chip_smoke.py times it); a chain
+//     cluster takes it when any of its CTAs has such a phase.  A chain
 //     per element would redraw each Omega element and reload X for every
 //     warp that needs it.
 //     An operand Omega is loaded there by TMA as in the main loop.
@@ -92,11 +100,14 @@
 //     24 tiles on 132 SMs, each walking 64 k-tiles), the grid's z runs over
 //     slices of the k-tiles (the wrapper's split_plan), and each CTA writes
 //     its folded phase sums to a workspace (slices, nf, ldo) instead of
-//     running the epilogue.  A finishing pass adds the slices in slice order
+//     running the epilogue, and its partial squared norms of Omega's rows
+//     (the CTAs of the first sample block) and of X's columns (those of the
+//     first feature block).  A finishing pass adds the slices in slice order
 //     (no atomics: the sum does not depend on the order the CTAs ran in),
-//     recomputes phases of |z| >= 64 from the whole sum as fp32's FMA chain
-//     over all of p (a slice's partial phase does not say whether the whole
-//     phase reaches 64), then takes cos and sin as the epilogue does.
+//     recomputes from the whole sum and the whole norms, by the epilogue's
+//     rule, as fp32's FMA chain over all of p (a slice's partial phase does
+//     not say whether the whole phase reaches 64), then takes cos and sin as
+//     the epilogue does.
 //   - With a counter array, the kernel adds the Omega elements its producers
 //     drew, the phases it recomputed and the Omega elements the recompute
 //     drew (chip_smoke.py reads the draws per element and the recomputed
@@ -130,10 +141,17 @@ constexpr int FT_STAGE_BYTES = 2 * FT_OM_BYTES + FT_X_BYTES;  // 48 KB
 constexpr int FT_OUT_LD = FT_COLS + 4;  // epilogue rows: 4 words apart mod 32 banks
 constexpr int FT_RK = 32;  // k a step of the epilogue's FFMA recompute
 constexpr int FT_RK_BYTES = FT_RK * FT_FEATS * 4;  // one Omega or X buffer of a step
-// the ring, its full and empty barriers, the recompute's two full and two
-// empty barriers, the recompute flag, the operand path's landed barriers
-constexpr int FT_SMEM =
-    1024 + FT_STAGES * FT_STAGE_BYTES + 16 * FT_STAGES + 32 + 16 + 8 * FT_STAGES;
+// after the ring: its full and empty barriers, the recompute's two full and
+// two empty barriers, the recompute flag, the operand path's landed barriers
+constexpr int FT_BARS_BYTES = 256;
+static_assert(16 * FT_STAGES + 32 + 16 + 8 * FT_STAGES <= FT_BARS_BYTES, "the barriers fit");
+// then the norms: up to FT_SLOTS partial sums of squares a feature row (one
+// for each producer thread that draws or splits its elements: 16 drawing, 8
+// splitting an operand), the rows' squared norms and the columns' (this
+// CTA's samples)
+constexpr int FT_SLOTS = 16;
+constexpr int FT_NORMS = FT_STAGES * FT_STAGE_BYTES + FT_BARS_BYTES;
+constexpr int FT_SMEM = 1024 + FT_NORMS + (FT_FEATS * FT_SLOTS + FT_FEATS + FT_COLS) * 4;
 static_assert(FT_STAGE_BYTES % 1024 == 0, "stages must keep the swizzle phase");
 static_assert(FT_FEATS == FT_COLS, "the recompute stages Omega and X tiles in one loop");
 // the recompute's buffers follow the phases: Omega [2], 128 feature rows of
@@ -148,6 +166,16 @@ static_assert(FT_RK == FT_BK && FT_RK_BYTES == FT_X_BYTES, "the recompute's X k-
 // phases at least this large are recomputed in the epilogue as fp32's
 // sequential FMA chain (below)
 constexpr float FT_EXACT_PHASE = 64.0f;
+// and phases whose terms may cancel past the gate: those with |omega_f|_2
+// |x_c|_2 scale > FT_CANCEL, where the split products' 2^-20 of
+// sum_k |omega_fk x_kc| <= |omega_f| |x_c| could reach a quarter of 2e-5
+constexpr float FT_CANCEL = 5e-6f * 1048576.0f;
+
+// whether the epilogue's rule takes the FMA chain at a valid phase z with
+// row and column squared norms rn, cn; lim2 = (FT_CANCEL / scale)^2
+__device__ __forceinline__ bool ft_exact(float z, float rn, float cn, float lim2) {
+  return fabsf(z) >= FT_EXACT_PHASE || rn * cn > lim2;
+}
 
 struct FtArgs {
   int x_col0;  // X's column of the first sample
@@ -164,6 +192,10 @@ struct FtArgs {
   // k-tiles
   float* part = nullptr;
   int kt_per_split = 0;
+  // and the slices' squared norms: (slices, nf) of Omega's rows, (slices,
+  // ncols_out) of X's columns (launch_featurize_operand sets them)
+  float* part_rn = nullptr;
+  float* part_cn = nullptr;
 };
 
 // kOperand: Omega from the tensor map tom ((N, p), 32 k x 16 row boxes);
@@ -191,6 +223,13 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t flag = bars + 16u * FT_STAGES + 32u;
   // the operand path: a stage's X and Omega bytes have landed (before the split)
   auto landed = [&](int s) { return bars + 16u * FT_STAGES + 48u + 8u * s; };
+  // [FT_FEATS][kSlots]: the squares' partial sums of each row, slot t %
+  // kSlots of the producer thread t that draws or splits them
+  constexpr int kSlots = kOperand ? 8 : 16;
+  float* slot = reinterpret_cast<float*>(sb + FT_NORMS);
+  float* rn = slot + FT_FEATS * FT_SLOTS;  // [FT_FEATS] squared row norms
+  float* cn = rn + FT_FEATS;               // [FT_COLS] squared column norms
+  const uint32_t rn_at = base + FT_NORMS + FT_FEATS * FT_SLOTS * 4;
 
   uint32_t ncl;
   asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(ncl));
@@ -217,6 +256,7 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
     *reinterpret_cast<int*>(sb + (flag - base)) = 0;
     hop::mbar_fence_init();
   }
+  for (int i = threadIdx.x; i < FT_FEATS * kSlots; i += FT_THREADS) slot[i] = 0.f;
   hop::cluster_sync();  // every barrier of the cluster exists before any remote traffic
 
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
@@ -244,16 +284,23 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
           load(xs(s), om_hi(s), landed(s), (kt0 + kt) * FT_BK);
         }
       } else if (tp >= 32) {
+        // float4 i of the tile is row i / 8, chunk i % 8: this thread's
+        // squares of its chunks, summed over the stages, are their slots
+        constexpr int kPer = (FT_OM_BYTES / 16 + FT_SPLITTERS - 1) / FT_SPLITTERS;
+        float sq[kPer];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) sq[j] = 0.f;
         for (int kt = 0; kt < n_it; ++kt) {
           const int s = kt % FT_STAGES;
           hop::mbar_wait(landed(s), (kt / FT_STAGES) & 1);
           float4* hi = reinterpret_cast<float4*>(sb + (om_hi(s) - base));
           float4* lo = reinterpret_cast<float4*>(sb + (om_lo(s) - base));
 #pragma unroll
-          for (int j = 0; j < (FT_OM_BYTES / 16 + FT_SPLITTERS - 1) / FT_SPLITTERS; ++j) {
+          for (int j = 0; j < kPer; ++j) {
             const int i = tp - 32 + FT_SPLITTERS * j;
             if (i >= FT_OM_BYTES / 16) break;
             const float4 v = hi[i];
+            sq[j] = fmaf(v.x, v.x, fmaf(v.y, v.y, fmaf(v.z, v.z, fmaf(v.w, v.w, sq[j]))));
             uint32_t h0, h1, h2, h3, l0, l1, l2, l3;
             hop::split_tf32(v.x, h0, l0);
             hop::split_tf32(v.y, h1, l1);
@@ -263,6 +310,13 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
                                 __uint_as_float(h3));
             lo[i] = make_float4(__uint_as_float(l0), __uint_as_float(l1), __uint_as_float(l2),
                                 __uint_as_float(l3));
+          }
+          if (kt == n_it - 1) {  // the slots, before the last stage's release
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) {
+              const int i = tp - 32 + FT_SPLITTERS * j;
+              if (i < FT_OM_BYTES / 16) slot[i] = sq[j];
+            }
           }
           hop::fence_proxy_async();  // Omega hi and lo are wgmma operands
           hop::mbar_arrive(full(s));
@@ -295,6 +349,9 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       // Omega bytes this CTA receives from the others a stage, hi and lo
       const uint32_t remote_bytes = 2u * (FT_FEATS - (r_hi - r_lo)) * 128u;
       uint32_t drawn = 0;  // in-range Omega elements this thread drew
+      // the squares of this thread's first unit's row (its slot, written at
+      // the last stage); further units' (cluster of < 8) go to their slots
+      float sq0 = 0.f;
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % FT_STAGES;
         hop::mbar_wait_cluster(empty(s), ((kt / FT_STAGES) & 1) ^ 1);
@@ -311,7 +368,7 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
           // the integer rounds of the unit's draws first, side by side (no
           // branch between them), then their float transforms
           uint32_t b0[FT_UNIT], b1[FT_UNIT];
-          float hi[FT_UNIT], lo[FT_UNIT];
+          float hi[FT_UNIT], lo[FT_UNIT], sq = 0.f;
 #pragma unroll
           for (int i = 0; i < FT_UNIT; ++i)
             threefry2x32(g.key0, g.key1, uint32_t(gr), uint32_t(k0 + kc + i), b0[i], b1[i]);
@@ -320,16 +377,24 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
             const bool in = gr < a.nf && k0 + kc + i < a.p;
             drawn += in;
             const float v = in ? g.from_bits(b0[i], b1[i]) : 0.f;
+            sq = fmaf(v, v, sq);
             uint32_t h, l;
             hop::split_tf32(v, h, l);
             hi[i] = __uint_as_float(h);
             lo[i] = __uint_as_float(l);
           }
+          // unit un is slot un % 16 (= tp % 16) of its row at every stage
+          if (un == tp)
+            sq0 += sq;
+          else
+            slot[row * kSlots + un % kSlots] += sq;
           // a unit is two consecutive words of one 16-byte chunk
           const uint32_t off = hop::sw128_f32(row, kc);
           *reinterpret_cast<float2*>(sb + (om_hi(s) - base) + off) = make_float2(hi[0], hi[1]);
           *reinterpret_cast<float2*>(sb + (om_lo(s) - base) + off) = make_float2(lo[0], lo[1]);
         }
+        if (kt == n_kt - 1 && tp < n_units)  // the first unit's slot, before the release
+          slot[(r_lo + tp / (FT_BK / FT_UNIT)) * kSlots + tp % kSlots] = sq0;
         hop::fence_proxy_async();  // the share is a wgmma operand and a bulk-copy source
         hop::named_sync(1, FT_PT);
         // thread r pushes the share to CTA r (the local one arrives instead)
@@ -437,6 +502,8 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       xoff[3] = box + hop::sw128_f32(tq + 4, c + 8);
     }
 
+    // the squared norms of this thread's columns m0 and m0 + 8 over its k
+    float xsq[2] = {0.f, 0.f};
     for (int kt = 0; kt < n_it; ++kt) {
       const int s = kt % FT_STAGES;
       // CTA scope: the stage's bytes land as transactions (TMA, bulk copies
@@ -448,9 +515,11 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
       for (int kk = 0; kk < FT_BK / 8; ++kk)
 #pragma unroll
-        for (int v = 0; v < 4; ++v)
-          hop::split_tf32(*reinterpret_cast<const float*>(x_sm + 1024 * kk + xoff[v]), hi[kk][v],
-                          lo[kk][v]);
+        for (int v = 0; v < 4; ++v) {
+          const float xv = *reinterpret_cast<const float*>(x_sm + 1024 * kk + xoff[v]);
+          xsq[v & 1] = fmaf(xv, xv, xsq[v & 1]);
+          hop::split_tf32(xv, hi[kk][v], lo[kk][v]);
+        }
       hop::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < FT_BK / 8; ++kk)
@@ -468,12 +537,46 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
 
-    // epilogue: the phases through shared memory (the ring is free once
-    // every CTA of the cluster is past its products: no bulk copy reads or
-    // writes it any more), then cos and sin one element a thread at a time,
-    // each warp writing 32 consecutive columns of a row; a slice of a split
-    // writes its phase sums instead, for the finishing pass
+    // epilogue: the columns' squared norms (the four lanes of a quad hold
+    // their k) and the rows' (from the producers' slots); the phases through
+    // shared memory (the ring is free once every CTA of the cluster is past
+    // its products: no bulk copy reads or writes it any more), then cos and
+    // sin one element a thread at a time, each warp writing 32 consecutive
+    // columns of a row; a slice of a split writes its phase sums and partial
+    // norms instead, for the finishing pass
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      xsq[i] += __shfl_xor_sync(0xffffffffu, xsq[i], 1);
+      xsq[i] += __shfl_xor_sync(0xffffffffu, xsq[i], 2);
+    }
+    if (tq == 0) {
+      cn[m0] = xsq[0];
+      cn[m0 + 8] = xsq[1];
+    }
+    // the rows' squared norms: the rows this CTA drew or split from its
+    // slots (its producers wrote them before releasing the last stage), the
+    // others from the CTA that drew them (a drawn Omega: rows r_lo(r) ..
+    // r_lo(r + 1) - 1 in CTA r) once the cluster is past its products
+    const int u = threadIdx.x - FT_PT;
+    uint32_t owner = rank;
+    if (!kOperand && u < FT_FEATS)
+      for (owner = 0; (owner + 1) * FT_FEATS / ncl <= static_cast<uint32_t>(u);) ++owner;
+    if (u < FT_FEATS && owner == rank) {
+      float sq = 0.f;
+#pragma unroll
+      for (int q = 0; q < kSlots; ++q) sq += slot[u * kSlots + q];
+      rn[u] = sq;
+    }
     hop::cluster_sync();
+    if (u < FT_FEATS) {
+      if (owner != rank)
+        rn[u] = __uint_as_float(hop::ld_cluster_u32(hop::mapa(rn_at + 4 * u, owner)));
+      if (a.part && blockIdx.x == 0 && f0 + u < a.nf) a.part_rn[blockIdx.z * a.nf + f0 + u] = rn[u];
+    }
+    hop::named_sync(2, 256);  // rn and cn complete
+    if (a.part && blockIdx.y == 0 && u >= FT_FEATS && col0 + u - FT_FEATS < a.ncols_out)
+      a.part_cn[int64_t(blockIdx.z) * a.ncols_out + col0 + u - FT_FEATS] = cn[u - FT_FEATS];
+    const float lim = FT_CANCEL / a.scale, lim2 = lim * lim;
     float* zt = reinterpret_cast<float*>(sb);  // [feature][sample], FT_OUT_LD apart
     bool big = false;  // a phase of this thread's that the recompute must take
 #pragma unroll
@@ -483,19 +586,20 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float z = acc[4 * j + 2 * i + e];
-          zt[(8 * j + 2 * tq + e) * FT_OUT_LD + m0 + 8 * i] = z;
-          big |= !a.part && f0 + 8 * j + 2 * tq + e < a.nf && col0 + m0 + 8 * i < a.n_valid &&
-                 fabsf(z) >= FT_EXACT_PHASE;
+          const int fl = 8 * j + 2 * tq + e, cl = m0 + 8 * i;
+          zt[fl * FT_OUT_LD + cl] = z;
+          big |= !a.part && f0 + fl < a.nf && col0 + cl < a.n_valid &&
+                 ft_exact(z, rn[fl], cn[cl], lim2);
         }
     if (__any_sync(0xffffffffu, big) && lane == 0) hop::red_or_cluster(hop::mapa(flag, 0), 1u);
     hop::cluster_sync();  // the phases in shared memory; the cluster's flag
     const int64_t dofs = int64_t(blockIdx.z) * a.draw_stride;
-    const int u = threadIdx.x - FT_PT;
     if (hop::ld_cluster_u32(hop::mapa(flag, 0))) {
-      // one ULP of a phase |z| >= 64 moves cos by >= 64 2^-24, and the split
-      // products with the tensor cores' truncating additions round
-      // differently from fp32: recompute the tile as fp32's FMA chain over k
-      // in order (the plain version's sgemm) and keep it where |z| >= 64.
+      // one ULP of a phase |z| >= 64 moves cos by >= 64 2^-24, a phase of
+      // large terms cancels, and the split products with the tensor cores'
+      // truncating additions round differently from fp32: recompute the tile
+      // as fp32's FMA chain over k in order (the plain version's sgemm) and
+      // keep it where ft_exact says.
       // Thread (tf, tc) owns features 4 tf + {0..3, 64..67} and samples
       // 4 tc + {0..3, 64..67}
       const int tf = u / 16, tc = u % 16;
@@ -551,7 +655,7 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
         for (int j = 0; j < 8; ++j) {
           const int fl = 4 * tf + (i & 3) + 64 * (i >> 2), cl = 4 * tc + (j & 3) + 64 * (j >> 2);
           float& z = zt[fl * FT_OUT_LD + cl];
-          if (f0 + fl < a.nf && col0 + cl < a.n_valid && fabsf(z) >= FT_EXACT_PHASE) {
+          if (f0 + fl < a.nf && col0 + cl < a.n_valid && ft_exact(z, rn[fl], cn[cl], lim2)) {
             z = r[i][j];
             ++taken;
           }
@@ -625,26 +729,61 @@ inline cudaError_t launch_featurize_tf32_kernel(const CUtensorMap& tx, const CUt
 }
 
 // The finishing pass of a split over p: one warp per (feature row, 32
-// consecutive columns), 8 rows a block.  The slices' phase sums are added in
-// slice order; a phase of |z| >= FT_EXACT_PHASE is recomputed from the
-// operands as fp32's sequential FMA chain over all of p (the epilogue's
-// rule, the same chain), Omega's row read as a broadcast and X's rows
-// coalesced, by every lane of a warp that has such a phase (the others
+// consecutive columns), 8 rows a block.  The slices' phase sums and squared
+// norms are added in slice order; a phase that ft_exact takes is recomputed
+// from the operands as fp32's sequential FMA chain over all of p (the
+// epilogue's rule, the same chain), Omega's row read as a broadcast and X's
+// rows coalesced, by every lane of a warp that has such a phase (the others
 // skip the chain); then cos and sin, columns past n_valid written as 0.
 __global__ void __launch_bounds__(256)
 featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float* __restrict__ x,
                         int64_t ldx, int slices, const FtArgs a) {
   const int f = blockIdx.y * 8 + threadIdx.x / 32;
   const int c = blockIdx.x * 32 + threadIdx.x % 32;
-  if (f >= a.nf) return;  // the whole warp
   const bool valid = c < a.n_valid;
   const int64_t at = int64_t(f) * a.ldo + c;
+  const bool in = f < a.nf && c < a.ncols_out;
+  // the block's 8 rows' and 32 columns' squared norms: their slices' parts
+  // (part i: slice i / 40, norm i % 40) loaded by the whole block, the first
+  // 4 a thread issued beside the phase sums' loads, then summed in slice order
+  extern __shared__ float fin[];  // [slices][40] parts, then [40] sums
+  float* norms = fin + 40 * slices;
+  auto norm_part = [&](int i) {
+    const int j = i % 40, sl = i / 40;
+    const bool row = j < 8;
+    const int k = row ? blockIdx.y * 8 + j : blockIdx.x * 32 + j - 8;
+    const int size = row ? a.nf : a.ncols_out;
+    return k < size ? (row ? a.part_rn : a.part_cn)[int64_t(sl) * size + k] : 0.f;
+  };
+  float pre[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = threadIdx.x + q * 256;
+    pre[q] = i < 40 * slices ? norm_part(i) : 0.f;
+  }
   float z = 0.f;
-  if (c < a.ncols_out) {
+  if (in) {
     z = a.part[at];
+#pragma unroll 4
     for (int sl = 1; sl < slices; ++sl) z += a.part[int64_t(sl) * a.nf * a.ldo + at];
   }
-  const bool big = valid && fabsf(z) >= FT_EXACT_PHASE;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = threadIdx.x + q * 256;
+    if (i < 40 * slices) fin[i] = pre[q];
+  }
+  for (int i = threadIdx.x + 4 * 256; i < 40 * slices; i += 256) fin[i] = norm_part(i);
+  __syncthreads();
+  if (threadIdx.x < 40) {
+    float sq = 0.f;
+    for (int sl = 0; sl < slices; ++sl) sq += fin[sl * 40 + threadIdx.x];
+    norms[threadIdx.x] = sq;
+  }
+  __syncthreads();
+  if (f >= a.nf) return;  // the whole warp
+  const float rsq = norms[threadIdx.x / 32], csq = norms[8 + threadIdx.x % 32];
+  const float lim = FT_CANCEL / a.scale;
+  const bool big = valid && ft_exact(z, rsq, csq, lim * lim);
   const uint32_t bigs = __ballot_sync(0xffffffffu, big);
   if (bigs) {
     const float* w = om + int64_t(f) * ld_om;
@@ -655,7 +794,7 @@ featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float
     if (big) z = r;
     if (a.stats && threadIdx.x % 32 == 0) atomicAdd(&a.stats[1], (unsigned long long)__popc(bigs));
   }
-  if (c < a.ncols_out) {
+  if (in) {
     float sv = 0.f, cv = 0.f;
     if (valid) {
       sincosf(z, &sv, &cv);
@@ -670,8 +809,9 @@ featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float
 // Omega an (nf, p) operand, rows ld_omega apart; x (p, ldx); ld_omega and
 // ldx multiples of 4 and both 16-byte aligned (TMA).  Without a.part, one
 // launch writes C and S; with it, the featurize writes `slices` phase sums
-// of a.kt_per_split k-tiles each to a.part and the finishing pass writes C
-// and S.
+// of a.kt_per_split k-tiles each to a.part (slices, nf, ldo), followed by
+// their squared norms (slices, nf) and (slices, ncols_out), and the
+// finishing pass writes C and S.
 inline cudaError_t launch_featurize_operand(const float* omega, int64_t ld_omega, const float* x,
                                             int64_t ldx, const FtArgs& a, int slices,
                                             cudaStream_t stream) {
@@ -684,10 +824,19 @@ inline cudaError_t launch_featurize_operand(const float* omega, int64_t ld_omega
   if (a.draw_stride != 0 || slices < 1 || a.kt_per_split < 1 ||
       (slices - 1) * a.kt_per_split >= n_kt || slices * a.kt_per_split < n_kt)
     return cudaErrorInvalidValue;
-  cudaError_t err = launch_featurize_tf32_kernel<true>(tx, tom, FusedOmega{}, slices, a, stream);
+  FtArgs b = a;  // the slices' norms follow their phase sums in the workspace
+  b.part_rn = a.part + int64_t(slices) * a.nf * a.ldo;
+  b.part_cn = b.part_rn + int64_t(slices) * a.nf;
+  cudaError_t err = launch_featurize_tf32_kernel<true>(tx, tom, FusedOmega{}, slices, b, stream);
   if (err != cudaSuccess) return err;
-  featurize_finish_kernel<<<dim3((a.ncols_out + 31) / 32, (a.nf + 7) / 8), 256, 0, stream>>>(
-      omega, ld_omega, x, ldx, slices, a);
+  const int fin_bytes = 40 * (slices + 1) * 4;  // the finishing pass's norms
+  if (fin_bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(featurize_finish_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, fin_bytes);
+    if (err != cudaSuccess) return err;
+  }
+  featurize_finish_kernel<<<dim3((a.ncols_out + 31) / 32, (a.nf + 7) / 8), 256, fin_bytes,
+                            stream>>>(omega, ld_omega, x, ldx, slices, b);
   return cudaGetLastError();
 }
 

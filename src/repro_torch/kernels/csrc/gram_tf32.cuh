@@ -61,11 +61,23 @@
 //     the centered G; the wrappers mirror them) and every tile of G_cs.
 //     Where those tiles are too few for the card (K5's and K2's 136 at N =
 //     1000, K8's 136 at 2N = 2000, on 132 SMs) the k axis is split across
-//     blocks (`split`), each adding its part with red.global.add: the order of
-//     the additions then varies from run to run, so two identical calls agree
-//     to rounding, not bit for bit (the mirrored output stays exactly
-//     symmetric).  With split = 1 each tile is read, added to and written
-//     back, in a fixed order.
+//     blocks (`split`, from the shape alone: gram_split_plan in
+//     kernels/rff_gram_stream.py, for an H100's 132 SMs whatever card runs
+//     it).  Each block writes its partial tile to a workspace (in the
+//     fragments' order, 16-byte stores) and a second kernel adds each tile's
+//     partials in split order, 0 first, into the output.  The sum then has
+//     one order, so two identical calls agree bit for bit on any H100; for
+//     the centered Gram it writes both triangles, the wrapper's mirror.  The
+//     products lose the red.global.add they had (K2's 0.271 -> 0.246 ms on
+//     an H100) and the sum takes 0.035-0.039 ms (PERF.md); a last-block sum
+//     inside the Gram kernel held each tile's last SM once a wave and was
+//     slower.  With split = 1 each tile is read, added to and written back,
+//     in a fixed order.
+//   - bf16 Sigma (kBf16, the centered Gram only): TMA loads both tiles as
+//     bf16 (32 k x 128 rows, unswizzled) into a staging area of the stage;
+//     the splitters widen A into the fp32 tile the consumers read and B less
+//     mu into its hi and lo tiles, and the product runs as for fp32.  mu is
+//     the wrapper's row mean rounded to bf16, as the reference takes it.
 #pragma once
 #include <cstdint>
 #include <cuda.h>
@@ -77,11 +89,20 @@ namespace rt {
 
 constexpr int GX_T = 128;  // output tile edge
 constexpr int GX_BK = 32;  // k a stage
-constexpr int GX_STAGES = 4;
 constexpr int GX_TILE_BYTES = GX_T * GX_BK * 4;  // 16 KB
-constexpr int GX_STAGE_BYTES = 3 * GX_TILE_BYTES;  // A, B (hi in place), B lo
-constexpr int GX_SMEM = 1024 + GX_STAGES * GX_STAGE_BYTES + 24 * GX_STAGES;
+constexpr int GX_BF16_TILE_BYTES = GX_TILE_BYTES / 2;  // a tile as TMA lands it in bf16
 constexpr int GX_SPLITTERS = 96;  // producer warps 1-3
+
+// the ring: a stage holds A, B (hi in place), B lo (fp32), and for bf16
+// Sigma the two bf16 tiles as TMA lands them (three stages then fit)
+template <bool kBf16>
+struct GxRing {
+  static constexpr int stages = kBf16 ? 3 : 4;
+  static constexpr int stage_bytes = 3 * GX_TILE_BYTES + (kBf16 ? 2 * GX_BF16_TILE_BYTES : 0);
+  // + the landed, full and empty barriers
+  static constexpr int smem = 1024 + stages * stage_bytes + 24 * stages;
+  static_assert(stage_bytes % 1024 == 0, "stages must keep the swizzle phase");
+};
 
 struct GxArgs {
   int nf, n_kt, kt_per_split, split;
@@ -96,6 +117,8 @@ struct GxArgs {
   const float* mom_c;
   const float* mom_s;
   int k_valid;  // columns at or past it are padding, masked after the shift (centered)
+  // split > 1: the partial tiles (tiles, split, GX_T, GX_T)
+  float* ws;
 };
 
 // tile q of the upper triangle, column-major: (bi, bj) with bi <= bj
@@ -107,28 +130,13 @@ __device__ __forceinline__ void upper_tile(int q, int& bi, int& bj) {
   bi = q - j * (j + 1) / 2;
 }
 
-// kCentered: one product (G_cc's slot) of the (nf, K) matrix with itself,
-// both operands less shift_c (mu, draws = 1), columns >= k_valid masked
+// output tile q: which product (0 G_cc, 1 G_cs, 2 G_ss) and its tile (bi,
+// bj): the upper G_cc tiles, every G_cs tile, the upper G_ss tiles (centered:
+// the upper tiles of its one product)
 template <bool kCentered>
-__global__ void __launch_bounds__(384, 1)
-gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap ts,
-                 const GxArgs a) {
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = hop::smem_u32(smem_raw);
-  const uint32_t base = (raw + 1023u) & ~1023u;
-  const uint32_t bars = base + GX_STAGES * GX_STAGE_BYTES;
-  auto a_sm = [&](int s) { return base + s * GX_STAGE_BYTES; };
-  auto b_hi = [&](int s) { return base + s * GX_STAGE_BYTES + GX_TILE_BYTES; };
-  auto b_lo = [&](int s) { return base + s * GX_STAGE_BYTES + 2 * GX_TILE_BYTES; };
-  auto landed = [&](int s) { return bars + 8u * s; };
-  auto full = [&](int s) { return bars + 8u * (GX_STAGES + s); };
-  auto empty = [&](int s) { return bars + 8u * (2 * GX_STAGES + s); };
-
-  // block -> (which, bi, bj): upper G_cc tiles, all G_cs tiles, upper G_ss
-  // (centered: the upper tiles of its one product)
-  const int t_side = (a.nf + GX_T - 1) / GX_T;
+__device__ __forceinline__ void gram_tile(int q, int nf, int& which, int& bi, int& bj) {
+  const int t_side = (nf + GX_T - 1) / GX_T;
   const int n_up = t_side * (t_side + 1) / 2;
-  int q = blockIdx.x, which, bi, bj;
   if (kCentered || q < n_up) {
     which = 0;
     upper_tile(q, bi, bj);
@@ -141,13 +149,44 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
     which = 2;
     upper_tile(q - n_up - t_side * t_side, bi, bj);
   }
+}
+
+// kCentered: one product (G_cc's slot) of the (nf, K) matrix with itself,
+// both operands less shift_c (mu, draws = 1), columns >= k_valid masked;
+// kBf16 (centered only): that matrix in bf16
+template <bool kCentered, bool kBf16 = false>
+__global__ void __launch_bounds__(384, 1)
+gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap ts,
+                 const GxArgs a) {
+  static_assert(kCentered || !kBf16, "bf16 operands are the centered Gram's");
+  constexpr int GX_STAGES = GxRing<kBf16>::stages;
+  constexpr int GX_STAGE_BYTES = GxRing<kBf16>::stage_bytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t bars = base + GX_STAGES * GX_STAGE_BYTES;
+  auto a_sm = [&](int s) { return base + s * GX_STAGE_BYTES; };
+  auto b_hi = [&](int s) { return base + s * GX_STAGE_BYTES + GX_TILE_BYTES; };
+  auto b_lo = [&](int s) { return base + s * GX_STAGE_BYTES + 2 * GX_TILE_BYTES; };
+  // bf16: where TMA lands the A and B tiles
+  auto a16 = [&](int s) { return base + s * GX_STAGE_BYTES + 3 * GX_TILE_BYTES; };
+  auto b16 = [&](int s) { return a16(s) + GX_BF16_TILE_BYTES; };
+  auto landed = [&](int s) { return bars + 8u * s; };
+  auto full = [&](int s) { return bars + 8u * (GX_STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (2 * GX_STAGES + s); };
+
+  // block -> (which, bi, bj): upper G_cc tiles, all G_cs tiles, upper G_ss
+  // (centered: the upper tiles of its one product)
+  const int tile_id = blockIdx.x, split_id = blockIdx.y;
+  int which, bi, bj;
+  gram_tile<kCentered>(tile_id, a.nf, which, bi, bj);
   const CUtensorMap* ta = which == 2 ? &ts : &tc;
   const CUtensorMap* tb = which == 0 ? &tc : &ts;
   const float* sh_a = which == 2 ? a.shift_s : a.shift_c;
   // B's row sums: the shift's correction a (B 1)^T, added once (split 0)
-  const float* mom_b = blockIdx.y == 0 && sh_a ? (which == 0 ? a.mom_c : a.mom_s) : nullptr;
+  const float* mom_b = split_id == 0 && sh_a ? (which == 0 ? a.mom_c : a.mom_s) : nullptr;
   float* out = which == 0 ? a.gcc : (which == 1 ? a.gcs : a.gss);
-  const int kt0 = blockIdx.y * a.kt_per_split;
+  const int kt0 = split_id * a.kt_per_split;
   const int kt1 = min(a.n_kt, kt0 + a.kt_per_split);
   const int n_it = kt1 - kt0;
 
@@ -174,10 +213,16 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
           const int s = it % GX_STAGES;
           hop::mbar_wait(empty(s), ((it / GX_STAGES) & 1) ^ 1);
           hop::fence_proxy_async();
-          hop::mbar_expect_tx(landed(s), 2 * GX_TILE_BYTES);
           const int k0 = (kt0 + it) * GX_BK;
-          hop::tma_load_2d(a_sm(s), ta, landed(s), k0, bi * GX_T);
-          hop::tma_load_2d(b_hi(s), tb, landed(s), k0, bj * GX_T);
+          if constexpr (kBf16) {
+            hop::mbar_expect_tx(landed(s), 2 * GX_BF16_TILE_BYTES);
+            hop::tma_load_2d(a16(s), ta, landed(s), k0, bi * GX_T);
+            hop::tma_load_2d(b16(s), tb, landed(s), k0, bj * GX_T);
+          } else {
+            hop::mbar_expect_tx(landed(s), 2 * GX_TILE_BYTES);
+            hop::tma_load_2d(a_sm(s), ta, landed(s), k0, bi * GX_T);
+            hop::tma_load_2d(b_hi(s), tb, landed(s), k0, bj * GX_T);
+          }
         }
       }
     } else {
@@ -201,7 +246,34 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
           lo[i] = make_float4(__uint_as_float(l0), __uint_as_float(l1), __uint_as_float(l2),
                               __uint_as_float(l3));
         };
-        if constexpr (kCentered) {
+        if constexpr (kBf16) {
+          // chunk i of a bf16 tile: row i / 8, columns 4 (i % 8) .. + 3, the
+          // fp32 tiles' float4 (i / 8) * 8 + (i % 8 ^ row % 8); A widened as
+          // it is (the consumers shift it), B less mu and masked as below
+          const int k0 = (kt0 + it) * GX_BK;
+          const uint2* a_in = reinterpret_cast<const uint2*>(sb + (a16(s) - base));
+          const uint2* b_in = reinterpret_cast<const uint2*>(sb + (b16(s) - base));
+          float4* a_out = reinterpret_cast<float4*>(sb + (a_sm(s) - base));
+          auto widen = [](uint2 w) {
+            return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xFFFF0000u),
+                               __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xFFFF0000u));
+          };
+#pragma unroll 1
+          for (int i = u; i < GX_TILE_BYTES / 16; i += GX_SPLITTERS) {
+            const int r = i / 8, c = i % 8;
+            const int at = r * 8 + (c ^ (r % 8));
+            a_out[at] = widen(a_in[i]);
+            const int k = k0 + 4 * c;
+            const int gr = bj * GX_T + r;
+            const float m = gr < a.nf ? __ldg(a.shift_c + gr) : 0.f;
+            float4 v = widen(b_in[i]);
+            v.x = k < a.k_valid ? v.x - m : 0.f;
+            v.y = k + 1 < a.k_valid ? v.y - m : 0.f;
+            v.z = k + 2 < a.k_valid ? v.z - m : 0.f;
+            v.w = k + 3 < a.k_valid ? v.w - m : 0.f;
+            split(at, v);
+          }
+        } else if constexpr (kCentered) {
           // B less mu, the columns past k_valid masked after the shift; one
           // float4 at a time (unrolled with the means it spilled at 40
           // registers).  float4 i holds row i / 8, swizzled chunk i % 8:
@@ -293,6 +365,36 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
 
+    // the shift's correction a (B 1)^T, added by split 0 at the last chunk
+    auto add_corr = [&](int i, int j, int e, float v) {
+      const int r = bi * GX_T + r0 + 8 * i, c = bj * GX_T + 8 * j + 2 * tq + e;
+      if (mom_b && r < a.nf && c < a.nf) {
+        float corr = 0.f;
+        for (int d = 0; d < a.draws; ++d)
+          corr = fmaf(sh_a[int64_t(r) * a.draws + d],
+                      mom_b[int64_t(c) * 2 * a.draws + 2 * d + 1], corr);
+        v += corr;
+      }
+      return v;
+    };
+    if (a.split > 1) {
+      // the partial to the workspace in the fragments' order (thread u's 64
+      // values contiguous), for gram_split_reduce_kernel
+      const int u = threadIdx.x - 128;  // the consumer thread, 0 .. 255
+      float4* mine = reinterpret_cast<float4*>(
+          a.ws + (int64_t(tile_id) * a.split + split_id) * GX_T * GX_T + u * 64);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        float v[4];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int idx = 4 * q + h;  // = 4 j + 2 i + e
+          v[h] = add_corr((idx / 2) % 2, idx / 4, idx % 2, acc[idx]);
+        }
+        __stcg(mine + q, make_float4(v[0], v[1], v[2], v[3]));
+      }
+      return;
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = bi * GX_T + r0 + 8 * i;
@@ -304,44 +406,77 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
         for (int e = 0; e < 2; ++e) {
           const int c = bj * GX_T + 8 * j + 2 * tq + e;
           if (c >= a.nf) continue;
-          float v = acc[4 * j + 2 * i + e];
-          if (mom_b) {
-            float corr = 0.f;
-            for (int d = 0; d < a.draws; ++d)
-              corr = fmaf(sh_a[int64_t(r) * a.draws + d],
-                          mom_b[int64_t(c) * 2 * a.draws + 2 * d + 1], corr);
-            v += corr;
-          }
-          if (a.split > 1)
-            atomicAdd(row + c, v);
-          else
-            row[c] += v;
+          row[c] += add_corr(i, j, e, acc[4 * j + 2 * i + e]);
         }
     }
   }
 }
 
-// the k split for `tiles` output tiles over n_kt k-tiles: enough blocks for
-// about four waves where the tiles alone are fewer, at least 8 k-tiles a block
-inline int gram_tf32_split(int tiles, int n_kt) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int most = n_kt / 8 > 1 ? n_kt / 8 : 1;
-  const int split = (4 * sms + tiles - 1) / tiles;
-  return split < most ? split : most;
+// The k split's sum: a tile's fragments over four blocks of 256 threads,
+// thread u of block (tile, quarter) taking that quarter of the fragment of
+// the Gram kernel's consumer thread u, the splits' partials added in split
+// order, 0 first, then into the output.  The sum has one order whichever
+// blocks ran first, so identical calls agree bit for bit.
+template <bool kCentered>
+__global__ void __launch_bounds__(256)
+gram_split_reduce_kernel(const GxArgs a) {
+  const int u = threadIdx.x, w = u / 128, t = u % 128, lane = t % 32, qt = blockIdx.y;
+  const int r0 = 64 * w + 16 * (t / 32) + lane / 4, tq = lane % 4;
+  int which, bi, bj;
+  gram_tile<kCentered>(blockIdx.x, a.nf, which, bi, bj);
+  float* out = which == 0 ? a.gcc : (which == 1 ? a.gcs : a.gss);
+  const float4* ws = reinterpret_cast<const float4*>(
+      a.ws + int64_t(blockIdx.x) * a.split * GX_T * GX_T) + u * 16 + 4 * qt;
+  float v[16];
+#pragma unroll 1
+  for (int sp = 0; sp < a.split; ++sp) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 p = __ldcg(ws + sp * (GX_T * GX_T / 4) + q);
+      v[4 * q] = sp == 0 ? p.x : v[4 * q] + p.x;
+      v[4 * q + 1] = sp == 0 ? p.y : v[4 * q + 1] + p.y;
+      v[4 * q + 2] = sp == 0 ? p.z : v[4 * q + 2] + p.z;
+      v[4 * q + 3] = sp == 0 ? p.w : v[4 * q + 3] + p.w;
+    }
+  }
+  // fragment values 16 qt .. 16 qt + 15: (j, i, e) with 4 j + 2 i + e.  The
+  // centered Gram (one launch into a zero G) is written mirrored, as the
+  // wrapper's mirror_upper would make it: G[c][r] = G[r][c] for c > r
+#pragma unroll
+  for (int h = 0; h < 16; ++h) {
+    const int idx = 16 * qt + h, j = idx / 4, i = (idx / 2) % 2, e = idx % 2;
+    const int r = bi * GX_T + r0 + 8 * i, c = bj * GX_T + 8 * j + 2 * tq + e;
+    if (r >= a.nf || c >= a.nf) continue;
+    if constexpr (kCentered) {
+      if (c >= r) {
+        out[int64_t(r) * a.nf + c] = v[h];
+        out[int64_t(c) * a.nf + r] = v[h];
+      }
+    } else {
+      out[int64_t(r) * a.nf + c] += v[h];
+    }
+  }
 }
 
-template <bool kCentered>
+// split ways of kt_per_split k-tiles each over `tiles` output tiles; split
+// > 1 needs a.ws (tiles x split x GX_T^2 floats) and adds the splits by
+// gram_split_reduce_kernel.  The split comes from the caller (the shape
+// alone), never from the card.
+template <bool kCentered, bool kBf16 = false>
 inline cudaError_t launch_gram_tf32_kernel(const CUtensorMap& ta, const CUtensorMap& tb, int tiles,
-                                           GxArgs a, cudaStream_t stream) {
-  a.split = gram_tf32_split(tiles, a.n_kt);
-  a.kt_per_split = (a.n_kt + a.split - 1) / a.split;
-  a.split = (a.n_kt + a.kt_per_split - 1) / a.kt_per_split;
-  cudaError_t err = cudaFuncSetAttribute(gram_tf32_kernel<kCentered>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GX_SMEM);
+                                           int split, int kt_per_split, GxArgs a,
+                                           cudaStream_t stream) {
+  if (split < 1 || kt_per_split < 1 || (split - 1) * kt_per_split >= a.n_kt ||
+      split * kt_per_split < a.n_kt || (split > 1 && !a.ws))
+    return cudaErrorInvalidValue;
+  a.split = split;
+  a.kt_per_split = kt_per_split;
+  constexpr int smem = GxRing<kBf16>::smem;
+  cudaError_t err = cudaFuncSetAttribute(gram_tf32_kernel<kCentered, kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  gram_tf32_kernel<kCentered><<<dim3(tiles, a.split), 384, GX_SMEM, stream>>>(ta, tb, a);
+  gram_tf32_kernel<kCentered, kBf16><<<dim3(tiles, split), 384, smem, stream>>>(ta, tb, a);
+  if (split > 1) gram_split_reduce_kernel<kCentered><<<dim3(tiles, 4), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }
 

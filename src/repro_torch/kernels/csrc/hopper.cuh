@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA tile
 // loads, warpgroup matrix multiplies (wgmma) and their shared-memory
-// descriptors.  Used by flash_attention.cu (K11's bf16 path) and, in their
+// descriptors.  Used by flash_attention.cu (K11's bf16 path),
+// featurize_bf16.cuh (K1's bf16 path) and, in their
 // tf32 forms with the cluster and cp.async helpers at the end of this file,
 // by featurize_tf32.cuh and gram_tf32.cuh (K2/K3, K5-K8).
 //
@@ -212,6 +213,28 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared,
+// MN-major: B's rows contiguous, one 64-wide block); acc = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t a, uint64_t b,
+                                                int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int acc);
 template <>
@@ -378,6 +401,23 @@ inline bool map_f32_sw128(CUtensorMap* map, const void* ptr, int64_t rows, int64
   return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
                                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (host) the TMA map of a (rows, cols) bf16 matrix whose rows are ld values
+// apart, boxes of box_cols x box_rows with the given swizzle (128-byte: a box
+// row of 64 values; none: any), out-of-bounds elements read as 0; false
+// where TMA cannot take it (ld not a multiple of 8, ptr not 16-byte aligned)
+inline bool map_bf16(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols, int64_t ld,
+                     int box_cols, int box_rows, CUtensorMapSwizzle swizzle) {
+  if (ld % 8 != 0 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

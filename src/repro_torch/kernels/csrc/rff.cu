@@ -10,14 +10,17 @@
 // (64-512 columns) the output tiles are too few to fill the card, so the
 // wrapper splits the k-tiles of p into slices (rff.split_plan): the slices'
 // phase sums go to a workspace and a finishing pass adds them in order and
-// takes cos and sin (featurize_tf32.cuh).
+// takes cos and sin (featurize_tf32.cuh).  bf16 X and Omega take the bf16
+// kernel of featurize_bf16.cuh instead (rt_rff_bf16).
+#include "featurize_bf16.cuh"
 #include "featurize_tf32.cuh"
 #include "threefry.cuh"
 
 // omega (nf, ld_omega) with its first p columns the weights; x (p, ldx) with
 // its first n columns the samples; ld_omega and ldx multiples of 4 (TMA; the
 // wrapper pads); out (2 nf, n); part null (one launch into out) or the
-// workspace (slices, nf, n) of a split of kt_per_split k-tiles a slice;
+// workspace of a split of kt_per_split k-tiles a slice: (slices, nf, n) phase
+// sums, then (slices, nf) and (slices, n) squared norms;
 // stats null or three uint64 counters, of which only the phases recomputed
 // are added to (nothing is drawn)
 extern "C" int rt_rff(const void* omega, int64_t ld_omega, const void* x, int64_t ldx, int nf,
@@ -31,6 +34,14 @@ extern "C" int rt_rff(const void* omega, int64_t ld_omega, const void* x, int64_
   return int(rt::launch_featurize_operand(static_cast<const float*>(omega), ld_omega,
                                           static_cast<const float*>(x), ldx, a, slices,
                                           static_cast<cudaStream_t>(stream)));
+}
+
+// K1 with bf16 omega (nf, ld_omega) and x (p, ldx), ld_omega and ldx
+// multiples of 8 (TMA; the wrapper pads); out (2 nf, n) bf16
+extern "C" int rt_rff_bf16(const void* omega, int64_t ld_omega, const void* x, int64_t ldx, int nf,
+                           int p, int n, float inv_sqrt_n, void* out, void* stream) {
+  return int(rt::launch_featurize_bf16(omega, ld_omega, x, ldx, nf, p, n, inv_sqrt_n, out,
+                                       static_cast<cudaStream_t>(stream)));
 }
 
 // K7 on the card: K1 with Omega drawn in the kernel, no operand.

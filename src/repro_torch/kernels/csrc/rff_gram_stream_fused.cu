@@ -14,8 +14,8 @@
 //
 // Per chunk of bc sample columns the host launches, in order:
 //   1. featurize on the tensor cores (featurize_tf32.cuh: three tf32
-//      products a product, phases of |z| >= 64 recomputed as fp32's FMA
-//      chain): rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
+//      products a product, phases of |z| >= 64 or of large cancelling terms
+//      recomputed as fp32's FMA chain): rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
 //      threefry K4; once per 1024 columns of the chunk), rt_operand_featurize
 //      loads it from the (N, p) operand by TMA.  Either writes the chunk's
 //      (nf, S bc) cos and sin slabs into a workspace reused by every chunk;
@@ -24,8 +24,9 @@
 //   3. rt_fused_gram_accumulate: the three (nf, nf) products over k = S bc,
 //      added into G_cc, G_cs, G_ss on the tensor cores (gram_tf32.cuh: three
 //      tf32 products, a TMA ring, k split across blocks where the tiles are
-//      few, each row of the A operand taken less its draw's mean over the
-//      first chunk, added back by the last chunk's launch).  G_cc and G_ss
+//      few and the splits added in a fixed order, each row of the A operand
+//      taken less its draw's mean over the first chunk, added back by the
+//      last chunk's launch).  G_cc and G_ss
 //      are symmetric, so only tiles with row tile <= column tile are
 //      computed (the wrapper mirrors them).
 // Peak memory: O(N^2 + N bc S).  A fused Omega is drawn once per (feature
@@ -115,11 +116,15 @@ extern "C" int rt_gram_moments(const void* wc, const void* ws, int nf, int draws
 
 // K = draws x bc columns, bc a multiple of 32 (the workspace's chunk widths
 // are of 256); shift_c, shift_s: (nf, draws) row shifts of the A operand;
-// mom_c, mom_s: the moments (nf, 2 draws) at the last chunk, else null
+// mom_c, mom_s: the moments (nf, 2 draws) at the last chunk, else null; the
+// k split (split ways of kt_per_split k-tiles of 32) is the caller's
+// (gram_split_plan), with split > 1 the partial tiles part (tiles, split,
+// 128, 128) floats
 extern "C" int rt_fused_gram_accumulate(const void* wc, const void* ws, int nf, int K, int bc,
                                         void* gcc, void* gcs, void* gss, const void* shift_c,
                                         const void* shift_s, const void* mom_c,
-                                        const void* mom_s, void* stream) {
+                                        const void* mom_s, int split, int kt_per_split,
+                                        void* part, void* stream) {
   if (K % rt::GX_BK != 0 || bc % rt::GX_BK != 0 || K % bc != 0)
     return int(cudaErrorInvalidValue);
   CUtensorMap tc, ts;
@@ -131,7 +136,8 @@ extern "C" int rt_fused_gram_accumulate(const void* wc, const void* ws, int nf, 
                      static_cast<float*>(gcc), static_cast<float*>(gcs), static_cast<float*>(gss),
                      static_cast<const float*>(shift_c), static_cast<const float*>(shift_s),
                      bc / rt::GX_BK, K / bc,
-                     static_cast<const float*>(mom_c), static_cast<const float*>(mom_s), K};
-  return int(rt::launch_gram_tf32_kernel<false>(tc, ts, t * (t + 1) + t * t, a,
-                                                static_cast<cudaStream_t>(stream)));
+                     static_cast<const float*>(mom_c), static_cast<const float*>(mom_s), K,
+                     static_cast<float*>(part)};
+  return int(rt::launch_gram_tf32_kernel<false>(tc, ts, t * (t + 1) + t * t, split, kt_per_split,
+                                                a, static_cast<cudaStream_t>(stream)));
 }

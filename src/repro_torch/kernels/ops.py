@@ -26,12 +26,15 @@ from repro_torch.kernels import segment_reduce as _segment
 
 
 def rff(x: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
-    """Sigma (2N, n) from X (p, n) and Omega (N, p)."""
+    """Sigma (2N, n) from X (p, n) and Omega (N, p), both float32 or both
+    bfloat16; Sigma in their dtype (bf16 products accumulated in fp32, cos and
+    sin in fp32, rounded to bf16 once), as the reference's."""
     return _rff.rff(x, omega)
 
 
 def centered_gram(sigma: torch.Tensor) -> torch.Tensor:
-    """Sigma H Sigma^T (fp32) from Sigma (2N, n)."""
+    """Sigma H Sigma^T (fp32) from Sigma (2N, n), float32 or bfloat16 (mu the
+    row mean rounded to bf16), as the reference's."""
     return _centered.centered_gram(sigma)
 
 

@@ -22,7 +22,9 @@ walk X in chunks of sample columns (:func:`gram_tile_plan`); per chunk they
 launch a featurize kernel (Omega loaded by TMA, or drawn in the kernel), the
 moment kernel and the Gram accumulate kernel.  Both paths run both products
 on the tensor cores as three tf32 products each
-(``csrc/featurize_tf32.cuh``, ``csrc/gram_tf32.cuh``).  On CPU tensors they
+(``csrc/featurize_tf32.cuh``, ``csrc/gram_tf32.cuh``; the Gram's k split,
+where it splits, from the shape alone and summed in a fixed order:
+:func:`gram_split_plan`).  On CPU tensors they
 run :func:`rff_gram_stream_plain` and :func:`rff_gram_stream_fused_plain`.
 ``LAUNCHES`` (seed-fused, K5/K6) and ``OPERAND_LAUNCHES`` (Omega operand,
 K2/K3) count the launches.
@@ -106,6 +108,38 @@ def gram_tile_plan(n_features: int, *, n: int, ensemble: int = 1) -> dict:
     return {"block": block, "chunks": -(-n // block), "workspace_bytes": per_col * block}
 
 
+# gram_tf32.cuh: an output tile's edge and a k-tile; the SMs of an H100 SXM,
+# which size every split whatever card runs it (the sum's order is the shape's)
+GRAM_TILE, GRAM_K_TILE, PLAN_SMS = 128, 32, 132
+
+
+def gram_split_plan(rows: int, k: int, *, centered: bool = False) -> dict:
+    """How the tensor-core Gram (``csrc/gram_tf32.cuh``) splits k for a
+    (rows, k) operand: ``tiles`` output tiles (the upper tiles of G_cc and
+    G_ss and every tile of G_cs, or the centered Gram's upper tiles), each
+    taken by ``split`` blocks of ``kt_per_split`` k-tiles of 32: about four
+    waves of ``PLAN_SMS`` where the tiles alone are fewer, at least 8 k-tiles
+    a block.  A split's blocks write partial tiles (``workspace_bytes``) that
+    a second kernel adds in split order, so the plan, and with it every bit
+    of the sum, depends on the shape alone.  Returns ``{"tiles", "split",
+    "kt_per_split", "workspace_bytes"}``."""
+    t = -(-rows // GRAM_TILE)
+    tiles = t * (t + 1) // 2 if centered else t * (t + 1) + t * t
+    n_kt = -(-k // GRAM_K_TILE)
+    split = max(1, min(-(-4 * PLAN_SMS // max(tiles, 1)), n_kt // 8))
+    kps = -(-n_kt // split)
+    split = -(-n_kt // kps)
+    return dict(tiles=tiles, split=split, kt_per_split=kps,
+                workspace_bytes=4 * tiles * split * GRAM_TILE * GRAM_TILE if split > 1 else 0)
+
+
+def split_workspace(plan: dict, device) -> torch.Tensor | None:
+    """The partial tiles of a split plan, or None for split = 1."""
+    if plan["split"] == 1:
+        return None
+    return torch.empty(plan["workspace_bytes"] // 4, dtype=torch.float32, device=device)
+
+
 def mirror_upper(g: torch.Tensor) -> torch.Tensor:
     """The Gram kernels fill the upper tiles of a symmetric block."""
     return torch.triu(g) + torch.triu(g, 1).T
@@ -132,8 +166,9 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
     workspace, then the moment kernel and the accumulate kernel add into the
     outputs.  The accumulate multiplies each row of its first operand less
     that draw's mean over the first chunk (from the moments) and, at the last
-    chunk, adds the shifts back from the moments' column sums.  Returns the
-    five outputs with G_cc and G_ss mirrored."""
+    chunk, adds the shifts back from the moments' column sums; its k split
+    comes from :func:`gram_split_plan`, so identical calls agree bit for bit.
+    Returns the five outputs with G_cc and G_ss mirrored."""
     n = x.shape[1]
     block = gram_tile_plan(nf, n=n, ensemble=draws)["block"]
     dev = x.device
@@ -148,7 +183,9 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
     moments = _build.fn("rff_gram_stream_fused", "rt_gram_moments",
                         [vp, vp, i32, i32, i32, vp, i32, vp, vp, vp])
     accumulate = _build.fn("rff_gram_stream_fused", "rt_fused_gram_accumulate",
-                           [vp, vp, i32, i32, i32] + [vp] * 8)
+                           [vp, vp, i32, i32, i32] + [vp] * 7 + [i32, i32] + [vp] * 2)
+    plan = gram_split_plan(nf, draws * block)
+    part = split_workspace(plan, dev)
     shifts = None
     with torch.cuda.device(dev):
         stream = _build.stream_ptr()
@@ -169,7 +206,8 @@ def _stream(x, ell, nf: int, draws: int, featurize, counts: dict):
                              gcc.data_ptr(), gcs.data_ptr(), gss.data_ptr(),
                              shifts[0].data_ptr(), shifts[1].data_ptr(),
                              mc.data_ptr() if last else None, ms.data_ptr() if last else None,
-                             stream)
+                             plan["split"], plan["kt_per_split"],
+                             None if part is None else part.data_ptr(), stream)
             _build.check(err, "gram accumulate")
             counts["accumulate"] += 1
     return mirror_upper(gcc), gcs, mirror_upper(gss), mc, ms

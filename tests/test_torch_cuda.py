@@ -7,7 +7,11 @@ it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: Omega within 8 ULP and bits equal (K4); 2e-5 absolute on the
-feature map (K1, K7, the latter also at the tensor-core tile's edges); atol
+feature map (K1, K7, the latter also at the tensor-core tile's edges; with
+Cauchy Omega the reference's rule element by element: 2e-5 of plain, or, where
+plain is past that from float64, no farther from it); bf16 K1 within one bf16
+ULP of plain plus 2e-5, bf16 K8 under K8's gate; the split-k Grams (K2, K5,
+K8), a seed-fused fit and two independent servers' fits bit for bit; atol
 2e-5 on G_H / max|G_H| and on u (K2/K3, K5/K6, the latter also at those
 edges and over many chunks); atol 1e-5 on G / max|G| (K8; on nearly
 constant rows, or no farther from the float64 answer than plain where plain
@@ -104,6 +108,24 @@ def test_rff_kernel_matches_plain(card, nf, p, n):
 
 def _sms(card) -> int:
     return torch.cuda.get_device_properties(card).multi_processor_count
+
+
+CANCEL = 5e-6 * 2.0 ** 20  # csrc/featurize_tf32.cuh FT_CANCEL
+
+
+def _exact_phases(om: torch.Tensor, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """(N, n) True where the featurize's rule takes fp32's FMA chain: |z| >=
+    64, or |omega_f|_2 |x_c|_2 scale > FT_CANCEL (terms that may cancel past
+    the gate in the split products)."""
+    rn, cn = om.double().square().sum(dim=1), x.double().square().sum(dim=0)
+    return ((om @ x).abs() >= 64) | (rn[:, None] * cn[None, :] * scale ** 2 > CANCEL ** 2)
+
+
+def _within_rule(k: torch.Tensor, plain: torch.Tensor, exact: torch.Tensor) -> bool:
+    """The reference's gate element by element: within 2e-5 of plain, or,
+    where plain is past 2e-5 from the float64 answer, no farther from it."""
+    d_k, d_p = (k.double() - exact).abs(), (plain.double() - exact).abs()
+    return bool((((k - plain).abs() <= 2e-5) | ((d_p > 2e-5) & (d_k <= d_p))).all())
 
 
 @pytest.mark.parametrize("n", [300, 3612])
@@ -323,9 +345,10 @@ def test_rff_fused_kernel_counts_its_draws(card, n):
 
 
 def test_fused_featurize_counts_recomputed_phases(card):
-    """Cauchy draws on unscaled X (the laplace Gram case above): phases of
-    |z| >= 64 are recomputed as fp32's FMA chain, in every chunk; the
-    result holds the Gram gate."""
+    """Cauchy draws on unscaled X (the laplace Gram case above): the phases
+    the featurize's rule takes (|z| >= 64, or large terms that may cancel)
+    are recomputed as fp32's FMA chain, in every chunk; the result holds the
+    Gram gate."""
     rng = np.random.default_rng(200)
     x = torch.tensor(rng.normal(size=(40, 700)).astype(np.float32), device=card)
     ell = ell_vector(350, 350, device=card)
@@ -336,8 +359,8 @@ def test_fused_featurize_counts_recomputed_phases(card):
     drawn, recomputed, redrawn = cnt.tolist()
     om = [prng.fused_omega_block_plain(5, 200, 40, ensemble_index=e, sigma=4.0,
                                        rf_kernel="laplace", device=card) for e in range(2)]
-    big = sum(int(((o @ x).abs() >= 64).sum()) for o in om)
-    assert abs(recomputed - big) <= big // 100 and redrawn % 40 == 0 < redrawn
+    need = sum(int(_exact_phases(o, x, gram.feature_scale(200, 2)).sum()) for o in om)
+    assert abs(recomputed - need) <= need // 100 and redrawn % 40 == 0 < redrawn
     assert drawn % (200 * 40 * 2) == 0 < drawn
     g_p, u_p = assemble_streamed_gram_ensemble(
         *gram.rff_gram_stream_fused_plain(x, ell, **kw), n=700, ensemble=2)
@@ -348,9 +371,9 @@ def test_fused_featurize_counts_recomputed_phases(card):
 @pytest.mark.parametrize("nf,p,n", [(200, 40, 700), (1000, 7, 795)])
 def test_operand_featurize_recomputes_large_phases(card, nf, p, n):
     """K2/K3 with a Cauchy Omega operand (``draw_omega``'s laplace) on
-    unscaled X: phases of |z| >= 64 are recomputed as fp32's FMA chain from
-    the operand (p = 7: its padded copy), counted by the kernel (nothing is
-    drawn); the result holds the Gram gate."""
+    unscaled X: the phases the featurize's rule takes are recomputed as
+    fp32's FMA chain from the operand (p = 7: its padded copy), counted by
+    the kernel (nothing is drawn); the result holds the Gram gate."""
     rng = np.random.default_rng(nf + p)
     x = torch.tensor(rng.normal(size=(p, n)).astype(np.float32), device=card)
     om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device=card)
@@ -359,8 +382,8 @@ def test_operand_featurize_recomputes_large_phases(card, nf, p, n):
     g_k, u_k = assemble_streamed_gram_ensemble(*gram.rff_gram_stream(x, om, ell, counters=cnt),
                                                n=n, ensemble=1)
     drawn, recomputed, redrawn = cnt.tolist()
-    big = int(((om @ x).abs() >= 64).sum())
-    assert drawn == redrawn == 0 < big and abs(recomputed - big) <= big // 100
+    need = int(_exact_phases(om, x, gram.feature_scale(nf, 1)).sum())
+    assert drawn == redrawn == 0 < need and abs(recomputed - need) <= need // 100
     g_p, u_p = assemble_streamed_gram_ensemble(*gram.rff_gram_stream_plain(x, om, ell), n=n,
                                                ensemble=1)
     assert ((g_k - g_p).abs().max() / g_p.abs().max()).item() <= 2e-5
@@ -374,16 +397,13 @@ SPLIT_CAUCHY = (200, 256, 2048)
 @pytest.mark.parametrize("nf,p,n", [(200, 40, 700), SPLIT_CAUCHY])
 def test_rff_kernel_recomputes_large_phases(card, monkeypatch, nf, p, n):
     """K1 with a Cauchy Omega (``draw_omega``'s laplace) on unscaled X, one
-    launch into Sigma (p = 40) and split over p: phases of |z| >= 64 are
-    recomputed as fp32's FMA chain (in the epilogue, or from the whole sum
-    in the finishing pass), counted by the kernel (nothing is drawn), and
-    hold 2e-5 against plain there.  Elsewhere the map holds 2e-5 plus the
-    split products' rounding, 2^-20 of sum_k |omega_k x_k| (times 1/sqrt(N)):
-    a phase under 64 summed from terms of ~1e4 is as far from plain in the
-    split products as 2^-20 of those terms, one launch or split
-    (tests/test_torch_split_tf32_numerics.py models it; chip_smoke.py's K1
-    laplace check counts such elements).  The split run agrees with a
-    one-launch run of the same call within 2e-5."""
+    launch into Sigma (p = 40) and split over p: the phases the featurize's
+    rule takes (|z| >= 64, and large terms whose sum may cancel: every phase
+    here) are recomputed as fp32's FMA chain (in the epilogue, or from the
+    whole sum and the whole norms in the finishing pass), counted by the
+    kernel (nothing is drawn), and every element holds 2e-5 against plain
+    (tests/test_torch_split_tf32_numerics.py models the rule).  The split run
+    agrees with a one-launch run of the same call within 2e-5."""
     rng = np.random.default_rng(nf + p)
     x = torch.tensor(rng.normal(size=(p, n)).astype(np.float32), device=card)
     om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device=card)
@@ -391,17 +411,64 @@ def test_rff_kernel_recomputes_large_phases(card, monkeypatch, nf, p, n):
     cnt = torch.zeros(3, dtype=torch.int64, device=card)
     out = rff.rff(x, om, counters=cnt)
     drawn, recomputed, redrawn = cnt.tolist()
-    z = om @ x
-    big = z.abs() >= 64
-    assert drawn == redrawn == 0 < int(big.sum())
-    assert abs(recomputed - int(big.sum())) <= int(big.sum()) // 100
-    diff = (out - rff.rff_plain(x, om)).abs()
-    assert diff[torch.cat([big, big])].max().item() <= 2e-5
-    terms = (om.abs() @ x.abs()) * rff.inv_sqrt(nf) * 2.0 ** -20
-    assert bool((diff <= 2e-5 + torch.cat([terms, terms])).all())
+    need = int(_exact_phases(om, x, rff.inv_sqrt(nf)).sum())
+    assert drawn == redrawn == 0 < need and abs(recomputed - need) <= need // 100
+    assert (out - rff.rff_plain(x, om)).abs().max().item() <= 2e-5
     monkeypatch.setattr(rff, "split_plan", lambda nf, p, n, *, sms: dict(
         slices=1, kt_per_split=-(-p // rff.K_TILE)))
     assert (out - rff.rff(x, om)).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_cauchy_featurize_within_the_reference_rule(card, fused):
+    """K1 (Omega an operand) and K7 (drawn) with Cauchy Omega at the smoke's
+    width (N = 1000, p = 2048, n = 3612 on unit-normal X): every element
+    within 2e-5 of plain, or, where plain is past that from the float64
+    answer, no farther from it (the parent took only |z| >= 64 and left
+    phases of cancelling terms up to ~2e-4 from plain)."""
+    rng = np.random.default_rng(28)
+    x = torch.tensor(rng.normal(size=(2048, 3612)).astype(np.float32), device=card)
+    kw = dict(n_features=1000, seed=3, ensemble_index=1, sigma=28.0, rf_kernel="laplace")
+    if fused:
+        om = prng.fused_omega_block_plain(3, 1000, 2048, ensemble_index=1, sigma=28.0,
+                                          rf_kernel="laplace", device=card)
+        k, plain = rff.rff_fused(x, **kw), rff.rff_fused_plain(x, **kw)
+    else:
+        om = draw_omega(3, 1000, 2048, sigma=28.0, kernel="laplace", device=card)
+        k, plain = rff.rff(x, om), rff.rff_plain(x, om)
+    z = om.double() @ x.double()
+    assert _within_rule(k, plain, torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(1000))
+
+
+def test_split_k_grams_repeat_bit_for_bit(card):
+    """K2 and K5 (S = 1 and 4) at N = 1000 and K8 at 2N = 2000 split k across
+    blocks (``gram_split_plan``); the partials are added in split order, so
+    two identical calls agree bit for bit."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor((rng.normal(size=(64, 3612)) / 8).astype(np.float32), device=card)
+    ell = ell_vector(2817, 795, device=card)
+    om = draw_omega(5, 1000, 64, device=card)
+    assert gram.gram_split_plan(1000, gram.gram_tile_plan(1000, n=3612)["block"])["split"] > 1
+    runs = [lambda: gram.rff_gram_stream(x, om, ell)]
+    for ens in (1, 4):
+        runs.append(lambda ens=ens: gram.rff_gram_stream_fused(
+            x, ell, n_features=1000, seed=5, ensemble=ens))
+    for run in runs:
+        assert all(torch.equal(a, b) for a, b in zip(run(), run()))
+    sig = rff.rff(x, om)
+    assert gram.gram_split_plan(2000, 3612, centered=True)["split"] > 1
+    assert torch.equal(centered_gram.centered_gram(sig), centered_gram.centered_gram(sig))
+
+
+def test_fused_fit_twice_bit_for_bit(card):
+    """chip_smoke.py's fit A (seed-fused, N = 1000, m = 32), from scratch
+    twice on one card: W_RF and the eigenvalues bit for bit."""
+    doms = make_domains(2, 1500, dim=64, seed=0)
+    xs, xt = (torch.tensor(np.ascontiguousarray(d.x), device=card) for d in doms)
+    kw = dict(n_features=1000, m=32, gamma=1e-2, sigma=8.0, w_rf="fused:0", seed=0,
+              device=card)
+    a, b = trf.rf_tca_fit(xs, xt, **kw), trf.rf_tca_fit(xs, xt, **kw)
+    assert torch.equal(a.w_rf, b.w_rf) and torch.equal(a.eigvals, b.eigvals)
 
 
 @pytest.mark.parametrize("nf,ensemble,p,n", [(65, 1, 40, 795), (96, 2, 16, 600)])
@@ -518,13 +585,14 @@ def test_dispatch_launches_k1_once_and_matches_transform(card):
 
 def test_serving_telemetry_off_and_on_bit_for_bit(card):
     """Telemetry on (request tracer, SLO engine, the drift monitor's probed
-    planes, a registry and a tracer) serves the same bits as off."""
+    planes, a registry and a tracer) serves the same bits as off, each server
+    fitting the pair itself."""
     from repro_torch import obs
     from repro_torch.serve import synth_requests
 
     off, _ = _served_pair(card, sentinel_prefix="cuda.off")
     on, _ = _served_pair(card, sentinel_prefix="cuda.on")
-    on.store.put(("s", "t"), off.store.get(("s", "t")))  # one state behind both
+    assert torch.equal(off.store.get(("s", "t")).state.w_rf, on.store.get(("s", "t")).state.w_rf)
     on.attach(request_tracer=obs.RequestTracer(rate=1.0),
               slo=obs.SloEngine([obs.Slo("serve.latency", target=0.9, bound=10.0,
                                          window_fast_s=0.05, window_slow_s=0.5)]),
@@ -534,6 +602,82 @@ def test_serving_telemetry_off_and_on_bit_for_bit(card):
     with obs.use_registry(obs.MetricsRegistry()), obs.use_tracer(obs.Tracer()):
         wired = [o for _, o in on.serve(reqs)]
     assert on.drift.history and all(np.array_equal(a, b) for a, b in zip(plain, wired))
+
+
+def test_serve_telemetry_off_on_bitwise_identical(card):
+    """tests/test_torch_serve.py's test on the card at a width whose Gram
+    splits k (N = 1000 over 2400 samples): two servers fit the pair
+    independently, serve the same requests and admit the same source
+    columns, with and without a registry and a tracer, bit for bit."""
+    from repro_torch.obs import MetricsRegistry, Tracer, use_registry, use_tracer
+    from repro_torch.serve import AlignerServer, synth_requests
+
+    rng = np.random.default_rng(30)
+    xs = rng.standard_normal((64, 1200)).astype(np.float32)
+    xt = (rng.standard_normal((64, 1200)) + 0.7).astype(np.float32)
+    assert gram.gram_split_plan(1000, gram.gram_tile_plan(1000, n=2400)["block"])["split"] > 1
+
+    def run():
+        srv = AlignerServer(capacity=4, min_bucket=4, max_bucket=32, device=card)
+        srv.fit_domain(("s", "t"), xs, xt, n_features=1000, m=16, seed=0)
+        reqs = synth_requests([("s", "t")], dim=64, n_requests=8, seed=8, cols_lo=2, cols_hi=8)
+        outs = [out for _, out in srv.serve(reqs)]
+        outs.append(srv.admit(("s", "t"), xs[:, :11], role="source").state.w_rf.cpu().numpy())
+        return outs
+
+    plain = run()
+    with use_registry(MetricsRegistry()), use_tracer(Tracer()):
+        instrumented = run()
+    for a, b in zip(plain, instrumented):
+        np.testing.assert_array_equal(a, b)
+
+
+def _bf16_gate(k: torch.Tensor, plain: torch.Tensor) -> bool:
+    """One bf16 ULP of the larger plus fp32's 2e-5 (near a zero of cos an
+    fp32 phase's rounding moves a tiny value by more than its own ULP)."""
+    k, plain = k.float(), plain.float()
+    mag = torch.maximum(k.abs(), plain.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    return bool(((k - plain).abs() <= ulp + 2e-5).all())
+
+
+@pytest.mark.parametrize("p,n,nf", [(16, 64, 32), (33, 170, 77), (128, 128, 128), (7, 300, 130),
+                                    (2048, 3612, 4096)])
+def test_rff_bf16_kernel_matches_plain(card, p, n, nf):
+    """K1's bf16 kernel (tests/test_kernels.py:15's shapes and the smoke's):
+    bf16 Sigma within one bf16 ULP plus 2e-5 of plain, one launch."""
+    rng = np.random.default_rng(p * n)
+    x = torch.tensor((rng.normal(size=(p, n)) / np.sqrt(p)).astype(np.float32),
+                     device=card).bfloat16()
+    om = torch.tensor(rng.normal(size=(nf, p)).astype(np.float32), device=card).bfloat16()
+    before = rff.LAUNCHES["rff_bf16"]
+    out = ops.rff(x, om)
+    assert rff.LAUNCHES["rff_bf16"] == before + 1
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (2 * nf, n)
+    assert _bf16_gate(out, rff.rff_plain(x, om))
+
+
+@pytest.mark.parametrize("two_n,n", [(64, 128), (96, 210), (128, 64), (32, 500), (2000, 3612),
+                                     (130, 797)])
+def test_centered_gram_bf16_kernel_matches_plain(card, two_n, n):
+    """K8 on bf16 Sigma (tests/test_kernels.py:29's shapes, the smoke's 2N =
+    2000, a ragged one): fp32 G within 1e-5 of G / max|G| of plain, or no
+    farther from the float64 answer than plain; exactly symmetric."""
+    rng = np.random.default_rng(two_n + n)
+    sig = torch.tensor((rng.normal(size=(two_n, n)) * 0.03 + 0.01).astype(np.float32),
+                       device=card).bfloat16()
+    before = centered_gram.LAUNCHES["centered_gram_bf16"]
+    g = ops.centered_gram(sig)
+    assert centered_gram.LAUNCHES["centered_gram_bf16"] == before + 1
+    assert g.dtype == torch.float32 and torch.equal(g, g.T)
+    plain = centered_gram.centered_gram_plain(sig)
+    c = sig.double() - centered_gram.row_mean(sig).double()
+    exact = c @ c.T
+    scale = float(exact.abs().max())
+    err = float((g - plain).abs().max()) / float(plain.abs().max())
+    d_k = float((g.double() - exact).abs().max()) / scale
+    d_p = float((plain.double() - exact).abs().max()) / scale
+    assert err <= 1e-5 or d_k <= d_p
 
 
 def test_probed_round_on_card_is_bit_for_bit_unprobed(card):

@@ -235,11 +235,92 @@ def test_rff_split_plan(nf, p, n):
     assert plan["ctas"] == plan["tiles"] * s
     if s > 1:
         assert plan["tiles"] < 132 and kps >= tkrff.MIN_SPLIT_KT
-        assert plan["workspace_bytes"] == 4 * s * nf * n
+        # the slices' phase sums, then their squared norms of rows and columns
+        assert plan["workspace_bytes"] == 4 * s * (nf * n + nf + n)
     if (nf, n) in ((1000, 300), (1000, 64)):  # a transform request's width at the paper's N
         assert s > 1 and plan["ctas"] <= 132
     if plan["tiles"] >= 132 or n_kt < 2 * tkrff.MIN_SPLIT_KT:
         assert s == 1 and plan["workspace_bytes"] == 0
+
+
+# (rows, k, centered): K5's and K2's Gram at N = 1000 over one chunk, K8's at
+# 2N = 2000 and 8192, K6's chunks at N = 4096, S = 4, and small edges
+GRAM_SPLITS = [(1000, 3840, False, 136, 4), (2000, 3612, True, 136, 4),
+               (8192, 3612, True, 2080, 1), (4096, 8192, False, 2080, 1), (65, 800, False, 3, 3),
+               (130, 795, True, 3, 3)]
+
+
+@pytest.mark.parametrize("rows,k,centered,tiles,split", GRAM_SPLITS)
+def test_gram_split_plan_depends_on_the_shape_alone(rows, k, centered, tiles, split):
+    """The tensor-core Gram's k split: about four waves of an H100's 132 SMs
+    where the tiles are fewer, at least 8 k-tiles a block, the blocks
+    covering k; a function of the shape alone (no card is asked), so a fit
+    rounds the same on any card, and its partial tiles are summed in split
+    order (csrc/gram_tf32.cuh), which the sum's bits depend on."""
+    plan = tgram.gram_split_plan(rows, k, centered=centered)
+    assert plan == tgram.gram_split_plan(rows, k, centered=centered)
+    n_kt = -(-k // tgram.GRAM_K_TILE)
+    s, kps = plan["split"], plan["kt_per_split"]
+    assert (plan["tiles"], s) == (tiles, split)
+    assert s * kps >= n_kt > (s - 1) * kps and (s == 1 or kps >= 8)
+    assert plan["workspace_bytes"] == (4 * tiles * s * 128 * 128 if s > 1 else 0)
+    if s == 1:
+        return
+    # the partials of the blocks, added in split order twice, and in reverse
+    rng = np.random.default_rng(rows + k)
+    c = torch.from_numpy(rng.normal(size=(64, n_kt * 32)).astype(np.float32))
+    parts = [c[:, 32 * kps * i:32 * kps * (i + 1)] @ c[:, 32 * kps * i:32 * kps * (i + 1)].T
+             for i in range(s)]
+
+    def added(order):
+        total = parts[order[0]]
+        for i in order[1:]:
+            total = total + parts[i]
+        return total
+
+    first = added(range(s))
+    assert torch.equal(first, added(range(s)))
+    assert not torch.equal(first, added(range(s)[::-1]))
+
+
+def _bf16_ulp(v: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 numbers at |v| (8 significant bits)."""
+    return np.ldexp(1.0, np.frexp(np.abs(v))[1] - 8)
+
+
+@pytest.mark.parametrize("p,n,nf", [(16, 64, 32), (33, 170, 77), (128, 128, 128), (7, 300, 130)])
+def test_rff_bf16_matches_reference(p, n, nf):
+    """K1 on bf16 X and Omega (tests/test_kernels.py:15-26's shapes): Sigma in
+    bf16 from bf16 products summed in fp32, cos and sin in fp32, rounded once,
+    as the reference's kernel (interpret mode); within its 2e-2 and within one
+    bf16 ULP plus fp32's 2e-5 of it (near a zero of cos, the two fp32 phases'
+    rounding moves a tiny value by more than its own bf16 ULP)."""
+    rng = np.random.default_rng(p * n)
+    x = rng.normal(size=(p, n)).astype(np.float32)
+    om = rng.normal(size=(nf, p)).astype(np.float32)
+    out = tops.rff(torch.from_numpy(x).bfloat16(), torch.from_numpy(om).bfloat16())
+    ref = jops.rff(jnp.asarray(x, jnp.bfloat16), jnp.asarray(om, jnp.bfloat16), block=64)
+    assert out.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert tuple(out.shape) == ref.shape == (2 * nf, n)
+    got, want = out.float().numpy(), np.asarray(ref, np.float32)
+    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+    ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    assert (np.abs(got - want) <= ulp + ATOL).all()
+
+
+@pytest.mark.parametrize("two_n,n", [(64, 128), (96, 210), (128, 64), (32, 500)])
+def test_centered_gram_bf16_matches_reference(two_n, n):
+    """K8 on bf16 Sigma (tests/test_kernels.py:29-40's shapes): G in fp32, mu
+    the row mean rounded to bf16, both operands widened less mu, as the
+    reference's kernel (interpret mode, mean-padded samples); within its 5e-2
+    and 1e-5 of G / max|G|."""
+    sig = np.random.default_rng(two_n + n).normal(size=(two_n, n)).astype(np.float32)
+    g_t = tops.centered_gram(torch.from_numpy(sig).bfloat16())
+    g_j = jops.centered_gram(jnp.asarray(sig, jnp.bfloat16), block=32)
+    assert g_t.dtype == torch.float32 and g_j.dtype == jnp.float32
+    g_j = np.asarray(g_j)
+    err = np.abs(g_t.numpy() - g_j).max() / np.abs(g_j).max()
+    assert err <= 1e-5 <= 5e-2
 
 
 # ---- K2/K3: the streamed Gram with Omega an operand -------------------------

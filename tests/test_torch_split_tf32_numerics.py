@@ -52,7 +52,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import kernels_math as jkm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.core.kernels_math import assemble_streamed_gram_ensemble  # noqa: E402
+from repro_torch.core.kernels_math import (  # noqa: E402
+    assemble_streamed_gram_ensemble, median_sigma,
+)
 from repro_torch.core.rff import draw_omega  # noqa: E402
 from repro_torch.kernels import centered_gram as tcg  # noqa: E402
 from repro_torch.kernels import rff as tkrff  # noqa: E402
@@ -108,6 +110,16 @@ def tf32_product(a: torch.Tensor, b: torch.Tensor, parts: int = 3, fold: int = 0
 
 
 EXACT_PHASE = 64.0  # featurize_tf32.cuh FT_EXACT_PHASE
+CANCEL = 5e-6 * 2.0 ** 20  # featurize_tf32.cuh FT_CANCEL
+
+
+def cancels(om: torch.Tensor, x: torch.Tensor, scale: float) -> torch.Tensor:
+    """featurize_tf32.cuh's bound: (N, n) True where |omega_f|_2 |x_c|_2 scale
+    exceeds FT_CANCEL, i.e. where the split products' 2^-20 of
+    sum_k |omega_fk x_kc| could reach a quarter of the 2e-5 gate."""
+    rn = om.double().square().sum(dim=1)
+    cn = x.double().square().sum(dim=0)
+    return rn[:, None] * cn[None, :] * scale ** 2 > CANCEL ** 2
 
 
 def fma_chain(om: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -139,18 +151,23 @@ def slice_phases(x, om, slices, parts=3, fold=FOLD):
             for k0 in range(0, om.shape[1], kps)]
 
 
-def featurize_model(x, om, scale, parts=3, exact_phase=EXACT_PHASE, fold=FOLD, slices=1):
+def featurize_model(x, om, scale, parts=3, exact_phase=EXACT_PHASE, fold=FOLD, slices=1,
+                    cancel=True, chain=None):
     """(C, S) of one draw: Z^T = X^T Omega^T on the modelled tensor cores,
-    folded every stage, phases of at least ``exact_phase`` recomputed as the
-    FMA chain.  ``slices`` > 1: split over p (K1 at a request's width), the
-    slices' phase sums added in slice order in fp32, then the recompute from
-    the whole sum, as the finishing pass takes it."""
+    folded every stage, phases of at least ``exact_phase`` and (``cancel``)
+    those :func:`cancels` flags recomputed as the FMA chain (``chain``: that
+    chain, if already taken).  ``slices`` > 1: split over p (K1 at a
+    request's width), the slices' phase sums added in slice order in fp32,
+    then the recompute from the whole sum, as the finishing pass takes it."""
     parts_z = slice_phases(x, om, slices, parts, fold)
     z = parts_z[0]
     for zs in parts_z[1:]:
         z = z + zs
     if exact_phase is not None:
-        z = torch.where(z.abs() >= exact_phase, fma_chain(om, x), z)
+        take = z.abs() >= exact_phase
+        if cancel:
+            take |= cancels(om, x, scale)
+        z = torch.where(take, fma_chain(om, x) if chain is None else chain, z)
     return torch.cos(z) * scale, torch.sin(z) * scale
 
 
@@ -296,22 +313,58 @@ def test_split_recomputes_from_the_whole_phase(nf, p, n, xs, slices):
 
 @pytest.mark.parametrize("slices", [1, 2])
 def test_split_products_under_cancellation(slices):
-    """What the recompute of |z| >= 64 leaves, split over p or not: a phase
-    under 64 summed from Cauchy terms of ~1e4 cancels, and the split
-    products round at 2^-20 of sum_k |omega_k x_k| where fp32's FMA chain
-    rounds at 2^-24.  A few such phases land beyond 2e-5 of the chain (the
-    card's K1 does so against plain: chip_smoke.py's K1 laplace check), none
-    beyond 2e-5 plus 2^-20 of the terms' magnitudes (times 1/sqrt(N))."""
+    """The recompute's rule under cancellation, split over p or not: a phase
+    under 64 summed from Cauchy terms of ~1e4 cancels, and the split products
+    round at 2^-20 of sum_k |omega_k x_k| where fp32's FMA chain rounds at
+    2^-24.  Recomputing |z| >= 64 alone leaves a few such phases beyond 2e-5
+    of the chain (the card's K1 did so against plain before the bound); the
+    bound |omega_f| |x_c| takes them as well, and every element holds 2e-5
+    of the chain."""
     nf, p, n = 200, 128, 2048
     x = torch.from_numpy(np.random.default_rng(nf + p).normal(size=(p, n)).astype(np.float32))
     om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device="cpu")
     scale = tkrff.inv_sqrt(nf)
     zc = fma_chain(om, x)
     chain = torch.cat([torch.cos(zc), torch.sin(zc)]) * scale
-    diff = (torch.cat(featurize_model(x, om, scale, slices=slices)) - chain).abs()
-    terms = (om.abs().double() @ x.abs().double()) * scale * 2.0 ** -20
-    assert float(diff.max()) > ATOL
-    assert bool((diff.double() <= ATOL + torch.cat([terms, terms])).all())
+
+    def diff(cancel):
+        model = featurize_model(x, om, scale, slices=slices, cancel=cancel, chain=zc)
+        return float((torch.cat(model) - chain).abs().max())
+
+    assert diff(cancel=True) <= ATOL < diff(cancel=False)
+
+
+def _office_like(n_s=2817, n_t=795, dim=2048, shift=0.8, seed=0):
+    """X (dim, n_s + n_t) drawn by ``make_domains``' recipe at the smoke's
+    Office-31 A->W sizes (chip_smoke.py: ``make_domains(2, 2817, dim=2048)``,
+    795 target columns), less its mild rotations, which keep every distance
+    and norm but for the offset's cross term and cost a minute at dim 2048."""
+    rng = np.random.default_rng(seed)
+    protos = rng.normal(size=(5, dim))
+    protos *= 3.0 / np.linalg.norm(protos, axis=1, keepdims=True)
+    cols = []
+    for n in (n_s, n_t):
+        scale = 1.0 + shift * rng.uniform(-0.4, 0.4, size=(dim,))
+        offset = 1.2 * shift * rng.normal(size=(dim,))
+        y = rng.integers(0, 5, size=n)
+        cols.append((protos[y] + 0.6 * rng.normal(size=(n, dim))) * scale + offset)
+    return torch.from_numpy(np.concatenate(cols).T.astype(np.float32))
+
+
+def test_cancellation_bound_spares_gaussian_phases():
+    """The bound takes no Gaussian phase at the median-heuristic sigma on data
+    like the smoke's (:func:`_office_like`): |omega_f| |x_c| stays under two
+    thirds of the threshold at K1's, K5's and K7's widths, so no tile there
+    starts to recompute; Cauchy draws exceed it in every phase."""
+    x = _office_like()
+    sigma = median_sigma(x)
+    for nf, ens in ((1000, 1), (4096, 1), (4096, 4)):
+        scale = tgram.feature_scale(nf, ens)
+        for kind, share in (("gauss", 0.0), ("laplace", 1.0)):
+            om = draw_omega(0, nf, 2048, sigma=sigma, kernel=kind, device="cpu")
+            assert float(cancels(om, x, scale).double().mean()) == share
+            if kind == "gauss":
+                assert float(cancels(om, x, 1.5 * scale).double().mean()) == 0.0
 
 
 # (N, p, n, S, sigma, kind, x scale)
@@ -341,13 +394,15 @@ def test_split_gram_holds_the_gate(nf, p, n, ens, sigma, kind, xs):
 @pytest.mark.parametrize("stage", ["featurize", "gram"])
 def test_one_tf32_product_misses_the_gate(stage):
     """Why three products: one tf32 rounding of each operand leaves ~2^-11 of
-    every term, far beyond 2e-5 at unit-scale phases; the split leaves ~2^-22."""
+    every term, far beyond 2e-5 at unit-scale phases; the split leaves ~2^-22.
+    The featurize is modelled without the cancellation bound, which on this
+    unscaled X takes every phase to the FMA chain and hides the products."""
     nf, p, n = 160, 256, 700
     x = torch.from_numpy(_x(p, n, seed=5, scale=1.0 if stage == "featurize" else 0.2))
     if stage == "featurize":
         om = fused_omega_block_plain(3, nf, p, device="cpu")
         plain = tkrff.rff_plain(x, om)
-        errs = [float((torch.cat(featurize_model(x, om, tkrff.inv_sqrt(nf), parts))
+        errs = [float((torch.cat(featurize_model(x, om, tkrff.inv_sqrt(nf), parts, cancel=False))
                        - plain).abs().max()) for parts in (3, 1)]
     else:
         ell = torch.from_numpy(_ell(n))
