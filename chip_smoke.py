@@ -60,11 +60,16 @@ Phases (any failed check raises, and the run exits non-zero):
      bf16 operands as the reference takes them: K1 at N = 4096, p = 2048, n =
      3612 in bf16 (one bf16 ULP of plain + 2e-5) and K8 on that Sigma (2N =
      8192; fp32 G under K8's gate and float64 rule, mu rounded to bf16 as
-     the reference's), each timed beside its bound and
-     ``torch.matmul`` in bf16; the ptxas line (registers, spills) of
-     each tensor-core kernel of the ``rff``, ``rff_gram_stream_fused`` and
-     ``centered_gram`` libraries (K1-K3, K5-K8, bf16 included) and their
-     HGMMA count (``cuobjdump -sass``): no spills, HGMMA present;
+     the reference's), also at 2N = 2000 (its k split 4 ways) and at
+     ``K8_EDGES`` on K1's bf16 Sigma (nearly constant rows, against float64),
+     two identical K8-bf16 calls at 2N = 2000 and 8192 bit for bit (gated),
+     each timed beside its bound (K8-bf16: one bf16 product; its route's
+     four and the split-TF32 route's beside it) and ``torch.matmul`` in bf16; the ptxas
+     line (registers, spills) of each tensor-core kernel of the ``rff``,
+     ``rff_gram_stream_fused`` and ``centered_gram`` libraries (K1-K3, K5-K8,
+     bf16 included) and their HGMMA count (``cuobjdump -sass``): no spills,
+     HGMMA present; bf16 HGMMA in K1-bf16's and K8-bf16's kernels and no
+     tf32 HGMMA on K8-bf16's path;
   6. small fit: the card's fit equals the CPU plain path's (eigenvalues rtol
      1e-2, subspace projector within 1e-3); ``draw_omega`` (the materialized
      Omega, gauss and laplace, sigma != 1) gives the card the CPU's Omega
@@ -721,6 +726,34 @@ def ptxas_entries(log_text: str, names=("",)) -> list[str]:
         elif cur and ("spill" in line or "registers" in line):
             out[-1] += " | " + line.split(":", 1)[-1].strip()
     return out
+
+
+def sass_functions(sass_text: str) -> dict[str, list[str]]:
+    """``cuobjdump -sass`` output (``_build.sass``) by function: each mangled
+    name to its instruction lines, their spacing collapsed (cuobjdump pads
+    them by the name's length, so two template signatures of one code
+    compare equal)."""
+    funcs, body = {}, None
+    for line in sass_text.splitlines():
+        if "Function : " in line:
+            body = funcs.setdefault(line.split("Function : ", 1)[1].strip(), [])
+        elif body is not None and "/*" in line:
+            body.append(" ".join(line.split()))
+    return funcs
+
+
+def hgmma_kinds(funcs: dict, names) -> dict:
+    """The HGMMA instructions by shape and type (``64x128x16.F32.BF16``) in
+    the SASS functions (``sass_functions``) whose mangled names contain one
+    of ``names``."""
+    kinds = {}
+    for fn, body in funcs.items():
+        if any(k in fn for k in names):
+            for line in body:
+                if "HGMMA." in line:
+                    kind = line.split("HGMMA.", 1)[1].split()[0]
+                    kinds[kind] = kinds.get(kind, 0) + 1
+    return kinds
 
 
 def serve_phase(torch, dev, doms0, counters, fed) -> tuple[dict, dict]:
@@ -2761,6 +2794,7 @@ def main() -> int:
     log(f"[card] {smi}")
 
     # ---- 1. build ---------------------------------------------------------
+    t_script = time.perf_counter()
     secs = _build.build_all()
     log(f"[build] {len(_build.SOURCES)} libraries in {secs:.1f} s")
     for name, out in _build.ptxas_log.items():
@@ -3299,6 +3333,7 @@ def main() -> int:
     # bf16 operands, as the reference's K1 and K8 take them (its tests sweep
     # them): K1 at N = 4096 on all of X, K8 on that Sigma (2N = 8192); each
     # against plain and timed beside its bound and torch.matmul in bf16
+    t_bf16 = time.perf_counter()
     nf = 4096
     om16 = prng.fused_omega(SEED, nf, P, sigma=sigma, device=dev).bfloat16()
     x16 = x.bfloat16()
@@ -3321,43 +3356,90 @@ def main() -> int:
     log(f"[K1-bf16] N={nf} p={P} n={n}: {units}; kernel {report['K1-bf16']['ms']:.4f} ms, plain "
         f"{report['K1-bf16']['plain_ms']:.4f} ms, torch.matmul bf16 "
         f"{report['K1-bf16']['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, bf16)")
-    del om16
     rows = 2 * nf
     if centered.centered_gram(s16).dtype != torch.float32:
         raise AssertionError("K8 bf16: G is not float32")
     k8_bf16 = centered_check(s16, f"bf16 2N={rows}", exact=True)
     err = k8_bf16["G"]
+    # the function's work: one product of bf16 operands over the upper
+    # tiles; beside it the route's four bf16 products and split-TF32's
     k8_work = (rows * (rows + 1) * n, rows * n * 2 + rows * rows * 4)
-    b_ms, b_by = bound_ms(*k8_work, peak_flops=PEAK_SPLIT_TF32_FLOPS)
+    b_ms, b_by = bound_ms(*k8_work, peak_flops=PEAK_BF16_FLOPS)
+    route_ms, _ = bound_ms(4 * k8_work[0], k8_work[1], peak_flops=PEAK_BF16_FLOPS)
+    tf32_ms, _ = bound_ms(*k8_work, peak_flops=PEAK_SPLIT_TF32_FLOPS)
+    # two identical calls bit for bit, with the k split in one piece (2N =
+    # 8192) and in four (2N = 2000: K1's bf16 Sigma on the first 1000 rows
+    # of Omega)
+    s16_small = rff.rff(x16, om16[:1000].contiguous())
+    repeats = {}
+    for sig in (s16, s16_small):
+        r = sig.shape[0]
+        if not torch.equal(centered.centered_gram(sig), centered.centered_gram(sig)):
+            raise AssertionError(f"K8 bf16 2N={r}: two identical calls differ")
+        repeats[f"2N={r}"] = dict(centered.split_plan(r, n, bf16=True), gated=True)
+    small = centered_check(s16_small, f"bf16 2N={s16_small.shape[0]}", exact=True)
+    small.update(ms=cuda_ms(torch, lambda: centered.centered_gram(s16_small), 10),
+                 library_ms=cuda_ms(torch, lambda: torch.matmul(s16_small, s16_small.T), 10))
+    del om16
+    # K8_EDGES on bf16 Sigma (K1's bf16 route on bf16 X and Omega): nearly
+    # constant rows, held to the float64 answer
+    k8_bf16_edges = []
+    for nf_e, pe, ne in K8_EDGES:
+        xe = (x if ne > N_T else xt)[:pe, :ne].contiguous().bfloat16()
+        sig = rff.rff(xe, draw_omega(SEED, nf_e, pe, sigma=sigma, device=dev).bfloat16())
+        what = f"bf16 2N={2 * nf_e} p={pe} n={ne} sigma={sigma:.4g}"
+        res = centered_check(sig, what, exact=True)
+        k8_bf16_edges.append(dict(two_N=2 * nf_e, p=pe, n=ne, sigma=sigma, **res))
+        log(f"[K8-bf16] edge {what}: G/max {res['G']:.3g}; from float64: kernel "
+            f"{res['G_kernel_vs_exact']:.3g}, plain {res['G_plain_vs_exact']:.3g}")
+    # rows of equal small elements (2^-8 in a tenth of each row, 1.1171875
+    # elsewhere): c = 2^-8 - mu is a tie between two bf16 values, so its lo
+    # part is the largest there is and repeats along the row, held to float64
+    rt_, nt_ = 2000, 3610
+    g_t = torch.Generator(device=dev).manual_seed(SEED)
+    places = torch.rand((rt_, nt_), generator=g_t, device=dev).argsort(dim=1)[:, :nt_ // 10]
+    ties = torch.full((rt_, nt_), 1.1171875, device=dev).scatter_(1, places, 2.0 ** -8)
+    what = f"bf16 2N={rt_} n={nt_} ties"
+    k8_bf16_ties = dict(two_N=rt_, n=nt_, **centered_check(ties.bfloat16(), what, exact=True))
+    del ties, places
+    log(f"[K8-bf16] {what}: {k8_bf16_ties}")
     report["K8-bf16"] = dict(
         name="centered_gram (bf16 Sigma)", route="cuda",
         source="src/repro_torch/kernels/csrc/centered_gram.cu",
-        headers=["src/repro_torch/kernels/csrc/gram_tf32.cuh",
+        headers=["src/repro_torch/kernels/csrc/gram_bf16.cuh",
+                 "src/repro_torch/kernels/csrc/gram_tf32.cuh",
                  "src/repro_torch/kernels/csrc/hopper.cuh"],
         replaces="src/repro/kernels/centered_gram.py:38",
-        tolerance=f"atol {CENTERED_ATOL} on G/max|G|", shape=f"2N={rows} n={n} bf16",
-        max_abs_err=err, **{k: v for k, v in k8_bf16.items() if k != "G"},
+        tolerance=f"atol {CENTERED_ATOL} on G/max|G|, or the float64 rule",
+        shape=f"2N={rows} n={n} bf16", max_abs_err=err,
+        **{k: v for k, v in k8_bf16.items() if k != "G"},
         ms=cuda_ms(torch, lambda: centered.centered_gram(s16), 5),
         plain_ms=cuda_ms(torch, lambda: centered.centered_gram_plain(s16), 5),
         library_ms=cuda_ms(torch, lambda: torch.matmul(s16, s16.T), 5), bound_ms=b_ms,
-        bound_by=b_by, **product_bounds(*k8_work))
+        bound_by=b_by, bound_route_ms=route_ms, bound_split_tf32_ms=tf32_ms,
+        bit_identical_repeat=repeats,
+        small=dict(shape=f"2N={s16_small.shape[0]} n={n} bf16", **small), edges=k8_bf16_edges,
+        ties=k8_bf16_ties)
     log(f"[K8-bf16] 2N={rows} n={n}: {k8_bf16}; kernel {report['K8-bf16']['ms']:.3f} ms, "
         f"plain {report['K8-bf16']['plain_ms']:.3f} ms, torch.matmul bf16 (uncentred) "
-        f"{report['K8-bf16']['library_ms']:.3f} ms, bound {b_ms:.3f} ms split-TF32")
-    del s16, x16
+        f"{report['K8-bf16']['library_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}, bf16) "
+        f"[four bf16 products {route_ms:.3f} ms, split-TF32 {tf32_ms:.3f} ms]; 2N=2000 {small}; "
+        f"two identical calls bit for bit at 2N=8192 and 2000 ({repeats})")
+    del s16, x16, s16_small
     torch.cuda.synchronize()
+    t_bf16 = time.perf_counter() - t_bf16
     # the tensor-core kernels of K1-K3, K5-K8: registers, spills, HGMMA in the
     # SASS (featurize_tf32_kernel<false> draws Omega, <true> loads it; K1's
     # split over p ends in featurize_finish_kernel; featurize_bf16_kernel is
-    # K1's bf16 route; gram_tf32_kernel<true, true> K8's on bf16 Sigma)
+    # K1's bf16 route; gram_bf16_kernel K8's on bf16 Sigma)
     for lib, key, entries in (("rff", "K7", ("featurize_tf32_kernelILb0",
                                              "featurize_tf32_kernelILb1",
                                              "featurize_finish_kernel", "featurize_bf16_kernel")),
                               ("rff_gram_stream_fused", "K5",
                                ("featurize_tf32_kernelILb0", "featurize_tf32_kernelILb1",
                                 "gram_tf32_kernel")),
-                              ("centered_gram", "K8", ("gram_tf32_kernelILb1ELb0",
-                                                       "gram_tf32_kernelILb1ELb1"))):
+                              ("centered_gram", "K8", ("gram_tf32_kernelILb1E",
+                                                       "gram_bf16_kernel"))):
         lines = ptxas_entries(_build.ptxas(lib), entries)
         hgmma = sum("HGMMA" in line for line in _build.sass(lib).splitlines())
         for line in lines:
@@ -3379,6 +3461,16 @@ def main() -> int:
         report["K1-bf16"][field] = report["K7"][field]
     for field in ("ptxas_centered_gram", "hgmma_centered_gram"):
         report["K8-bf16"][field] = report["K8"][field]
+    # the bf16 routes on the bf16 tensor cores: their kernels' HGMMA by type,
+    # none of it tf32 on K8-bf16's path (gram_bf16_kernel and the split's sum)
+    for key, lib, path in (("K1-bf16", "rff", ("featurize_bf16_kernel",)),
+                           ("K8-bf16", "centered_gram",
+                            ("gram_bf16_kernel", "gram_split_reduce_kernel"))):
+        kinds = hgmma_kinds(sass_functions(_build.sass(lib)), path)
+        log(f"[{key}] HGMMA by type on its path: {kinds}")
+        if not any(".BF16" in k for k in kinds) or any(".TF32" in k for k in kinds):
+            raise AssertionError(f"{key}: expected bf16 HGMMA and no tf32 on its path, {kinds}")
+        report[key]["hgmma_by_type"] = kinds
 
     # ---- 6. small fit: card vs the CPU plain path --------------------------
     small = dict(n_features=96, m=8, gamma=GAMMA, sigma=sigma, w_rf=f"fused:{SEED}",
@@ -4064,6 +4156,8 @@ def main() -> int:
     # ---- 11. K11 ------------------------------------------------------------
     from repro_torch.kernels import flash_attention as fa
 
+    log(f"[time] phases 1-10 {time.perf_counter() - t_script:.1f} s (the bf16 statistics' "
+        f"checks {t_bf16:.1f} s of them)")
     t_phase = time.perf_counter()
     k11_ptxas = ptxas_entries(_build.ptxas("flash_attention"))
     for line in k11_ptxas:

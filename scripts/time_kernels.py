@@ -26,6 +26,18 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
               (``device_profile.profile_calls``): each call's device time
               by kernel, the split's sum (``gram_split_reduce_kernel``,
               where the checkout has one) apart from the products.
+  bf16        the bf16 dense statistics: K1-bf16 (N = 4096 on all 3612
+              columns, bf16 X and Omega from ``fused_omega``) and K8-bf16 on
+              its Sigma (2N = 8192) and on the first 1000 rows of Omega's
+              (2N = 2000), each beside bf16 ``torch.matmul`` (Omega X; Sigma
+              Sigma^T); the fp32 K8 (2N = 2000, 8192), K2 and K5 (N = 1000)
+              beside them; a digest of the SASS of each fp32 Gram kernel
+              (``gram_tf32_kernel``, in ``centered_gram`` and
+              ``rff_gram_stream_fused``, its name left out); and the launch
+              floor: an empty kernel (``torch.cuda._sleep(0)``) beside K9 at
+              (1024, 1025) into 64 edges and K10 at (5, 1024), as
+              ``chip_smoke.py`` times those two (``timed``, the inputs cycled
+              past the L2).
   k11b        K11's backward (``flash_attention_backward``, bf16, causal) at
               ``chip_smoke.py``'s two training shapes (``K11B_TIMED``),
               (8, 9, 3, 2048, 64) and (1, 16, 8, 4096, 128), beside the plain backward and
@@ -43,6 +55,7 @@ one card.
     python3 scripts/time_kernels.py k1
     python3 scripts/time_kernels.py all
     python3 scripts/time_kernels.py split
+    python3 scripts/time_kernels.py bf16
     python3 scripts/time_kernels.py k11b
 
 Prints one JSON object: milliseconds per call (CUDA events, after a warm-up
@@ -140,6 +153,70 @@ def split(cs, torch, x, ell, sigma, out) -> None:
         out[f"{key}_kernels_ms"] = profile_calls(fn, 5, 8)["top_kernels_ms_per_call"]
 
 
+def sass_digest(cs, lib: str, name: str) -> dict:
+    """sha256 of each SASS function of ``lib`` whose mangled name contains
+    ``name``, over its instructions alone (``chip_smoke.sass_functions``)."""
+    import hashlib
+
+    from repro_torch.kernels import _build
+
+    return {fn: hashlib.sha256("\n".join(body).encode()).hexdigest()[:16]
+            for fn, body in cs.sass_functions(_build.sass(lib)).items() if name in fn}
+
+
+def bf16(cs, torch, x, ell, sigma, out) -> None:
+    import itertools
+
+    from repro_torch.core.rff import draw_omega
+    from repro_torch.fleet import Topology
+    from repro_torch.kernels import centered_gram as centered
+    from repro_torch.kernels import prng, quantize, rff
+    from repro_torch.kernels import rff_gram_stream as gram
+    from repro_torch.kernels import segment_reduce as seg_k
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = x.device
+    om16 = prng.fused_omega(cs.SEED, 4096, cs.P, sigma=sigma, device=dev).bfloat16()
+    x16 = x.bfloat16()
+    out["K1_bf16_ms"] = cs.cuda_ms(torch, lambda: rff.rff(x16, om16), 20)
+    out["K1_bf16_library_ms"] = cs.cuda_ms(torch, lambda: torch.matmul(om16, x16), 20)
+    for rows, om in ((8192, om16), (2000, om16[:1000].contiguous())):
+        s16 = rff.rff(x16, om)
+        out[f"K8_bf16_{rows}_ms"] = cs.cuda_ms(torch, lambda: centered.centered_gram(s16), 5)
+        out[f"K8_bf16_{rows}_library_ms"] = cs.cuda_ms(torch, lambda: torch.matmul(s16, s16.T), 5)
+    del om16, x16, s16
+    for nf in (1000, 4096):
+        sig = rff.rff(x, draw_omega(cs.SEED, nf, cs.P, sigma=sigma, device=dev))
+        out[f"K8_{2 * nf}_ms"] = cs.cuda_ms(torch, lambda: centered.centered_gram(sig), 5)
+        del sig
+    om = draw_omega(cs.SEED, 1000, cs.P, sigma=sigma, device=dev)
+    out["K2_ms"] = cs.cuda_ms(torch, lambda: gram.rff_gram_stream(x, om, ell), 5)
+    kw = dict(n_features=1000, seed=cs.SEED, ensemble=1, sigma=sigma)
+    out["K5_ms"] = cs.cuda_ms(torch, lambda: gram.rff_gram_stream_fused(x, ell, **kw), 5)
+    out["sass_gram_tf32"] = {lib: sass_digest(cs, lib, "gram_tf32_kernel")
+                             for lib in ("centered_gram", "rff_gram_stream_fused")}
+    # the launch floor beside K9's and K10's small shapes
+    out["empty_launch_ms"] = cs.timed(torch, lambda: torch.cuda._sleep(0), 200)["ms"]
+    k, d, e = 1024, 1025, 64
+    seg = torch.as_tensor(Topology.uniform(k, e).segment_ids, device=dev)
+    g = torch.Generator(device=dev).manual_seed(k + d)
+    copies = [(torch.randn((k, d), generator=g, device=dev), seg,
+               (torch.rand((k,), generator=g, device=dev) < 0.8).float())
+              for _ in range(max(2, -(-cs.L2_FLUSH_BYTES // ((k * d + 2 * k + e * d) * 4))))]
+    turn = itertools.cycle(copies)
+    out["K9_1024_1025_ms"] = cs.timed(torch, lambda: seg_k.segment_reduce(*next(turn), e), 50)["ms"]
+    rows, d = 5, 1024
+    copies = []
+    for _ in range(max(1, -(-cs.L2_FLUSH_BYTES // (12 * rows * d + 4 * rows)))):
+        xq = torch.randn((rows, d), generator=g, device=dev)
+        copies.append((xq, torch.rand((rows, d), generator=g, device=dev),
+                       quantize.quant_scale(xq, 127)))
+    turn = itertools.cycle(copies)
+    out["K10_5_1024_ms"] = cs.timed(torch, lambda: quantize.fake_quant(*next(turn), qmax=127),
+                                    200)["ms"]
+
+
 def k11b(cs, torch, out) -> None:
     from repro_torch.kernels import flash_attention as fa
 
@@ -152,7 +229,8 @@ def k11b(cs, torch, out) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "all", "split", "k11b"))
+    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "all", "split", "bf16",
+                                       "k11b"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -177,7 +255,8 @@ def main() -> int:
                      device=dev)
     ell = ell_vector(cs.N_S, cs.N_T, device=dev)
     sigma = median_sigma(x)
-    families = {"seed_fused": seed_fused, "operand": operand, "k1": k1, "split": split}
+    families = {"seed_fused": seed_fused, "operand": operand, "k1": k1, "split": split,
+                "bf16": bf16}
     for name in ("seed_fused", "operand", "k1") if args.family == "all" else (args.family,):
         families[name](cs, torch, x, ell, sigma, out)
     print(json.dumps(out))

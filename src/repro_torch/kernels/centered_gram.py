@@ -3,19 +3,21 @@
 Port of ``repro.kernels.centered_gram.centered_gram_pallas``, the statistics
 of the dense RF-TCA fit (``mode="dense"``).  As in the reference, the row mean
 mu is a torch reduction outside the kernel; on a CUDA tensor
-:func:`centered_gram` launches ``csrc/centered_gram.cu`` (the tensor-core
-Gram of ``csrc/gram_tf32.cuh``: three tf32 products a product), which
-subtracts mu from both operands as tiles are loaded, masks the ragged sample
-count after that and computes the upper output tiles only (mirrored by the
-split's sum where k is split, here otherwise), its k split from the shape
-alone and summed in a fixed order
-(``rff_gram_stream.gram_split_plan``); on a CPU tensor it runs
-:func:`centered_gram_plain`.  Sigma may be float32 or bfloat16, and G is
-float32 either way, as the reference's: a bfloat16 Sigma is loaded as such
-and widened in the kernel, mu being its row mean rounded to bfloat16.
-``LAUNCHES`` counts the kernel launches.
+:func:`centered_gram` launches ``csrc/centered_gram.cu``, which subtracts mu
+from both operands as tiles are loaded, masks the ragged sample count after
+that and computes the upper output tiles only, its k split from the shape
+alone and summed in a fixed order (``rff_gram_stream.gram_split_plan``).
+float32 Sigma takes ``csrc/gram_tf32.cuh`` (three tf32 products a product;
+the upper tiles mirrored by the split's sum where k is split, here
+otherwise); bfloat16 Sigma takes ``csrc/gram_bf16.cuh`` (Sigma less mu in
+two bfloat16 parts, four bfloat16 products a product; the kernel or the
+split's sum writes both triangles), mu being its row mean rounded to
+bfloat16.  G is float32 either way, as the reference's.  On a CPU tensor it
+runs :func:`centered_gram_plain`.  ``LAUNCHES`` counts the kernel launches.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -43,6 +45,13 @@ def centered_gram_plain(sigma: torch.Tensor) -> torch.Tensor:
     return c @ c.T
 
 
+def split_plan(rows: int, n: int, bf16: bool) -> dict:
+    """The k split the kernel takes for (rows, n) Sigma: ``gram_split_plan``
+    at the library's k-tile for the dtype (builds the library)."""
+    k_tile = _build.fn("centered_gram", "rt_centered_gram_k_tile", [_build.I32])(int(bf16))
+    return gram_split_plan(rows, n, centered=True, k_tile=k_tile)
+
+
 def centered_gram(sigma: torch.Tensor) -> torch.Tensor:
     """Sigma H Sigma^T (2N, 2N) fp32 from Sigma (2N, n), float32 or bfloat16."""
     if sigma.device.type == "cpu":
@@ -54,22 +63,22 @@ def centered_gram(sigma: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"sigma: expected contiguous float32 or bfloat16 (2N, n), got "
                          f"{sigma.dtype} {tuple(sigma.shape)}")
     rows, n = sigma.shape
-    out = torch.zeros((rows, rows), dtype=torch.float32, device=sigma.device)
-    if rows == 0 or n == 0:
-        return out
     bf16 = sigma.dtype == torch.bfloat16
+    if rows == 0 or n == 0:
+        return torch.zeros((rows, rows), dtype=torch.float32, device=sigma.device)
+    out = torch.empty((rows, rows), dtype=torch.float32, device=sigma.device)
     mu = (row_mean(sigma) if bf16 else sigma.mean(dim=1)).reshape(rows).contiguous()
     sr = tma_rows(sigma)
-    plan = gram_split_plan(rows, n, centered=True)
+    plan = split_plan(rows, n, bf16)
     ws = split_workspace(plan, sigma.device)
+    whole = ctypes.c_int(0)
     vp, i32 = _build.VP, _build.I32
     f = _build.fn("centered_gram", "rt_centered_gram",
-                  [vp, _build.I64, i32, vp, i32, i32, vp, i32, i32, vp, vp])
+                  [vp, _build.I64, i32, vp, i32, i32, vp, i32, i32, vp, vp, vp])
     with torch.cuda.device(sigma.device):
         err = f(sr.data_ptr(), sr.shape[1], int(bf16), mu.data_ptr(), rows, n, out.data_ptr(),
                 plan["split"], plan["kt_per_split"], None if ws is None else ws.data_ptr(),
-                _build.stream_ptr())
+                ctypes.addressof(whole), _build.stream_ptr())
     _build.check(err, "centered_gram")
     LAUNCHES["centered_gram_bf16" if bf16 else "centered_gram"] += 1
-    # a split's sum writes G mirrored; otherwise the upper tiles are mirrored here
-    return mirror_upper(out) if plan["split"] == 1 else out
+    return out if whole.value else mirror_upper(out)

@@ -72,12 +72,8 @@
 //     an H100) and the sum takes 0.035-0.039 ms (PERF.md); a last-block sum
 //     inside the Gram kernel held each tile's last SM once a wave and was
 //     slower.  With split = 1 each tile is read, added to and written back,
-//     in a fixed order.
-//   - bf16 Sigma (kBf16, the centered Gram only): TMA loads both tiles as
-//     bf16 (32 k x 128 rows, unswizzled) into a staging area of the stage;
-//     the splitters widen A into the fp32 tile the consumers read and B less
-//     mu into its hi and lo tiles, and the product runs as for fp32.  mu is
-//     the wrapper's row mean rounded to bf16, as the reference takes it.
+//     in a fixed order.  The centered Gram on bf16 Sigma is gram_bf16.cuh's,
+//     on the bf16 tensor cores; it shares the split's sum.
 #pragma once
 #include <cstdint>
 #include <cuda.h>
@@ -89,20 +85,12 @@ namespace rt {
 
 constexpr int GX_T = 128;  // output tile edge
 constexpr int GX_BK = 32;  // k a stage
+constexpr int GX_STAGES = 4;
 constexpr int GX_TILE_BYTES = GX_T * GX_BK * 4;  // 16 KB
-constexpr int GX_BF16_TILE_BYTES = GX_TILE_BYTES / 2;  // a tile as TMA lands it in bf16
+constexpr int GX_STAGE_BYTES = 3 * GX_TILE_BYTES;  // A, B (hi in place), B lo
+// + the landed, full and empty barriers
+constexpr int GX_SMEM = 1024 + GX_STAGES * GX_STAGE_BYTES + 24 * GX_STAGES;
 constexpr int GX_SPLITTERS = 96;  // producer warps 1-3
-
-// the ring: a stage holds A, B (hi in place), B lo (fp32), and for bf16
-// Sigma the two bf16 tiles as TMA lands them (three stages then fit)
-template <bool kBf16>
-struct GxRing {
-  static constexpr int stages = kBf16 ? 3 : 4;
-  static constexpr int stage_bytes = 3 * GX_TILE_BYTES + (kBf16 ? 2 * GX_BF16_TILE_BYTES : 0);
-  // + the landed, full and empty barriers
-  static constexpr int smem = 1024 + stages * stage_bytes + 24 * stages;
-  static_assert(stage_bytes % 1024 == 0, "stages must keep the swizzle phase");
-};
 
 struct GxArgs {
   int nf, n_kt, kt_per_split, split;
@@ -152,15 +140,11 @@ __device__ __forceinline__ void gram_tile(int q, int nf, int& which, int& bi, in
 }
 
 // kCentered: one product (G_cc's slot) of the (nf, K) matrix with itself,
-// both operands less shift_c (mu, draws = 1), columns >= k_valid masked;
-// kBf16 (centered only): that matrix in bf16
-template <bool kCentered, bool kBf16 = false>
+// both operands less shift_c (mu, draws = 1), columns >= k_valid masked
+template <bool kCentered>
 __global__ void __launch_bounds__(384, 1)
 gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__ CUtensorMap ts,
                  const GxArgs a) {
-  static_assert(kCentered || !kBf16, "bf16 operands are the centered Gram's");
-  constexpr int GX_STAGES = GxRing<kBf16>::stages;
-  constexpr int GX_STAGE_BYTES = GxRing<kBf16>::stage_bytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = hop::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -168,9 +152,6 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
   auto a_sm = [&](int s) { return base + s * GX_STAGE_BYTES; };
   auto b_hi = [&](int s) { return base + s * GX_STAGE_BYTES + GX_TILE_BYTES; };
   auto b_lo = [&](int s) { return base + s * GX_STAGE_BYTES + 2 * GX_TILE_BYTES; };
-  // bf16: where TMA lands the A and B tiles
-  auto a16 = [&](int s) { return base + s * GX_STAGE_BYTES + 3 * GX_TILE_BYTES; };
-  auto b16 = [&](int s) { return a16(s) + GX_BF16_TILE_BYTES; };
   auto landed = [&](int s) { return bars + 8u * s; };
   auto full = [&](int s) { return bars + 8u * (GX_STAGES + s); };
   auto empty = [&](int s) { return bars + 8u * (2 * GX_STAGES + s); };
@@ -213,16 +194,10 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
           const int s = it % GX_STAGES;
           hop::mbar_wait(empty(s), ((it / GX_STAGES) & 1) ^ 1);
           hop::fence_proxy_async();
+          hop::mbar_expect_tx(landed(s), 2 * GX_TILE_BYTES);
           const int k0 = (kt0 + it) * GX_BK;
-          if constexpr (kBf16) {
-            hop::mbar_expect_tx(landed(s), 2 * GX_BF16_TILE_BYTES);
-            hop::tma_load_2d(a16(s), ta, landed(s), k0, bi * GX_T);
-            hop::tma_load_2d(b16(s), tb, landed(s), k0, bj * GX_T);
-          } else {
-            hop::mbar_expect_tx(landed(s), 2 * GX_TILE_BYTES);
-            hop::tma_load_2d(a_sm(s), ta, landed(s), k0, bi * GX_T);
-            hop::tma_load_2d(b_hi(s), tb, landed(s), k0, bj * GX_T);
-          }
+          hop::tma_load_2d(a_sm(s), ta, landed(s), k0, bi * GX_T);
+          hop::tma_load_2d(b_hi(s), tb, landed(s), k0, bj * GX_T);
         }
       }
     } else {
@@ -246,34 +221,7 @@ gram_tf32_kernel(const __grid_constant__ CUtensorMap tc, const __grid_constant__
           lo[i] = make_float4(__uint_as_float(l0), __uint_as_float(l1), __uint_as_float(l2),
                               __uint_as_float(l3));
         };
-        if constexpr (kBf16) {
-          // chunk i of a bf16 tile: row i / 8, columns 4 (i % 8) .. + 3, the
-          // fp32 tiles' float4 (i / 8) * 8 + (i % 8 ^ row % 8); A widened as
-          // it is (the consumers shift it), B less mu and masked as below
-          const int k0 = (kt0 + it) * GX_BK;
-          const uint2* a_in = reinterpret_cast<const uint2*>(sb + (a16(s) - base));
-          const uint2* b_in = reinterpret_cast<const uint2*>(sb + (b16(s) - base));
-          float4* a_out = reinterpret_cast<float4*>(sb + (a_sm(s) - base));
-          auto widen = [](uint2 w) {
-            return make_float4(__uint_as_float(w.x << 16), __uint_as_float(w.x & 0xFFFF0000u),
-                               __uint_as_float(w.y << 16), __uint_as_float(w.y & 0xFFFF0000u));
-          };
-#pragma unroll 1
-          for (int i = u; i < GX_TILE_BYTES / 16; i += GX_SPLITTERS) {
-            const int r = i / 8, c = i % 8;
-            const int at = r * 8 + (c ^ (r % 8));
-            a_out[at] = widen(a_in[i]);
-            const int k = k0 + 4 * c;
-            const int gr = bj * GX_T + r;
-            const float m = gr < a.nf ? __ldg(a.shift_c + gr) : 0.f;
-            float4 v = widen(b_in[i]);
-            v.x = k < a.k_valid ? v.x - m : 0.f;
-            v.y = k + 1 < a.k_valid ? v.y - m : 0.f;
-            v.z = k + 2 < a.k_valid ? v.z - m : 0.f;
-            v.w = k + 3 < a.k_valid ? v.w - m : 0.f;
-            split(at, v);
-          }
-        } else if constexpr (kCentered) {
+        if constexpr (kCentered) {
           // B less mu, the columns past k_valid masked after the shift; one
           // float4 at a time (unrolled with the means it spilled at 40
           // registers).  float4 i holds row i / 8, swizzled chunk i % 8:
@@ -462,7 +410,7 @@ gram_split_reduce_kernel(const GxArgs a) {
 // > 1 needs a.ws (tiles x split x GX_T^2 floats) and adds the splits by
 // gram_split_reduce_kernel.  The split comes from the caller (the shape
 // alone), never from the card.
-template <bool kCentered, bool kBf16 = false>
+template <bool kCentered>
 inline cudaError_t launch_gram_tf32_kernel(const CUtensorMap& ta, const CUtensorMap& tb, int tiles,
                                            int split, int kt_per_split, GxArgs a,
                                            cudaStream_t stream) {
@@ -471,11 +419,10 @@ inline cudaError_t launch_gram_tf32_kernel(const CUtensorMap& ta, const CUtensor
     return cudaErrorInvalidValue;
   a.split = split;
   a.kt_per_split = kt_per_split;
-  constexpr int smem = GxRing<kBf16>::smem;
-  cudaError_t err = cudaFuncSetAttribute(gram_tf32_kernel<kCentered, kBf16>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(gram_tf32_kernel<kCentered>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GX_SMEM);
   if (err != cudaSuccess) return err;
-  gram_tf32_kernel<kCentered, kBf16><<<dim3(tiles, split), 384, smem, stream>>>(ta, tb, a);
+  gram_tf32_kernel<kCentered><<<dim3(tiles, split), 384, GX_SMEM, stream>>>(ta, tb, a);
   if (split > 1) gram_split_reduce_kernel<kCentered><<<dim3(tiles, 4), 256, 0, stream>>>(a);
   return cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA tile
 // loads, warpgroup matrix multiplies (wgmma) and their shared-memory
 // descriptors.  Used by flash_attention.cu (K11's bf16 path),
-// featurize_bf16.cuh (K1's bf16 path) and, in their
-// tf32 forms with the cluster and cp.async helpers at the end of this file,
-// by featurize_tf32.cuh and gram_tf32.cuh (K2/K3, K5-K8).
+// featurize_bf16.cuh (K1's bf16 path), gram_bf16.cuh (K8 on bf16 Sigma) and,
+// in their tf32 forms with the cluster and cp.async helpers at the end of
+// this file, by featurize_tf32.cuh and gram_tf32.cuh (K2/K3, K5-K8).
 //
 // Shared-memory tiles are bf16 rows of 128 bytes (64 values) stored with the
 // 128-byte swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes: the
@@ -72,14 +72,22 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 }
 
 // descriptor of a 128-byte-swizzled operand at shared address `addr`:
-// 8-row groups 1024 bytes apart (SBO); the leading offset (LBO) is unused,
-// as every operand here is K-major or one 64-wide block of an MN-major one
+// 8-row groups 1024 bytes apart (SBO); the leading offset (LBO) is unused by
+// a K-major operand or one 64-wide block of an MN-major one (desc_sw128_mn
+// for wider MN-major operands)
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   uint64_t d = (addr & 0x3FFFFu) >> 4;
   d |= static_cast<uint64_t>(1) << 16;
   d |= static_cast<uint64_t>(1024 >> 4) << 32;
   d |= static_cast<uint64_t>(1) << 62;  // layout type 1: 128-byte swizzle
   return d;
+}
+
+// the same for an MN-major operand wider than one 64-wide swizzle atom: the
+// atoms `lbo` bytes apart (the leading offset), 8-row groups of k 1024 apart
+__device__ __forceinline__ uint64_t desc_sw128_mn(uint32_t addr, uint32_t lbo) {
+  return (desc_sw128(addr) & ~(static_cast<uint64_t>(0x3FFF) << 16)) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16);
 }
 
 // named barrier `id` (1-15; 0 is __syncthreads) over `count` threads
@@ -125,6 +133,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N of this warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from moving reads or writes of registers that an
@@ -213,26 +226,81 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// D (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) B (16 x 64, shared,
-// MN-major: B's rows contiguous, one 64-wide block); acc = 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n64_tb(float (&d)[32], uint64_t a, uint64_t b,
-                                                int acc) {
+// D (64 x 192, fp32) (+)= A (64 x 16, shared, K-major) B (16 x 192, shared,
+// MN-major: B's rows contiguous, three 64-wide swizzle atoms the descriptor's
+// leading offset apart); acc = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n192_tb(float (&d)[96], uint64_t a, uint64_t b,
+                                                 int acc) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(a), "l"(b), "r"(acc));
+}
+
+// D (64 x 128, fp32) (+)= A (64 x 16, bf16 in registers: the m16n8k16 A
+// fragment of each warp's 16 rows, a0..a3 = (r, 2c..2c+1), (r + 8, 2c..), (r,
+// 2c + 8..), (r + 8, 2c + 8..) for r = 16 w + l / 4, c = l % 4, the lower
+// column in the low half) B^T (B: 128 x 16, shared, K-major); acc = 0
+// overwrites D.  The tensor cores' fp32 additions into D round toward zero.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                              int acc = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 
 template <int N>

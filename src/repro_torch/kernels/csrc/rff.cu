@@ -11,7 +11,8 @@
 // wrapper splits the k-tiles of p into slices (rff.split_plan): the slices'
 // phase sums go to a workspace and a finishing pass adds them in order and
 // takes cos and sin (featurize_tf32.cuh).  bf16 X and Omega take the bf16
-// kernel of featurize_bf16.cuh instead (rt_rff_bf16).
+// kernel of featurize_bf16.cuh instead (rt_rff_bf16: persistent, on the bf16
+// tensor cores).
 #include "featurize_bf16.cuh"
 #include "featurize_tf32.cuh"
 #include "threefry.cuh"
@@ -37,10 +38,11 @@ extern "C" int rt_rff(const void* omega, int64_t ld_omega, const void* x, int64_
 }
 
 // K1 with bf16 omega (nf, ld_omega) and x (p, ldx), ld_omega and ldx
-// multiples of 8 (TMA; the wrapper pads); out (2 nf, n) bf16
+// multiples of 8 (TMA; the wrapper pads); out (2 nf, n) bf16; at most `sms`
+// persistent CTAs
 extern "C" int rt_rff_bf16(const void* omega, int64_t ld_omega, const void* x, int64_t ldx, int nf,
-                           int p, int n, float inv_sqrt_n, void* out, void* stream) {
-  return int(rt::launch_featurize_bf16(omega, ld_omega, x, ldx, nf, p, n, inv_sqrt_n, out,
+                           int p, int n, float inv_sqrt_n, void* out, int sms, void* stream) {
+  return int(rt::launch_featurize_bf16(omega, ld_omega, x, ldx, nf, p, n, inv_sqrt_n, out, sms,
                                        static_cast<cudaStream_t>(stream)));
 }
 

@@ -7,11 +7,12 @@ stream of ``kernels.prng``).  On CUDA tensors :func:`rff` and
 the product over p, written by hand on the tensor cores as three tf32
 products (``csrc/featurize_tf32.cuh``): K1 with Omega loaded by TMA, split
 over p at narrow widths (:func:`split_plan`), K7 with Omega drawn beside the
-products.  bf16 X and Omega take K1's bf16 kernel (``csrc/featurize_bf16.cuh``):
-bf16 products accumulated in fp32, cos and sin in fp32, Sigma in bf16, as the
-reference takes them.  On CPU tensors they run :func:`rff_plain` and
-:func:`rff_fused_plain`.  ``LAUNCHES`` counts the calls that launched the
-kernels (a split K1 call is two launches, counted once).
+products.  bf16 X and Omega take K1's bf16 kernel (``csrc/featurize_bf16.cuh``,
+persistent CTAs on the bf16 tensor cores): bf16 products accumulated in fp32,
+cos and sin in fp32, Sigma in bf16, as the reference takes them.  On CPU
+tensors they run :func:`rff_plain` and :func:`rff_fused_plain`.  ``LAUNCHES``
+counts the calls that launched the kernels (a split K1 call is two launches,
+counted once).
 """
 from __future__ import annotations
 
@@ -136,11 +137,13 @@ def _rff_bf16(x: torch.Tensor, omega: torch.Tensor, out: torch.Tensor) -> torch.
     """K1's bf16 kernel into ``out`` (2N, n) bf16."""
     nf, p = omega.shape
     f = _build.fn("rff", "rt_rff_bf16", [_build.VP, _build.I64, _build.VP, _build.I64]
-                  + [_build.I32] * 3 + [_build.F32, _build.VP, _build.VP])
+                  + [_build.I32] * 3 + [_build.F32, _build.VP, _build.I32, _build.VP])
     xr, omr = tma_rows(x), tma_rows(omega)
+    # one persistent CTA an SM walks the tiles (Sigma does not depend on it)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     with torch.cuda.device(x.device):
         err = f(omr.data_ptr(), omr.shape[1], xr.data_ptr(), xr.shape[1], nf, p, x.shape[1],
-                inv_sqrt(nf), out.data_ptr(), _build.stream_ptr())
+                inv_sqrt(nf), out.data_ptr(), sms, _build.stream_ptr())
     _build.check(err, "rff bf16")
     LAUNCHES["rff_bf16"] += 1
     return out

@@ -108,24 +108,28 @@ def gram_tile_plan(n_features: int, *, n: int, ensemble: int = 1) -> dict:
     return {"block": block, "chunks": -(-n // block), "workspace_bytes": per_col * block}
 
 
-# gram_tf32.cuh: an output tile's edge and a k-tile; the SMs of an H100 SXM,
-# which size every split whatever card runs it (the sum's order is the shape's)
+# gram_tf32.cuh: an output tile's edge and a k-tile (gram_bf16.cuh's, 64,
+# from its library: centered_gram.split_plan);
+# the SMs of an H100 SXM, which size every split whatever card runs it (the
+# sum's order is the shape's)
 GRAM_TILE, GRAM_K_TILE, PLAN_SMS = 128, 32, 132
 
 
-def gram_split_plan(rows: int, k: int, *, centered: bool = False) -> dict:
-    """How the tensor-core Gram (``csrc/gram_tf32.cuh``) splits k for a
-    (rows, k) operand: ``tiles`` output tiles (the upper tiles of G_cc and
-    G_ss and every tile of G_cs, or the centered Gram's upper tiles), each
-    taken by ``split`` blocks of ``kt_per_split`` k-tiles of 32: about four
-    waves of ``PLAN_SMS`` where the tiles alone are fewer, at least 8 k-tiles
-    a block.  A split's blocks write partial tiles (``workspace_bytes``) that
-    a second kernel adds in split order, so the plan, and with it every bit
-    of the sum, depends on the shape alone.  Returns ``{"tiles", "split",
+def gram_split_plan(rows: int, k: int, *, centered: bool = False,
+                    k_tile: int = GRAM_K_TILE) -> dict:
+    """How the tensor-core Gram (``csrc/gram_tf32.cuh``, ``csrc/gram_bf16.cuh``
+    at ``k_tile`` 64) splits k for a (rows, k) operand: ``tiles`` output
+    tiles (the upper tiles of G_cc and G_ss and every tile of G_cs, or the
+    centered Gram's upper tiles), each taken by ``split`` blocks of
+    ``kt_per_split`` k-tiles of ``k_tile``: about four waves of
+    ``PLAN_SMS`` where the tiles alone are fewer, at least 8 k-tiles a block.
+    A split's blocks write partial tiles (``workspace_bytes``) that a second
+    kernel adds in split order, so the plan, and with it every bit of the
+    sum, depends on the shape alone.  Returns ``{"tiles", "split",
     "kt_per_split", "workspace_bytes"}``."""
     t = -(-rows // GRAM_TILE)
     tiles = t * (t + 1) // 2 if centered else t * (t + 1) + t * t
-    n_kt = -(-k // GRAM_K_TILE)
+    n_kt = -(-k // k_tile)
     split = max(1, min(-(-4 * PLAN_SMS // max(tiles, 1)), n_kt // 8))
     kps = -(-n_kt // split)
     split = -(-n_kt // kps)

@@ -642,10 +642,13 @@ def _bf16_gate(k: torch.Tensor, plain: torch.Tensor) -> bool:
 
 
 @pytest.mark.parametrize("p,n,nf", [(16, 64, 32), (33, 170, 77), (128, 128, 128), (7, 300, 130),
-                                    (2048, 3612, 4096)])
+                                    (2048, 3612, 4096), (2048, 301, 200), (64, 1000, 4100)])
 def test_rff_bf16_kernel_matches_plain(card, p, n, nf):
-    """K1's bf16 kernel (tests/test_kernels.py:15's shapes and the smoke's):
-    bf16 Sigma within one bf16 ULP plus 2e-5 of plain, one launch."""
+    """K1's bf16 kernel (tests/test_kernels.py:15's shapes and the smoke's; an
+    odd n at p = 2048, whose rows take single stores and whose k passes four
+    folds; more tiles than the persistent grid walks in one pass, N past a
+    128-feature tile): bf16 Sigma within one bf16 ULP plus 2e-5 of plain, one
+    launch a call, two calls bit for bit."""
     rng = np.random.default_rng(p * n)
     x = torch.tensor((rng.normal(size=(p, n)) / np.sqrt(p)).astype(np.float32),
                      device=card).bfloat16()
@@ -655,17 +658,67 @@ def test_rff_bf16_kernel_matches_plain(card, p, n, nf):
     assert rff.LAUNCHES["rff_bf16"] == before + 1
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (2 * nf, n)
     assert _bf16_gate(out, rff.rff_plain(x, om))
+    assert torch.equal(out, ops.rff(x, om))
+    assert rff.LAUNCHES["rff_bf16"] == before + 2
 
 
-@pytest.mark.parametrize("two_n,n", [(64, 128), (96, 210), (128, 64), (32, 500), (2000, 3612),
-                                     (130, 797)])
-def test_centered_gram_bf16_kernel_matches_plain(card, two_n, n):
+def test_rff_bf16_kernel_takes_sincosf_past_the_fast_reduction(card):
+    """K1-bf16 on phases past sincosf's fast reduction (|z| > 105615), where
+    a warp's tile takes sincosf itself: integer X and Omega, so every product
+    and partial sum is exact in fp32 and the kernel's phases equal plain's in
+    any order; within one bf16 ULP plus 2e-5 of plain."""
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.integers(-128, 129, size=(64, 300)).astype(np.float32),
+                     device=card).bfloat16()
+    om = torch.tensor(rng.integers(-128, 129, size=(130, 64)).astype(np.float32),
+                      device=card).bfloat16()
+    z = om.float() @ x.float()
+    assert float(z.abs().max()) > 105615.0 and float(z.abs().max()) < 2.0 ** 24
+    out = ops.rff(x, om)
+    assert _bf16_gate(out, rff.rff_plain(x, om))
+
+
+def _sigma28_bf16(card, two_n, n, seed):
+    """bf16 Sigma of K1 at sigma 28 on 7 rows of the smoke's scale
+    (chip_smoke.py's K8_EDGES): each cos row a few bf16 steps of its mean."""
+    rng = np.random.default_rng(seed)
+    x = torch.tensor((0.44 * rng.normal(size=(7, n))).astype(np.float32), device=card)
+    om = torch.tensor((rng.normal(size=(two_n // 2, 7)) / 28.0).astype(np.float32), device=card)
+    return rff.rff_plain(x.bfloat16(), om.bfloat16())
+
+
+def _ties_bf16(card, two_n, n, seed):
+    """bf16 Sigma whose rows hold 2^-8 in a tenth of their elements and
+    1.1171875 elsewhere: c = 2^-8 - mu is a tie between two bf16 values, so
+    its lo part is the largest there is and repeats along the row (the case
+    that three products, lo lo left out, miss: tests/test_torch_bf16_numerics.py)."""
+    rng = np.random.default_rng(seed)
+    sig = np.full((two_n, n), 1.1171875, np.float32)
+    for r in range(two_n):
+        sig[r, rng.permutation(n)[:n // 10]] = 2.0 ** -8
+    return torch.tensor(sig, device=card).bfloat16()
+
+
+@pytest.mark.parametrize("two_n,n,kind", [(64, 128, "normal"), (96, 210, "normal"),
+                                          (128, 64, "normal"), (32, 500, "normal"),
+                                          (2000, 3612, "normal"), (130, 797, "normal"),
+                                          (130, 795, "sigma28"), (2000, 3611, "sigma28"),
+                                          (4100, 1003, "normal"), (130, 3610, "ties"),
+                                          (2000, 3610, "ties")])
+def test_centered_gram_bf16_kernel_matches_plain(card, two_n, n, kind):
     """K8 on bf16 Sigma (tests/test_kernels.py:29's shapes, the smoke's 2N =
-    2000, a ragged one): fp32 G within 1e-5 of G / max|G| of plain, or no
-    farther from the float64 answer than plain; exactly symmetric."""
+    2000, ragged n and 2N, nearly constant rows at sigma 28, 2N past 4096,
+    rows of equal small elements whose lo parts repeat): fp32 G within 1e-5
+    of G / max|G| of plain, or no farther from the float64 answer than plain;
+    exactly symmetric; one launch a call; two calls bit for bit, with the k
+    split in one piece (2N = 130 at n = 797 and 795, 4100) and in several
+    (2N = 2000: 4 ways; 2N = 130 at n = 3610: 7), as the shape alone plans
+    it at the library's k-tile of 64."""
     rng = np.random.default_rng(two_n + n)
-    sig = torch.tensor((rng.normal(size=(two_n, n)) * 0.03 + 0.01).astype(np.float32),
-                       device=card).bfloat16()
+    sig = (torch.tensor((rng.normal(size=(two_n, n)) * 0.03 + 0.01).astype(np.float32),
+                        device=card).bfloat16() if kind == "normal"
+           else _sigma28_bf16(card, two_n, n, two_n + n) if kind == "sigma28"
+           else _ties_bf16(card, two_n, n, two_n + n))
     before = centered_gram.LAUNCHES["centered_gram_bf16"]
     g = ops.centered_gram(sig)
     assert centered_gram.LAUNCHES["centered_gram_bf16"] == before + 1
@@ -678,6 +731,10 @@ def test_centered_gram_bf16_kernel_matches_plain(card, two_n, n):
     d_k = float((g.double() - exact).abs().max()) / scale
     d_p = float((plain.double() - exact).abs().max()) / scale
     assert err <= 1e-5 or d_k <= d_p
+    plan = centered_gram.split_plan(two_n, n, bf16=True)
+    assert plan == gram.gram_split_plan(two_n, n, centered=True, k_tile=64)
+    assert (plan["split"] > 1) == (two_n == 2000 or n == 3610)
+    assert torch.equal(g, ops.centered_gram(sig))
 
 
 def test_probed_round_on_card_is_bit_for_bit_unprobed(card):

@@ -283,6 +283,21 @@ def test_gram_split_plan_depends_on_the_shape_alone(rows, k, centered, tiles, sp
     assert not torch.equal(first, added(range(s)[::-1]))
 
 
+# K8 on bf16 Sigma (csrc/gram_bf16.cuh): k-tiles of 64; the smoke's 2N = 2000
+# (split 4, as at fp32) and 8192, and a ragged edge whose 13 k-tiles stay whole
+BF16_K_TILE = 64  # gram_bf16.cuh GB_BK, which the card tests read from the library
+BF16_GRAM_SPLITS = [(2000, 3612, 136, 4, 15), (8192, 3612, 2080, 1, 57), (130, 795, 3, 1, 13),
+                    (130, 3611, 3, 7, 9)]
+
+
+@pytest.mark.parametrize("rows,k,tiles,split,kps", BF16_GRAM_SPLITS)
+def test_gram_split_plan_at_bf16_k_tiles(rows, k, tiles, split, kps):
+    """The bf16 centered Gram's split in k-tiles of 64, from the shape alone."""
+    plan = tgram.gram_split_plan(rows, k, centered=True, k_tile=BF16_K_TILE)
+    assert (plan["tiles"], plan["split"], plan["kt_per_split"]) == (tiles, split, kps)
+    assert plan["workspace_bytes"] == (4 * tiles * split * 128 * 128 if split > 1 else 0)
+
+
 def _bf16_ulp(v: np.ndarray) -> np.ndarray:
     """The spacing of bf16 numbers at |v| (8 significant bits)."""
     return np.ldexp(1.0, np.frexp(np.abs(v))[1] - 8)
