@@ -93,19 +93,30 @@ Phases (any failed check raises, and the run exits non-zero):
      residual of eps 10 2N, ~1 % at 2N = 8192) agrees with eigh to within
      that residual, and LOBPCG at lobpcg_tol=1e-9 to rtol 1e-4 with
      cosines above 1 - 1e-3;
-  8. K10 (the wire codecs' fake-quant): bit for bit against its plain version
-     at the ``K10_CHECK`` shapes (every launch shape of runs F, F64 and FL,
-     and ragged ones) for qint8 and qint4; timed on the card (queued behind a
-     device-side sleep, so the host's dispatch is not timed; the calls cycle
-     through copies of the inputs that overflow the L2 cache) at (5, 1024)
-     and (65, 32768);
-  9. K9 (the fleet's weighted segment reduce): within 1e-5 x max(1, max|plain|)
-     of its plain version at the ``K9_CHECK`` shapes (every launch shape of
-     FL, FT and FS, and tests/test_fleet.py:85's ragged ones), zero weights
-     exact, and NaN/Inf inputs giving the plain version's non-finite
-     positions; timed like K10 at (1024, 32769) and (1024, 1025) into 64
-     edges, beside its plain version and torch.matmul of the weighted
-     membership;
+  8. K10 (the wire codecs' fake-quant): the given-scale entry point bit for
+     bit against its plain version at the ``K10_CHECK`` shapes (every launch
+     shape of runs F, F64 and FL, and ragged ones) for qint8 and qint4; the
+     fused entry point (the codec round trip: each row's scale computed in the
+     kernel) bit for bit against ``quant_scale`` + the plain version at the
+     same shapes, with uniforms and without (u = 0.5), on rows holding a NaN
+     (scale 1), +-Inf, zeros and -0.0; ``QuantCodec.roundtrip`` one device
+     operation (``torch.profiler``: kernels and memsets); timed on the card
+     (queued behind a device-side sleep, so the host's dispatch is not timed;
+     the calls cycle through copies of the inputs that overflow the L2 cache)
+     at (5, 1024) and (65, 32768): the kernel, the round trip as the codec
+     calls it, the given-scale kernel, the plain version and an empty launch;
+  9. K9 (the fleet's weighted segment reduce with the edge masses): sums and
+     masses within 1e-5 x max(1, max|plain|) of the plain version (the
+     contraction of the payload with a ones column) at the ``K9_CHECK``
+     shapes (every launch shape of FL, FT and FS, and tests/test_fleet.py:85's
+     ragged ones), the engine's plan and one built on the card,
+     two calls bit for bit, zero weights exact, and NaN/Inf values, a
+     non-finite weight and ids outside the edges giving the plain version's
+     non-finite positions; ``hierarchy._sums_and_mass`` one device operation
+     with the engine's plan; timed like K10 at (1024, 32768) and (1024, 1024)
+     into 64 edges with masses: the kernel, the merge as the
+     hierarchy calls it, the plain version, torch.matmul of the weighted
+     membership, an empty launch;
  10. FedRF-TCA training (paper Alg. 5) through ``FedRFTCATrainer(...).train()``
      and ``.evaluate()`` at the width of ``repro_torch.configs.fedrf_paper``
      (a copy of ``src/repro/configs/fedrf_paper.py``: p = 16, extractor
@@ -473,13 +484,14 @@ K10_TIMED = ((5, 1024), (65, 32768))  # K + 1 moment rows; K + 1 W_RF rows at K 
 L2_FLUSH_BYTES = 4 * 50 * 2**20  # four times the H100's 50 MiB L2
 FED_WARMUP, FED_ROUNDS, FED_LEAF_TOL = 50, 100, 1e-4
 # K9: every launch shape of FL (K = 1024 into 64 edges) and FS / FT (K = 4
-# into 2 and 4 edges): moments 2N + 1, W_RF 2N m + 1, classifier w and b
-# (+ 1: the hierarchy's ones column), and tests/test_fleet.py:85's ragged ones
+# into 2 and 4 edges): moments 2N, W_RF 2N m, classifier w and b (the masses
+# come out of the kernel beside them), and tests/test_fleet.py:85's ragged ones
 # FL: the fleet at the scale of benchmarks/bench_fleet.py:113-124
 FL_K, FL_EDGES, FL_CHUNK, FL_WARMUP, FL_ROUNDS = 1024, 64, 128, 10, 50
 K9_CHECK = tuple((k, d, e) for k, e in ((FL_K, FL_EDGES), (4, 2), (4, 4))
-                 for d in (1025, 32769, 161, 6)) + ((8, 16, 3), (130, 70, 5), (1, 5, 1))
-K9_TIMED = ((FL_K, 32769, FL_EDGES), (FL_K, 1025, FL_EDGES))  # FL's W_RF and moment merges
+                 for d in (1024, 32768, 160, 5)) + ((8, 16, 3), (130, 70, 5), (1, 5, 1),
+                                                    (1024, 1025, 64))
+K9_TIMED = ((FL_K, 32768, FL_EDGES), (FL_K, 1024, FL_EDGES))  # FL's W_RF and moment merges
 K9_RTOL = 1e-5  # on |kernel - plain| / max(1, max|plain|)
 R_WARMUP, R_ROUNDS = 10, 50
 # phase 13, the async runtime: AD (degeneracy against H), AQ (lossy links and
@@ -689,6 +701,25 @@ def timed(torch, fn, reps: int) -> dict:
 
 def cuda_ms(torch, fn, reps: int) -> float:
     return timed(torch, fn, reps)["ms"]
+
+
+def device_ops(torch, fn) -> list[str]:
+    """The device operations (kernels, memsets, copies) of one call of
+    ``fn`` after a warm-up call, by ``torch.profiler``'s CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal where finite, with NaN and +-Inf in the same places."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
 
 
 def ulps(torch, a, b) -> float:
@@ -3719,29 +3750,62 @@ def main() -> int:
             raise AssertionError(f"{name}: {value} > {limit}")
 
     # ---- 8. K10 ----------------------------------------------------------
+    t_phase = time.perf_counter()
+    from repro_torch.comm.codecs import QuantCodec
     from repro_torch.kernels import quantize
+
+    def k10_rows(rows, d, seed):
+        """Gaussian rows x 3, zeros at the start of row 0, and the scale's
+        edge rows: a NaN, +Inf, -Inf, all zeros, all -0.0."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        xq = torch.randn((rows, d), generator=g, device=dev) * 3.0
+        xq[0, : min(d, 5)] = 0.0
+        for r, val in enumerate((float("nan"), float("inf"), -float("inf")), start=1):
+            if r < rows:
+                xq[r, (7 * r) % d] = val
+        for r, val in ((4, 0.0), (5, -0.0)):
+            if r < rows:
+                xq[r] = val
+        return xq, torch.rand((rows, d), generator=g, device=dev)
 
     k10_err = 0.0
     for rows, d in K10_CHECK:
         for bits in (8, 4):
-            g = torch.Generator(device=dev).manual_seed(rows * d + bits)
-            xq = torch.randn((rows, d), generator=g, device=dev) * 3.0
-            xq[0, : min(d, 5)] = 0.0
-            uq = torch.rand((rows, d), generator=g, device=dev)
+            xq, uq = k10_rows(rows, d, rows * d + bits)
             qmax = quantize.qmax_of(bits)
             sc = quantize.quant_scale(xq, qmax)
             out = quantize.fake_quant(xq, uq, sc, qmax=qmax)
             plain = quantize.fake_quant_plain(xq, uq, sc, qmax=qmax)
-            if not torch.equal(out, plain):
-                raise AssertionError(f"K10 ({rows}, {d}) qint{bits}: kernel differs from plain "
-                                     f"by {float((out - plain).abs().max())}")
-            k10_err = max(k10_err, float((out - plain).abs().max()))
-    log(f"[K10] {len(K10_CHECK)} shapes x qint8/qint4: bit for bit, max abs err {k10_err}")
+            if not same_bits(torch, out, plain):
+                raise AssertionError(f"K10 ({rows}, {d}) qint{bits}: kernel differs from plain")
+            for u_in in (uq, None):
+                fused = quantize.fake_quant_fused(xq, u_in, qmax=qmax)
+                plain = quantize.fake_quant_plain(
+                    xq, torch.full_like(xq, 0.5) if u_in is None else u_in, sc, qmax=qmax)
+                if not same_bits(torch, fused, plain):
+                    raise AssertionError(f"K10 ({rows}, {d}) qint{bits} u "
+                                         f"{'None' if u_in is None else 'given'}: the fused "
+                                         f"kernel differs from quant_scale + plain")
+            ok = plain.isfinite()
+            k10_err = max(k10_err, float((fused[ok] - plain[ok]).abs().max()) if ok.any() else 0.0)
+    log(f"[K10] {len(K10_CHECK)} shapes x qint8/qint4, given scales and fused (uniforms and "
+        f"u = 0.5; NaN, +-Inf, zero, -0.0 rows): bit for bit, max abs err {k10_err}")
+    k10_ops = {}
+    for rows, d in K10_TIMED:
+        xq, uq = k10_rows(rows, d, rows + d)
+        for tag, u_in in (("u", uq), ("u=None", None)):
+            names = device_ops(torch, lambda: QuantCodec(8).roundtrip(xq, u_in))
+            k10_ops[f"{rows}x{d} {tag}"] = names
+            if len(names) != 1:
+                raise AssertionError(f"K10 round trip ({rows}, {d}) {tag}: {len(names)} device "
+                                     f"operations, not one: {names}")
+    log(f"[K10] QuantCodec.roundtrip: one device operation each: {k10_ops}")
+    empty_ms = timed(torch, lambda: torch.cuda._sleep(0), 200)["ms"]
     k10 = {}
     for rows, d in K10_TIMED:
         # back-to-back calls on one (x, u) would read them from the L2 cache:
         # the calls cycle through enough copies to overflow it several times
-        nbytes = 12 * rows * d + 4 * rows
+        nbytes = 12 * rows * d
         g = torch.Generator(device=dev).manual_seed(rows + d)
         copies = []
         for _ in range(max(1, -(-L2_FLUSH_BYTES // nbytes))):
@@ -3749,28 +3813,42 @@ def main() -> int:
             copies.append((xq, torch.rand((rows, d), generator=g, device=dev),
                            quantize.quant_scale(xq, 127)))
         turn = itertools.cycle(copies)
+        codec = QuantCodec(8)
+
+        def plain_rt():
+            xq, uq, _ = next(turn)
+            return quantize.fake_quant_plain(xq, uq, quantize.quant_scale(xq, 127), qmax=127)
+
         b_ms, b_by = bound_ms(6 * rows * d, nbytes)
-        kt = timed(torch, lambda: quantize.fake_quant(*next(turn), qmax=127), 200)
-        pt = timed(torch, lambda: quantize.fake_quant_plain(*next(turn), qmax=127), 100)
+        kt = timed(torch, lambda: quantize.fake_quant_fused(*next(turn)[:2], qmax=127), 200)
+        ft = timed(torch, lambda: codec.roundtrip(*next(turn)[:2]), 200)
+        gt = timed(torch, lambda: quantize.fake_quant(*next(turn), qmax=127), 200)
+        pt = timed(torch, plain_rt, 100)
         del copies, turn
         k10[(rows, d)] = dict(ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"],
+                              function_ms=ft["ms"], function_host_ms=ft["host_ms"],
+                              function_queued=ft["queued"], given_scale_ms=gt["ms"],
                               plain_ms=pt["ms"], plain_host_ms=pt["host_ms"],
-                              plain_queued=pt["queued"], bound_ms=b_ms, bound_by=b_by)
+                              plain_queued=pt["queued"], bound_ms=b_ms, bound_by=b_by,
+                              empty_launch_ms=empty_ms)
         log(f"[K10] ({rows}, {d}) qint8: kernel {kt['ms']:.5f} ms on the card (host "
-            f"{kt['host_ms']:.5f} ms a call, queued {kt['queued']}), plain {pt['ms']:.5f} ms "
-            f"(host {pt['host_ms']:.5f}, queued {pt['queued']}), bound {b_ms:.5f} ms ({b_by})")
+            f"{kt['host_ms']:.5f} ms a call, queued {kt['queued']}), the codec's round trip "
+            f"{ft['ms']:.5f} (host {ft['host_ms']:.5f}, queued {ft['queued']}), given scales "
+            f"{gt['ms']:.5f}, plain {pt['ms']:.5f} (queued {pt['queued']}), bound "
+            f"{b_ms:.5f} ms ({b_by}), an empty launch {empty_ms:.5f}")
     big, small_k10 = k10[K10_TIMED[1]], k10[K10_TIMED[0]]
     report["K10"] = dict(
         name="fake_quant", route="cuda", source="src/repro_torch/kernels/csrc/quantize.cu",
         replaces="src/repro/kernels/quantize.py:37", max_abs_err=k10_err,
-        tolerance="bit for bit", shape=f"{K10_TIMED[1]} fp32, qint8", library_ms=None, **big,
+        tolerance="bit for bit", shape=f"{K10_TIMED[1]} fp32, qint8, the scale in the kernel",
+        library_ms=None, device_ops=k10_ops, **big,
         small=dict(shape=f"{K10_TIMED[0]} fp32, qint8", **small_k10),
     )
     counters["quantize"] = quantize.LAUNCHES
     torch.cuda.synchronize()
 
     # ---- 9. K9 -------------------------------------------------------------
-    from repro_torch.fleet import Topology
+    from repro_torch.fleet import Topology, hierarchy
     from repro_torch.kernels import segment_reduce as seg_k
 
     def k9_inputs(k, d, e, seed, *, uniform_edges):
@@ -3783,71 +3861,130 @@ def main() -> int:
         w = (torch.rand((k,), generator=g, device=dev) < 0.8).float()  # participation masks
         return v, seg, w
 
-    def k9_check(v, seg, w, e, out, what):
-        plain = seg_k.segment_reduce_plain(v, seg, w, e)
-        for test in (torch.isnan, torch.isposinf, torch.isneginf):
-            if not torch.equal(test(out), test(plain)):
-                raise AssertionError(f"K9 {what}: non-finite positions differ from plain")
-        ok = torch.isfinite(plain)
-        if not ok.any():
-            return 0.0
-        err = float((out[ok] - plain[ok]).abs().max())
-        tol = K9_RTOL * max(1.0, float(plain[ok].abs().max()))
-        if not err <= tol:
-            raise AssertionError(f"K9 {what}: kernel differs from plain by {err} > {tol}")
+    def k9_check(v, seg, w, e, got, what):
+        """``got`` (sums, masses) against the plain version's: equal
+        non-finite positions, 1e-5 x max(1, max|plain|) elsewhere."""
+        err = 0.0
+        for out, plain, part in zip(got, seg_k.sums_and_mass_plain(v, seg, w, e),
+                                    ("sums", "masses")):
+            for test in (torch.isnan, torch.isposinf, torch.isneginf):
+                if not torch.equal(test(out), test(plain)):
+                    raise AssertionError(f"K9 {what}: non-finite {part} differ from plain")
+            ok = torch.isfinite(plain)
+            if not ok.any():
+                continue
+            part_err = float((out[ok] - plain[ok]).abs().max())
+            tol = K9_RTOL * max(1.0, float(plain[ok].abs().max()))
+            if not part_err <= tol:
+                raise AssertionError(f"K9 {what}: {part} differ from plain by {part_err} > {tol}")
+            err = max(err, part_err)
+        return err
+
+    def k9_all(v, seg, w, e, what):
+        """The host plan and the ids alone (a plan built on the card), two
+        calls each: against plain, bit for bit with each other and with the
+        call without masses."""
+        plan = seg_k.membership_plan(seg.cpu().numpy(), e, dev)
+        first, err = None, 0.0
+        for members, how in ((plan, "host plan"), (seg, "card plan")):
+            got = seg_k.segment_reduce(v, members, w, e, with_mass=True)
+            err = max(err, k9_check(v, seg, w, e, got, f"{what} {how}"))
+            again = seg_k.segment_reduce(v, members, w, e, with_mass=True)
+            alone = seg_k.segment_reduce(v, members, w, e)
+            first = first or got
+            if not (all(same_bits(torch, a, b) for a, b in zip(got, again))
+                    and all(same_bits(torch, a, b) for a, b in zip(got, first))
+                    and same_bits(torch, alone, got[0])):
+                raise AssertionError(f"K9 {what} {how}: two calls, the two plans or the call "
+                                     f"without masses differ")
         return err
 
     k9_err = 0.0
     for k, d, e in K9_CHECK:
         v, seg, w = k9_inputs(k, d, e, k + d + e, uniform_edges=e < k and k == FL_K)
-        k9_err = max(k9_err, k9_check(v, seg, w, e, seg_k.segment_reduce(v, seg, w, e),
-                                      f"({k}, {d}) -> {e}"))
-        zero = seg_k.segment_reduce(v, seg, torch.zeros_like(w), e)
-        if not float(zero.abs().max()) == 0.0:
+        k9_err = max(k9_err, k9_all(v, seg, w, e, f"({k}, {d}) -> {e}"))
+        zero, zmass = seg_k.segment_reduce(v, seg, torch.zeros_like(w), e, with_mass=True)
+        if not (float(zero.abs().max()) == 0.0 and float(zmass.abs().max()) == 0.0):
             raise AssertionError(f"K9 ({k}, {d}) -> {e}: zero weights gave nonzero sums")
     # the non-finite contract: a NaN or Inf in column d of one edge makes column
-    # d NaN in every other edge, as the dense weighted-membership product does
+    # d NaN in every other edge, as the dense weighted-membership product does;
+    # a non-finite weight every other edge's row and mass; a row in no edge, all
     nf_v = torch.tensor([[1, 2, 3], [float("nan"), 5, 6], [7, 8, float("inf")], [1, 2, 3]],
                         device=dev)
     nf_seg = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
-    nf_w = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
-    k9_check(nf_v, nf_seg, nf_w, 2, seg_k.segment_reduce(nf_v, nf_seg, nf_w, 2), "NaN/Inf")
-    v, seg, w = k9_inputs(FL_K, 1025, FL_EDGES, 5, uniform_edges=True)
-    v[3, 5], v[FL_K - 3, 5] = float("nan"), float("inf")  # two edges, one column
-    v[FL_K // 2, 900], v[FL_K - 1, 40] = -float("inf"), float("nan")
-    k9_check(v, seg, w, FL_EDGES, seg_k.segment_reduce(v, seg, w, FL_EDGES), "NaN/Inf at FL")
-    log(f"[K9] {len(K9_CHECK)} shapes within {K9_RTOL} x max(1, max|plain|), zero weights "
-        f"exact, non-finite positions equal; max abs err {k9_err:.3g}")
+    k9_all(nf_v, nf_seg, torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev), 2, "NaN/Inf")
+    k9_all(nf_v, torch.tensor([0, 5, -1, 1], dtype=torch.int32, device=dev),
+           torch.tensor([1.0, 0.5, 1.0, float("nan")], device=dev), 2, "ids outside the edges")
+    for d in (1024, 1025):
+        v, seg, w = k9_inputs(FL_K, d, FL_EDGES, 5, uniform_edges=True)
+        v[3, 5], v[FL_K - 3, 5] = float("nan"), float("inf")  # two edges, one column
+        v[FL_K // 2, 900], v[FL_K - 1, 40] = -float("inf"), float("nan")
+        k9_all(v, seg, w, FL_EDGES, f"NaN/Inf at FL, d {d}")
+        w[100] = float("inf")
+        k9_all(v, seg, w, FL_EDGES, f"an Inf weight at FL, d {d}")
+    log(f"[K9] {len(K9_CHECK)} shapes, host and card plans, sums and masses within {K9_RTOL} x max(1, "
+        f"max|plain|), two calls bit for bit, zero weights exact, non-finite positions equal; "
+        f"max abs err {k9_err:.3g}")
+    k9_ops = {}
+    for k, d, e in K9_TIMED:
+        v, seg, w = k9_inputs(k, d, e, 7, uniform_edges=True)
+        plan = seg_k.membership_plan(seg.cpu().numpy(), e, dev)
+        names = device_ops(torch, lambda: hierarchy._sums_and_mass(v, w, plan, e))
+        k9_ops[f"{k}x{d} -> {e}"] = names
+        if len(names) != 1:
+            raise AssertionError(f"K9 merge ({k}, {d}) -> {e}: {len(names)} device operations, "
+                                 f"not one: {names}")
+    log(f"[K9] hierarchy._sums_and_mass with the engine's plan: one device operation each: "
+        f"{k9_ops}")
     k9 = {}
     for k, d, e in K9_TIMED:
-        nbytes = (k * d + 2 * k + e * d) * 4
+        # values, weights, the plan (order, offsets) read; sums and masses written
+        nbytes = (k * d + 2 * k + e + 1 + e * d + e) * 4
         copies = [k9_inputs(k, d, e, i, uniform_edges=True)
                   for i in range(max(2, -(-L2_FLUSH_BYTES // nbytes)))]
+        seg = copies[0][1]
+        plan = seg_k.membership_plan(seg.cpu().numpy(), e, dev)
         wms = [(seg_k.segment_reduce_plain(torch.eye(k, device=dev), s, w, e), v)
                for v, s, w in copies]
         turn, turn_lib = itertools.cycle(copies), itertools.cycle(wms)
-        b_ms, b_by = bound_ms(2 * k * d, nbytes)
-        kt = timed(torch, lambda: seg_k.segment_reduce(*next(turn), e), 50)
-        pt = timed(torch, lambda: seg_k.segment_reduce_plain(*next(turn), e), 20)
+
+        def kernel():
+            v, _, w = next(turn)
+            return seg_k.segment_reduce(v, plan, w, e, with_mass=True)
+
+        def merge():
+            v, _, w = next(turn)
+            return hierarchy._sums_and_mass(v, w, plan, e)
+
+        b_ms, b_by = bound_ms(2 * k * d + k, nbytes)
+        kt = timed(torch, kernel, 50)
+        ft = timed(torch, merge, 50)
+        pt = timed(torch, lambda: seg_k.sums_and_mass_plain(*next(turn), e), 20)
         lt = timed(torch, lambda: torch.matmul(*next(turn_lib)), 20)
         del copies, wms, turn, turn_lib
         k9[(k, d, e)] = dict(ms=kt["ms"], host_ms=kt["host_ms"], queued=kt["queued"],
-                             plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=b_ms, bound_by=b_by)
-        log(f"[K9] ({k}, {d}) -> {e}: kernel {kt['ms']:.5f} ms (host {kt['host_ms']:.5f} ms a "
-            f"call, queued {kt['queued']}), plain {pt['ms']:.5f} ms, torch.matmul "
-            f"{lt['ms']:.5f} ms, bound {b_ms:.5f} ms ({b_by})")
+                             function_ms=ft["ms"], function_host_ms=ft["host_ms"],
+                             function_queued=ft["queued"],
+                             plain_ms=pt["ms"], library_ms=lt["ms"], bound_ms=b_ms,
+                             bound_by=b_by, empty_launch_ms=empty_ms)
+        log(f"[K9] ({k}, {d}) -> {e} with masses: kernel {kt['ms']:.5f} ms (host "
+            f"{kt['host_ms']:.5f} ms a call, queued {kt['queued']}), the hierarchy's merge {ft['ms']:.5f} (host {ft['host_ms']:.5f}, "
+            f"queued {ft['queued']}), plain {pt['ms']:.5f} ms, torch.matmul {lt['ms']:.5f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}), an empty launch {empty_ms:.5f}")
     big_k9, small_k9 = k9[K9_TIMED[0]], k9[K9_TIMED[1]]
     report["K9"] = dict(
         name="segment_reduce", route="cuda",
         source="src/repro_torch/kernels/csrc/segment_reduce.cu",
         replaces="src/repro/kernels/segment_reduce.py:49", max_abs_err=k9_err,
         tolerance=f"{K9_RTOL} x max(1, max|plain|); equal non-finite positions",
-        shape=f"({K9_TIMED[0][0]}, {K9_TIMED[0][1]}) fp32 into {K9_TIMED[0][2]} edges", **big_k9,
+        shape=f"({K9_TIMED[0][0]}, {K9_TIMED[0][1]}) fp32 into {K9_TIMED[0][2]} edges, with "
+              f"masses", device_ops=k9_ops, **big_k9,
         small=dict(shape=f"({K9_TIMED[1][0]}, {K9_TIMED[1][1]}) into {K9_TIMED[1][2]}",
                    **small_k9),
     )
     counters["segment_reduce"] = seg_k.LAUNCHES
     torch.cuda.synchronize()
+    log(f"[time] phases 8-9 (K10, K9) {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 10. FedRF-TCA training through the trainer's entry points ---------
     from repro_torch.comm import wire
@@ -3862,60 +3999,76 @@ def main() -> int:
                   lr=fedrf_paper.PROTOCOL.lr, drop_setting="III", seed=SEED)
     doms5 = make_domains(5, 400, shift=1.2, seed=3)
 
-    # The first K10 call of each (shape, qmax) on the main path is kept, in
-    # pinned host memory (an async copy: no sync, no device memory), and held
-    # against the plain version after the run; the count stays the kernel
-    # wrapper's own.
+    # The first K10 call of each (shape, qmax, uniforms or not) on the main
+    # path is kept, in pinned host memory (an async copy: no sync, no device
+    # memory), and held against quant_scale + the plain version after the run;
+    # the count stays the kernel wrapper's own.
     k10_seen = {}
-    k10_launch = quantize.fake_quant
+    k10_launch = quantize.fake_quant_fused
 
     def pinned(t):
         return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
-    def recording_fake_quant(x, u, scale, *, qmax):
-        out = k10_launch(x, u, scale, qmax=qmax)
-        key = (tuple(x.shape), qmax)
+    def recording_fake_quant(x, u, *, qmax):
+        out = k10_launch(x, u, qmax=qmax)
+        key = (tuple(x.shape), qmax, u is None)
         if x.is_cuda and key not in k10_seen:
-            k10_seen[key] = tuple(pinned(t) for t in (x, u, scale, out))
+            k10_seen[key] = tuple(pinned(t) for t in (x, out) + ((u,) if u is not None else ()))
         return out
 
     def check_main_path_k10(tag):
         torch.cuda.synchronize()
         if not k10_seen:
             raise AssertionError(f"run {tag}: no K10 call was recorded")
-        for (shape, qmax), host in sorted(k10_seen.items()):
-            xq, uq, sc, out = (t.to(dev) for t in host)
-            plain = quantize.fake_quant_plain(xq, uq, sc, qmax=qmax)
-            if not torch.equal(out, plain):
-                raise AssertionError(f"run {tag}: K10 {shape} qmax {qmax} differs from plain by "
-                                     f"{float((out - plain).abs().max())}")
-        calls = [f"{r}x{d} qmax {q}" for (r, d), q in sorted(k10_seen)]
+        for (shape, qmax, _), host in sorted(k10_seen.items()):
+            xq, out, *uq = (t.to(dev) for t in host)
+            uq = uq[0] if uq else torch.full_like(xq, 0.5)
+            plain = quantize.fake_quant_plain(xq, uq, quantize.quant_scale(xq, qmax), qmax=qmax)
+            if not same_bits(torch, out, plain):
+                raise AssertionError(f"run {tag}: K10 {shape} qmax {qmax} differs from plain")
+        calls = [f"{r}x{d} qmax {q}{' u=None' * no_u}" for (r, d), q, no_u in sorted(k10_seen)]
         log(f"[K10] run {tag}: its {len(calls)} launch shapes bit for bit: {calls}")
         k10_seen.clear()
         return calls
 
-    # the same for the first K9 call of each (K, D, E) on the main path
+    # the same for the first K9 call of each (K, D, E) on the main path; every
+    # call there must come with the engine's plan, the masses and contiguous
+    # float32 stacks, which make the merge one device operation
     k9_seen = {}
+    k9_off_plan = []
     k9_launch = seg_k.segment_reduce
 
-    def recording_segment_reduce(values, seg_ids, weights, n_segments):
-        out = k9_launch(values, seg_ids, weights, n_segments)
+    def recording_segment_reduce(values, members, weights, n_segments, **kw):
+        out = k9_launch(values, members, weights, n_segments, **kw)
+        if not values.is_cuda:
+            return out
+        planned = isinstance(members, seg_k.MembershipPlan)
+        seg_ids = members.seg_ids if planned else members
+        if not (planned and kw.get("with_mass")
+                and all(t.dtype == torch.float32 and t.is_contiguous()
+                        for t in (values, weights))):
+            k9_off_plan.append((tuple(values.shape), values.dtype, sorted(kw)))
         key = (tuple(values.shape), n_segments)
-        if values.is_cuda and key not in k9_seen:
-            k9_seen[key] = tuple(pinned(t.contiguous()) for t in (values, seg_ids, weights, out))
+        if key not in k9_seen:
+            got = out if kw.get("with_mass") else (out,)
+            k9_seen[key] = tuple(pinned(t.contiguous())
+                                 for t in (values, seg_ids, weights) + tuple(got))
         return out
 
     def check_main_path_k9(tag):
         torch.cuda.synchronize()
         if not k9_seen:
             raise AssertionError(f"run {tag}: no K9 call was recorded")
+        if k9_off_plan:
+            raise AssertionError(f"run {tag}: K9 calls without the engine's plan, the masses or "
+                                 f"contiguous float32 stacks: {k9_off_plan[:4]}")
         err = 0.0
         for ((k, d), e), host in sorted(k9_seen.items()):
-            v, sg, w, out = (t.to(dev) for t in host)
-            err = max(err, k9_check(v, sg, w, e, out, f"run {tag} ({k}, {d}) -> {e}"))
+            v, sg, w, *got = (t.to(dev) for t in host)
+            err = max(err, k9_check(v, sg, w, e, got, f"run {tag} ({k}, {d}) -> {e}"))
         calls = [f"{k}x{d} -> {e}" for (k, d), e in sorted(k9_seen)]
-        log(f"[K9] run {tag}: its {len(calls)} launch shapes agree with plain (max abs err "
-            f"{err:.3g}): {calls}")
+        log(f"[K9] run {tag}: its {len(calls)} launch shapes agree with plain, sums and masses "
+            f"(max abs err {err:.3g}), all with the engine's plan: {calls}")
         k9_seen.clear()
         return calls
 
@@ -4015,7 +4168,7 @@ def main() -> int:
         return tr, row
 
     wire_kw = dict(transport="wire", codec="qint8")
-    quantize.fake_quant = recording_fake_quant
+    quantize.fake_quant_fused = recording_fake_quant
     seg_k.segment_reduce = recording_segment_reduce
     tr_f, runs["F"] = train_run("F", doms5[:4], doms5[4], engine="batched", **wire_kw)
     if runs["F"]["k10_launches"] <= 0:
@@ -4146,7 +4299,7 @@ def main() -> int:
     if runs["FS_card"]["k9_launches"] <= 0:
         raise AssertionError("run FS: K9 was not launched")
     cross["FS_k9_launch_shapes"] = check_main_path_k9("FS card")
-    quantize.fake_quant = k10_launch
+    quantize.fake_quant_fused = k10_launch
     seg_k.segment_reduce = k9_launch
     log(f"[cross] H batched vs serial {h_err:.3g}, FT vs H batched {ft_err:.3g}, S card vs CPU "
         f"{s_err:.3g}, FS round by round {cross['FS_lockstep_max_leaf_err_over_max1_leaf']:.3g} "
@@ -4595,7 +4748,7 @@ def main() -> int:
     from repro_torch.fedsim import AsyncConfig, AsyncScheduler, markov_trace
 
     t_phase = time.perf_counter()
-    quantize.fake_quant = recording_fake_quant
+    quantize.fake_quant_fused = recording_fake_quant
     seg_k.segment_reduce = recording_segment_reduce
 
     def history_rows(hist):
@@ -4840,7 +4993,7 @@ def main() -> int:
     cross["AL_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AL")
     cross["AL_k9_launch_shapes"] = check_main_path_k9("AL")
     del tr_al, doms_fl
-    quantize.fake_quant = k10_launch
+    quantize.fake_quant_fused = k10_launch
     seg_k.segment_reduce = k9_launch
     torch.cuda.synchronize()
     runs["AL"]["phase_13_s"] = time.perf_counter() - t_phase

@@ -38,6 +38,24 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
               (1024, 1025) into 64 edges and K10 at (5, 1024), as
               ``chip_smoke.py`` times those two (``timed``, the inputs cycled
               past the L2).
+  fleet       the fleet's two kernels as the path calls them, beside the
+              kernels alone and an empty launch: K9 through
+              ``hierarchy._sums_and_mass`` (the sums and the masses of FL's
+              W_RF and moment merges, (1024, 32768) and (1024, 1024) into 64
+              edges, with the engine's plan where the checkout has one) and
+              the kernel alone (a checkout without the masses in the
+              kernel: the kernel on the payload with its ones column), and
+              K10 through
+              ``QuantCodec(8).roundtrip`` at (65, 32768) and (5, 1024), with
+              uniforms and without, and the kernel alone (with its scale
+              computed in it, or given); each function's device operations
+              counted by ``torch.profiler``; no domains are made.
+  fl          FL alone, end to end (``chip_smoke.py`` phase 10's fleet run:
+              1024 sources over 64 edges, qint8 on both tiers, batched,
+              client chunk 128): the trainer's set-up and warm-up, the
+              wall-clock of ``train()``, each round's p50 and p99 (synchronised
+              after each round), and the accuracy at the end; the kernels are
+              built before the clock starts.
   k11b        K11's backward (``flash_attention_backward``, bf16, causal) at
               ``chip_smoke.py``'s two training shapes (``K11B_TIMED``),
               (8, 9, 3, 2048, 64) and (1, 16, 8, 4096, 128), beside the plain backward and
@@ -57,6 +75,8 @@ one card.
     python3 scripts/time_kernels.py split
     python3 scripts/time_kernels.py bf16
     python3 scripts/time_kernels.py k11b
+    python3 scripts/time_kernels.py fleet
+    python3 scripts/time_kernels.py fl
 
 Prints one JSON object: milliseconds per call (CUDA events, after a warm-up
 call; ``k11b`` with ``chip_smoke.py``'s ``k11b_times``, cycling copies of
@@ -217,6 +237,112 @@ def bf16(cs, torch, x, ell, sigma, out) -> None:
                                     200)["ms"]
 
 
+def fleet(cs, torch, out) -> None:
+    import itertools
+
+    from repro_torch.comm.codecs import QuantCodec
+    from repro_torch.fleet import Topology, hierarchy
+    from repro_torch.kernels import quantize
+    from repro_torch.kernels import segment_reduce as seg_k
+
+    dev = torch.device("cuda")
+    planned = hasattr(seg_k, "membership_plan")  # this checkout's kernel writes the masses
+    out["empty_launch_ms"] = cs.timed(torch, lambda: torch.cuda._sleep(0), 200)["ms"]
+    for k, d, e in cs.K9_TIMED:
+        seg = torch.as_tensor(Topology.uniform(k, e).segment_ids, device=dev)
+        plan = seg_k.membership_plan(seg.cpu().numpy(), e, dev) if planned else None
+        g = torch.Generator(device=dev).manual_seed(k + d)
+        copies = [(torch.randn((k, d), generator=g, device=dev),
+                   (torch.rand((k,), generator=g, device=dev) < 0.8).float())
+                  for _ in range(max(2, -(-cs.L2_FLUSH_BYTES // (4 * k * d))))]
+        turn = itertools.cycle(copies)
+        key = f"K9_{k}_{d}_{e}"
+        members = plan if planned else seg
+        merge = lambda: hierarchy._sums_and_mass(*next(turn), members, e)
+        t = cs.timed(torch, merge, 50)
+        out[f"{key}_function_ms"], out[f"{key}_function_queued"] = t["ms"], t["queued"]
+        out[f"{key}_function_device_ops"] = len(cs.device_ops(torch, merge))
+        if planned:
+            def kernel():
+                v, w = next(turn)
+                return seg_k.segment_reduce(v, plan, w, e, with_mass=True)
+        else:  # the kernel on the payload with the ones column the merge appends
+            copies = [(torch.cat([v, torch.ones((k, 1), device=dev)], 1), w) for v, w in copies]
+            turn = itertools.cycle(copies)
+
+            def kernel():
+                v, w = next(turn)
+                return seg_k.segment_reduce(v, seg, w, e)
+
+        out[f"{key}_kernel_ms"] = cs.timed(torch, kernel, 50)["ms"]
+        del copies, turn
+    fused = hasattr(quantize, "fake_quant_fused")  # this checkout's kernel computes the scale
+    for rows, d in cs.K10_TIMED:
+        g = torch.Generator(device=dev).manual_seed(rows + d)
+        copies = []
+        for _ in range(max(1, -(-cs.L2_FLUSH_BYTES // (12 * rows * d)))):
+            x = torch.randn((rows, d), generator=g, device=dev)
+            copies.append((x, torch.rand((rows, d), generator=g, device=dev),
+                           quantize.quant_scale(x, 127)))
+        turn = itertools.cycle(copies)
+        codec = QuantCodec(8)
+        key = f"K10_{rows}_{d}"
+        for tag, trip in (("", lambda: codec.roundtrip(*next(turn)[:2])),
+                          ("_no_u", lambda: codec.roundtrip(next(turn)[0]))):
+            t = cs.timed(torch, trip, 50)  # 50: the parent's 7-8 operations a call fit the queue
+            out[f"{key}_function{tag}_ms"] = t["ms"]
+            out[f"{key}_function{tag}_queued"] = t["queued"]
+            out[f"{key}_function{tag}_device_ops"] = len(cs.device_ops(torch, trip))
+        if fused:
+            out[f"{key}_kernel_ms"] = cs.timed(
+                torch, lambda: quantize.fake_quant_fused(*next(turn)[:2], qmax=127), 200)["ms"]
+        out[f"{key}_given_scale_kernel_ms"] = cs.timed(
+            torch, lambda: quantize.fake_quant(*next(turn), qmax=127), 200)["ms"]
+        del copies, turn
+
+
+def fl(cs, torch, out) -> None:
+    import time
+
+    import numpy as np
+
+    from repro_torch.configs import fedrf_paper
+    from repro_torch.data import make_domains
+    from repro_torch.federated import FedRFTCATrainer, ProtocolConfig
+    from repro_torch.fleet import Topology
+
+    doms = make_domains(cs.FL_K + 1, 400, shift=1.2, seed=3)
+    cfg = ProtocolConfig(
+        n_rounds=cs.FL_ROUNDS, t_c=fedrf_paper.PROTOCOL.t_c, warmup_rounds=cs.FL_WARMUP,
+        lr=fedrf_paper.PROTOCOL.lr, drop_setting="III", seed=cs.SEED, engine="batched",
+        topology=Topology.uniform(cs.FL_K, cs.FL_EDGES), client_chunk=cs.FL_CHUNK,
+        transport="wire", codec="qint8", edge_codec="qint8")
+    t0 = time.perf_counter()
+    tr = FedRFTCATrainer(doms[:cs.FL_K], doms[cs.FL_K], fedrf_paper.CLIENT, cfg,
+                         device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    out["FL_warmup_s"] = time.perf_counter() - t0
+    lat = []
+    step = tr.round
+
+    def timed_round(t):
+        t1 = time.perf_counter()
+        res = step(t)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+        return res
+
+    tr.round = timed_round
+    t0 = time.perf_counter()
+    tr.train()
+    torch.cuda.synchronize()
+    out["FL_train_s"] = time.perf_counter() - t0
+    out["FL_rounds"] = len(lat)
+    out["FL_round_ms_p50"] = float(np.percentile(lat, 50))
+    out["FL_round_ms_p99"] = float(np.percentile(lat, 99))
+    out["FL_acc_end"] = tr.evaluate()
+
+
 def k11b(cs, torch, out) -> None:
     from repro_torch.kernels import flash_attention as fa
 
@@ -230,7 +356,7 @@ def k11b(cs, torch, out) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("family", choices=("seed_fused", "operand", "k1", "all", "split", "bf16",
-                                       "k11b"))
+                                       "k11b", "fleet", "fl"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -246,8 +372,8 @@ def main() -> int:
     dev = torch.device("cuda")
     _build.build_all()
     out = {"device": torch.cuda.get_device_name(0), "root": str(ROOT), "family": args.family}
-    if args.family == "k11b":
-        k11b(cs, torch, out)
+    if args.family in ("k11b", "fleet", "fl"):
+        {"k11b": k11b, "fleet": fleet, "fl": fl}[args.family](cs, torch, out)
         print(json.dumps(out))
         return 0
     doms = make_domains(2, cs.N_S, dim=cs.P, seed=cs.SEED)

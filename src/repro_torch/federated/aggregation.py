@@ -69,16 +69,20 @@ def staleness_weights(
     return w.astype(np.float32)
 
 
-def edge_weighted_sums(values: torch.Tensor, seg_ids: torch.Tensor, weights: torch.Tensor,
-                       n_edges: int) -> torch.Tensor:
+def edge_weighted_sums(values: torch.Tensor, seg_ids, weights: torch.Tensor, n_edges: int, *,
+                       with_mass: bool = False):
     """Grouped weighted sums ``out[e] = sum_{k: seg[k]=e} w_k * values[k]``:
-    values (K, D), seg_ids (K,) ints, weights (K,) -> (n_edges, D) fp32.
+    values (K, D), seg_ids (K,) ints or their
+    ``kernels.segment_reduce.MembershipPlan``, weights (K,) -> (n_edges, D)
+    fp32, and with ``with_mass`` also the (n_edges,) masses
+    ``sum_{k: seg[k]=e} w_k``.
 
-    On CUDA tensors one launch of the K9 kernel; on CPU tensors its plain
-    version, the reference's dense weighted-membership contraction (the
-    reference makes the same split between the TPU and elsewhere).  Tensors
-    on different devices raise."""
-    return _segment.segment_reduce(values, seg_ids, weights, n_edges)
+    On CUDA tensors one launch of the K9 kernel (given the ids alone, the plan
+    is built on the card first); on CPU tensors its plain version, the
+    reference's dense weighted-membership contraction (the reference makes
+    the same split between the TPU and elsewhere).  Tensors on different
+    devices raise."""
+    return _segment.segment_reduce(values, seg_ids, weights, n_edges, with_mass=with_mass)
 
 
 def fedavg_w_rf(source_params: list, target_params, participating: list[int]):

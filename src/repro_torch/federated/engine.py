@@ -59,6 +59,7 @@ from torch.func import grad_and_value
 from repro_torch.federated.model import ClientConfig, client_message, source_loss, target_loss
 from repro_torch.fleet import hierarchy
 from repro_torch.fleet.sharding import chunked_vmap
+from repro_torch.kernels.segment_reduce import membership_plan
 from repro_torch.obs import sentinel
 from repro_torch.optim import apply_updates
 from repro_torch.robust.rules import MeanRule
@@ -141,10 +142,12 @@ class BatchedRoundEngine:
         self.faults = faults
         self.probe = probe
         if topology is not None:
-            self._seg_ids = torch.as_tensor(topology.segment_ids, device=self.device)
+            # the segment ids with K9's membership plan, built on the host
+            # once for the engine's life
+            self._plan = membership_plan(topology.segment_ids, topology.n_edges, self.device)
             self._n_edges = topology.n_edges
         else:
-            self._seg_ids, self._n_edges = None, 0
+            self._plan, self._n_edges = None, 0
         self.round = sentinel.wrap("engine.round", self.round)
         self.flush = sentinel.wrap("engine.flush", self.flush)
         self.warmup = sentinel.wrap("engine.warmup", self.warmup)
@@ -246,9 +249,9 @@ class BatchedRoundEngine:
         messages (flat), or of the E per-edge pooled moments and their masses
         (two-tier).  ``probes`` (a dict or None) takes the delivered moment
         mass and the rule's per-row (client, or edge) attribution."""
-        if self._seg_ids is not None:
+        if self._plan is not None:
             msgs, weights = hierarchy.edge_moment_merge(
-                msgs, weights, self._seg_ids, self._n_edges,
+                msgs, weights, self._plan, self._n_edges,
                 self._edge_fn("moments", chan_key, (4,)))
         if probes is not None:
             probes["moment_mass"] = torch.sum(weights)
@@ -269,11 +272,11 @@ class BatchedRoundEngine:
         (flat) or the edge partials and the server merge (two-tier).
         ``probes`` takes the rule's attribution of the rows it merged (the
         uplinks, or the edge partial means) as ``attribution_<kind>``."""
-        if self._seg_ids is None:
+        if self._plan is None:
             if probes is not None:
                 probes[f"attribution_{kind}"] = self.rule.attribution(values, wsel)
             return self.rule.weighted_sum(values, wsel)
-        sums, masses = hierarchy.edge_param_merge(values, wsel, self._seg_ids, self._n_edges,
+        sums, masses = hierarchy.edge_param_merge(values, wsel, self._plan, self._n_edges,
                                                   self._edge_fn(kind, chan_key, path))
         if probes is not None:
             shaped = masses.reshape((-1,) + (1,) * (sums.ndim - 1))

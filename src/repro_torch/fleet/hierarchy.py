@@ -22,9 +22,11 @@ so quantization scales stay sane; the server multiplies them back by the
 masses the edges report.  Without a tier-2 codec the partials pass untouched.
 
 Every grouped sum goes through ``federated.aggregation.edge_weighted_sums``
-(the K9 kernel on the card, one launch per merge), with a ones column
-appended to the payload so the partial sums and the masses come out of one
-reduction: ``mass[e] = sum_{k in e} w_k``.
+with its masses: on the card one launch of the K9 kernel per merge, which
+writes the partial sums and ``mass[e] = sum_{k in e} w_k`` itself, reading
+the edge membership from the engine's plan (built once per topology and
+passed in place of the segment ids); on the CPU the reference's contraction
+of the payload with a ones column appended.
 """
 from __future__ import annotations
 
@@ -35,25 +37,22 @@ from repro_torch import obs
 _MASS_EPS = 1e-9  # empty-edge guard; a zero mass also zeroes the merge weight
 
 
-def _sums_and_mass(flat: torch.Tensor, weights: torch.Tensor, seg_ids: torch.Tensor,
-                   n_edges: int):
-    """((E, D) partial sums, (E,) masses) from one segment reduce."""
+def _sums_and_mass(flat: torch.Tensor, weights: torch.Tensor, seg_ids, n_edges: int):
+    """((E, D) partial sums, (E,) masses) from one segment reduce; ``seg_ids``
+    the (K,) ids or the topology's ``kernels.segment_reduce.MembershipPlan``."""
     # deferred: federated/__init__ imports the engine, which imports this module
     from repro_torch.federated.aggregation import edge_weighted_sums
 
     obs.metrics().counter("fleet.edge_merges").inc(clients=flat.shape[0], edges=n_edges)
-    aug = torch.cat([flat, torch.ones((flat.shape[0], 1), dtype=flat.dtype,
-                                      device=flat.device)], dim=1)
-    out = edge_weighted_sums(aug, seg_ids, weights, n_edges)
-    return out[:, :-1], out[:, -1]
+    return edge_weighted_sums(flat, seg_ids, weights, n_edges, with_mass=True)
 
 
-def edge_moment_merge(msgs: torch.Tensor, weights: torch.Tensor, seg_ids: torch.Tensor,
-                      n_edges: int, channel=None):
+def edge_moment_merge(msgs: torch.Tensor, weights: torch.Tensor, seg_ids, n_edges: int,
+                      channel=None):
     """Per-edge pooled moment uplinks ``(pooled (E, 2N), mass (E,))`` from
     (K, 2N) messages and (K,) weights.  ``channel``: the tier-2 round trip of
     the (E, 2N) stack, or None.  A singleton member of weight 1 pools to its
-    own message bit for bit."""
+    own message bit for bit.  ``seg_ids``: as :func:`_sums_and_mass`'s."""
     sums, mass = _sums_and_mass(msgs, weights, seg_ids, n_edges)
     pooled = sums / torch.clamp_min(mass, _MASS_EPS)[:, None]
     if channel is not None:
@@ -61,12 +60,13 @@ def edge_moment_merge(msgs: torch.Tensor, weights: torch.Tensor, seg_ids: torch.
     return pooled, mass
 
 
-def edge_param_merge(values: torch.Tensor, weights: torch.Tensor, seg_ids: torch.Tensor,
-                     n_edges: int, channel=None):
+def edge_param_merge(values: torch.Tensor, weights: torch.Tensor, seg_ids, n_edges: int,
+                     channel=None):
     """Per-edge partial parameter sums ``(sums (E, ...), mass (E,))`` of a
     (K, ...) stack.  With a tier-2 ``channel`` the edge uplink is the
     normalized partial mean, and the server re-weights it by the mass; without
-    one the raw partial sums pass untouched (pure reassociation)."""
+    one the raw partial sums pass untouched (pure reassociation).
+    ``seg_ids``: as :func:`_sums_and_mass`'s."""
     flat = values.reshape(values.shape[0], -1)
     sums_flat, mass = _sums_and_mass(flat, weights, seg_ids, n_edges)
     sums = sums_flat.reshape((n_edges,) + tuple(values.shape[1:]))

@@ -16,8 +16,11 @@ K8), a seed-fused fit and two independent servers' fits bit for bit; atol
 edges and over many chunks); atol 1e-5 on G / max|G| (K8; on nearly
 constant rows, or no farther from the float64 answer than plain where plain
 itself misses that); the fit's eigenvalues to rtol 1e-2 and its
-subspace to 1e-3; K10 bit for bit; K9 within 1e-5 * max(1, max|plain|) with
-equal non-finite positions; the trainers' parameters, card against CPU, to
+subspace to 1e-3; K10 bit for bit (its fused entry point against quant_scale
++ the plain version, NaN, Inf, zero and -0.0 rows included); K9's sums and
+masses within 1e-5 * max(1, max|plain|) with equal non-finite positions, two
+calls bit for bit; the fleet merge and the codec round trip one
+device operation each; the trainers' parameters, card against CPU, to
 1e-4 (under qint8, where a bin flips between the devices: every entry
 within one quantization step and 99 % within 1e-4); the async runtime's
 histories, card against CPU, equal; K11 within 2e-5 at fp32 and one bf16
@@ -819,8 +822,9 @@ def test_trainer_on_card_matches_cpu(card, engine):
     assert 0.0 <= tr.evaluate() <= 1.0
 
 
-# the hierarchy's launch shapes at chip_smoke's FL and FS (a ones column makes
-# D odd) and the reference test's ragged shapes (tests/test_fleet.py:85)
+# ops.segment_reduce (no plan, no masses) at the odd widths of the ones-column
+# merges at chip_smoke's FL and FS, and the reference test's ragged shapes
+# (tests/test_fleet.py:85)
 K9_SHAPES = [(1024, 1025, 64), (1024, 32769, 64), (1024, 161, 64), (1024, 6, 64), (4, 1025, 2),
              (4, 161, 4), (8, 16, 3), (130, 70, 5), (1, 5, 1), (1024, 300, 1024)]
 
@@ -873,6 +877,149 @@ def test_segment_reduce_kernel_spreads_non_finite_values_like_plain(card):
             assert err <= 1e-5 * max(1.0, plain[ok].abs().max().item())
     with pytest.raises(ValueError):
         ops.segment_reduce(v, seg.cpu(), w, n_segments=64)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+
+
+def _k9_close(got, want):
+    """Sums and masses within 1e-5 * max(1, max|plain|), with equal non-finite positions."""
+    for out, plain in zip(got, want):
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(out), test(plain))
+        ok = torch.isfinite(plain)
+        if ok.any():
+            tol = 1e-5 * max(1.0, plain[ok].abs().max().item())
+            assert (out[ok] - plain[ok]).abs().max().item() <= tol
+
+
+# chip_smoke.py's K9_CHECK: the hierarchy's launch shapes at FL, FT and FS (the
+# payload widths; the masses come out of the kernel) and ragged ones
+K9_MASS_SHAPES = [(1024, d, 64) for d in (1024, 32768, 160, 5)] + [
+    (4, d, e) for e in (2, 4) for d in (1024, 32768, 160, 5)] + [
+    (8, 16, 3), (130, 70, 5), (1, 5, 1), (1024, 1025, 64), (4, 0, 2)]
+
+
+@pytest.mark.parametrize("k,d,e", K9_MASS_SHAPES)
+def test_segment_reduce_masses_match_plain(card, k, d, e):
+    """K9 with the masses: the engine's host plan and one built on the card,
+    within 1e-5 of the ones-column contraction, two calls bit for bit."""
+    g = torch.Generator(device=card).manual_seed(k + d + e)
+    v = torch.randn((k, d), generator=g, device=card)
+    if k == 1024 and e == 64:
+        seg = torch.as_tensor(Topology.uniform(k, e).segment_ids, device=card)
+    else:
+        seg = torch.randint(0, e, (k,), generator=g, device=card, dtype=torch.int32)
+    w = (torch.rand((k,), generator=g, device=card) < 0.8).float()
+    plan = segment_reduce.membership_plan(seg.cpu().numpy(), e, card)
+    want = segment_reduce.sums_and_mass_plain(v, seg, w, e)
+    for members in (plan, seg):
+        before = segment_reduce.LAUNCHES["segment_reduce"]
+        got = segment_reduce.segment_reduce(v, members, w, e, with_mass=True)
+        again = segment_reduce.segment_reduce(v, members, w, e, with_mass=True)
+        torch.cuda.synchronize()
+        assert segment_reduce.LAUNCHES["segment_reduce"] == before + 2
+        assert got[0].shape == (e, d) and got[1].shape == (e,)
+        _k9_close(got, want)
+        assert all(_same_bits(a, b) for a, b in zip(got, again))
+
+
+def test_segment_reduce_masses_keep_the_non_finite_rule(card):
+    """NaN and Inf values, an Inf weight (every other edge's row and mass
+    NaN) and ids outside the edges (every edge NaN), as plain."""
+    v = torch.tensor([[1, 2, 3], [float("nan"), 5, 6], [7, 8, float("inf")], [1, 2, 3]],
+                     device=card)
+    cases = [(v, torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=card),
+              torch.tensor([1.0, 0.0, 1.0, 1.0], device=card), 2),
+             (v, torch.tensor([0, 5, -1, 1], dtype=torch.int32, device=card),
+              torch.tensor([1.0, 0.5, 1.0, float("nan")], device=card), 2)]
+    g = torch.Generator(device=card).manual_seed(3)
+    for d in (1024, 1025):
+        big = torch.randn((1024, d), generator=g, device=card)
+        big[3, 5], big[1021, 5], big[512, 900], big[1023, 40] = (
+            float("nan"), float("inf"), -float("inf"), float("nan"))
+        w = (torch.rand((1024,), generator=g, device=card) < 0.8).float()
+        seg = torch.as_tensor(Topology.uniform(1024, 64).segment_ids, device=card)
+        cases.append((big, seg, w, 64))
+        w_inf = w.clone()
+        w_inf[100] = float("inf")
+        cases.append((big, seg, w_inf, 64))
+    for v, seg, w, e in cases:
+        got = segment_reduce.segment_reduce(v, seg, w, e, with_mass=True)
+        _k9_close(got, segment_reduce.sums_and_mass_plain(v, seg, w, e))
+
+
+# chip_smoke.py's K10_CHECK
+K10_FUSED_SHAPES = [(1, 1024), (4, 1024), (5, 32768), (4, 160), (4, 5), (64, 1024), (65, 32768),
+                    (64, 160), (64, 5), (1024, 1024), (1025, 32768), (1024, 160), (1024, 5),
+                    (64, 32768), (7, 13), (2, 40000)]
+
+
+@pytest.mark.parametrize("rows,d", K10_FUSED_SHAPES)
+@pytest.mark.parametrize("bits", [8, 4])
+def test_fused_fake_quant_matches_quant_scale_and_plain(card, rows, d, bits):
+    """K10 with its scale in the kernel: bit for bit against quant_scale +
+    fake_quant_plain, with uniforms and without, on rows holding a NaN
+    (scale 1), +-Inf, zeros and -0.0."""
+    g = torch.Generator(device=card).manual_seed(rows * d + bits)
+    x = torch.randn((rows, d), generator=g, device=card) * 3.0
+    for r, val in enumerate((float("nan"), float("inf"), -float("inf")), start=1):
+        if r < rows:
+            x[r, (7 * r) % d] = val
+    for r, val in ((4, 0.0), (5, -0.0)):
+        if r < rows:
+            x[r] = val
+    u = torch.rand((rows, d), generator=g, device=card)
+    qmax = quantize.qmax_of(bits)
+    scale = quantize.quant_scale(x, qmax)
+    for u_in in (u, None):
+        before = quantize.LAUNCHES["fake_quant"]
+        out = quantize.fake_quant_fused(x, u_in, qmax=qmax)
+        torch.cuda.synchronize()
+        assert quantize.LAUNCHES["fake_quant"] == before + 1
+        plain = quantize.fake_quant_plain(x, torch.full_like(x, 0.5) if u_in is None else u_in,
+                                          scale, qmax=qmax)
+        assert _same_bits(out, plain)
+        rt = quantize.fake_quant_rows(x, u_in, bits=bits)
+        assert _same_bits(rt, plain)
+
+
+def test_quant_scale_divides_truly_on_the_card(card):
+    """quant_scale on the card equals the CPU's (a true divide, not a
+    multiply by the reciprocal of qmax)."""
+    x = torch.rand((4096, 7), device=card) * 100.0
+    assert torch.equal(quantize.quant_scale(x, 127).cpu(), quantize.quant_scale(x.cpu(), 127))
+
+
+def test_merge_and_round_trip_are_one_device_operation(card):
+    """hierarchy._sums_and_mass with the engine's plan and QuantCodec.roundtrip
+    each issue one device operation (torch.profiler: kernels, memsets, copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.comm.codecs import QuantCodec
+    from repro_torch.fleet import hierarchy
+
+    def ops_of(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    for k, d, e in ((1024, 32768, 64), (1024, 1024, 64), (4, 160, 2)):
+        seg_np = Topology.uniform(k, e).segment_ids
+        plan = segment_reduce.membership_plan(seg_np, e, card)
+        v = torch.randn((k, d), device=card)
+        w = torch.rand((k,), device=card)
+        assert len(ops_of(lambda: hierarchy._sums_and_mass(v, w, plan, e))) == 1
+    for rows, d in ((65, 32768), (5, 1024), (4, 5)):
+        x = torch.randn((rows, d), device=card)
+        u = torch.rand((rows, d), device=card)
+        assert len(ops_of(lambda: QuantCodec(8).roundtrip(x, u))) == 1
+        assert len(ops_of(lambda: QuantCodec(4).roundtrip(x))) == 1
 
 
 def test_two_tier_trainer_on_card_matches_cpu(card):
