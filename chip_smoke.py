@@ -22,11 +22,11 @@ Phases (any failed check raises, and the run exits non-zero):
      (``draw_omega``'s laplace) at N = 1000, n = 3612, timed, under the
      reference's rule element by element: within 2e-5 of plain, or, where
      plain itself is past that from the float64 answer, no farther from it
-     than plain, with the share of phases recomputed as fp32's FMA chain
-     (|z| >= 64, or terms large enough to cancel past the gate) counted by
-     the kernel (``counters=``); the same counts at a request's 300 columns,
-     reported, not gated (split over p there, plain's sgemm may sum k in
-     another order than the chain);
+     than plain, with the share of phases recomputed in float64 (|z| >= 64,
+     or terms large enough to cancel past the gate) counted by the kernel
+     (``counters=``); the same rule and counts, timed, at a request's widths,
+     n in {64, 300, 512} at N = 1000 and n = 300 at N = 4096 (split over p
+     there, where cuBLAS may sum k in another order than at 3612);
   4. fused Gram (K5 regime N = 1000, K6 regime N = 4096; S in {1, 4}, and
      the tensor-core tiles' edges ``FUSED_GRAM_EDGES``: N 65, p 7 and 40,
      n 795, each at the data's sigma and at the slice's own): atol 2e-5 on
@@ -38,19 +38,20 @@ Phases (any failed check raises, and the run exits non-zero):
      across blocks, the partials added in split order: gated); the Omega
      draws per element of K5 and K6, counted by the kernel; K5 with Cauchy
      draws (laplace) timed, with the share of phases the featurize
-     recomputes as fp32's FMA chain, under this phase's float64 rule;
+     recomputes in float64, under this phase's float64 rule;
   5. operand Gram (K2/K3) at N in {1000, 4096} with Omega from the port's
      ``draw_omega`` and at ``OPERAND_GRAM_EDGES`` (N 65 and 1000, p 7, 40
      and 2048, n 795, each at both sigmas): atol 2e-5 on G_H / max|G_H| and
      on u, under phase 4's float64 rule at an edge; two identical K2 calls
      at N = 1000 bit for bit (gated); K2 with a Cauchy Omega
      (laplace, N = 1000) under the same gate and rule, timed, with the share
-     of phases its featurize recomputes as fp32's FMA chain (the kernel's
-     count); seed-fused featurize (K7) at N = 4096 and at
+     of phases its featurize recomputes in float64 (the kernel's count);
+     seed-fused featurize (K7) at N = 4096 and at
      ``FUSED_K7_EDGES`` (N 65 and 1000, p 7 and 40, n 1 and 795, each at
      both sigmas): atol 2e-5, and its draws per Omega element as the kernel
      counts them (at most ceil(n / 1024)); K7 with laplace draws timed as K5
-     is, under phase 3's element rule; centered Gram (K8) at 2N in {2000, 8192} on K1's Sigma and at
+     is, under phase 3's element rule, at n = 3612 and at a request's 300
+     columns; centered Gram (K8) at 2N in {2000, 8192} on K1's Sigma and at
      ``K8_EDGES`` (K1's Sigma at the data's sigma on 7 and 40 rows: nearly
      constant rows; n 795 and 3611, not multiples of 4; 2N 130 and 2000,
      not multiples of 128): atol 1e-5 on G / max|G|, or, where plain itself
@@ -113,7 +114,9 @@ Phases (any failed check raises, and the run exits non-zero):
      two calls bit for bit, zero weights exact, and NaN/Inf values, a
      non-finite weight and ids outside the edges giving the plain version's
      non-finite positions; ``hierarchy._sums_and_mass`` one device operation
-     with the engine's plan; timed like K10 at (1024, 32768) and (1024, 1024)
+     with the engine's plan (by ``torch.profiler``, as K10's round trip: a
+     reading with no CUDA activity at all is taken again, up to three
+     readings, and reported); timed like K10 at (1024, 32768) and (1024, 1024)
      into 64 edges with masses: the kernel, the merge as the
      hierarchy calls it, the plain version, torch.matmul of the weighted
      membership, an empty launch;
@@ -143,6 +146,13 @@ Phases (any failed check raises, and the run exits non-zero):
             1024, 64)``, ``client_chunk=128``, qint8 on both tiers, 10 + 50
             rounds (round 50 merges the classifiers); server ingress below the
             flat K-uplink figure;
+       FLC  FL from one start (a CPU warm-up of 2 rounds, checkpointed and
+            restored on each device) for 4 rounds at T_C = 2, on the card
+            twice and on the CPU, the card drawing the CPU's channel
+            uniforms: both tiers' byte and message logs and the ingress by
+            kind equal, every leaf under AC's qint8 rule (phase 13), the
+            target accuracy within one of the 400 target points; whether
+            the two card runs agree bit for bit is reported;
        S    a short check against a reference: 5 + 5 rounds with the seed-fused
             Omega (K4), the card's parameters within 1e-4 of the CPU's;
        FS   S with ``Topology.of_groups([[0, 1], [2, 3]])``, ``client_chunk=2``,
@@ -429,8 +439,10 @@ import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -488,6 +500,8 @@ FED_WARMUP, FED_ROUNDS, FED_LEAF_TOL = 50, 100, 1e-4
 # come out of the kernel beside them), and tests/test_fleet.py:85's ragged ones
 # FL: the fleet at the scale of benchmarks/bench_fleet.py:113-124
 FL_K, FL_EDGES, FL_CHUNK, FL_WARMUP, FL_ROUNDS = 1024, 64, 128, 10, 50
+# FLC: FL from one CPU warm-up, then rounds with T_C = 2 on the card (twice) and the CPU
+FLC_WARMUP, FLC_ROUNDS, FLC_T_C = 2, 4, 2
 K9_CHECK = tuple((k, d, e) for k, e in ((FL_K, FL_EDGES), (4, 2), (4, 4))
                  for d in (1024, 32768, 160, 5)) + ((8, 16, 3), (130, 70, 5), (1, 5, 1),
                                                     (1024, 1025, 64))
@@ -703,18 +717,34 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return timed(torch, fn, reps)["ms"]
 
 
-def device_ops(torch, fn) -> list[str]:
+# readings of device_ops that held no CUDA activity at all and were taken again
+DEVICE_OPS_TRIES = 3
+DEVICE_OPS_EMPTY: list[str] = []
+
+
+def device_ops(torch, fn, what: str = "") -> list[str]:
     """The device operations (kernels, memsets, copies) of one call of
-    ``fn`` after a warm-up call, by ``torch.profiler``'s CUDA activity."""
+    ``fn`` after a warm-up call, by ``torch.profiler``'s CUDA activity.  A
+    reading with no CUDA activity at all (the tracer can miss a call's
+    activity; one reading of a one-operation round trip gave none) is taken
+    again, up to DEVICE_OPS_TRIES readings in all, each empty one logged and
+    kept in DEVICE_OPS_EMPTY; the last reading is returned, empty or not."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    tries = DEVICE_OPS_TRIES
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if names:
+            return names
+        DEVICE_OPS_EMPTY.append(f"{what} (reading {attempt} of {tries})")
+        log(f"[profile] {what}: reading {attempt} of {tries} held no CUDA activity")
+    return names
 
 
 def same_bits(torch, a, b) -> bool:
@@ -2952,36 +2982,35 @@ def main() -> int:
     )
     # a Cauchy Omega at the data's sigma: every phase's terms are large enough
     # to cancel past the gate (or reach |z| >= 64), so the recompute takes
-    # each as fp32's FMA chain from the operand
-    nf = 1000
-    om = draw_omega(SEED, nf, P, sigma=sigma, kernel="laplace", device=dev)
-    cnt = torch.zeros(3, dtype=torch.int64, device=dev)
-    sig_k = rff.rff(x, om, counters=cnt)
-    drawn, recomputed, redrawn = cnt.tolist()
-    if drawn or redrawn or not recomputed:
-        raise AssertionError(f"K1 laplace: counters {cnt.tolist()}, expected only recomputed "
-                             "phases")
-    z = om.double() @ x.double()
-    res = featurize_rule("K1 laplace", sig_k, rff.rff_plain(x, om),
-                         torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf))
-    del sig_k, z
-    res.update(ms=cuda_ms(torch, lambda: rff.rff(x, om), 10),
-               plain_ms=cuda_ms(torch, lambda: rff.rff_plain(x, om), 10),
-               recomputed_share=recomputed / (nf * n))
-    report["K1"]["laplace"] = res
-    log(f"[K1] laplace N={nf} p={P} n={n}: kernel {res['ms']:.3f} ms, plain "
-        f"{res['plain_ms']:.3f} ms, {100 * res['recomputed_share']:.2f} % of phases recomputed "
-        f"(kernel's count); {res}")
-    # at a request's width (split over p) plain's sgemm may sum k in another
-    # order than the chain: reported, not gated
-    xr = xt[:, :300].contiguous()
-    z = om.double() @ xr.double()
-    res_r = featurize_rule("K1 laplace n=300", rff.rff(xr, om), rff.rff_plain(xr, om),
-                           torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf), gate=False)
-    report["K1"]["laplace"]["request_300"] = res_r
-    log(f"[K1] laplace N={nf} n=300 (split over p; reported, not gated): {res_r}")
-    del xr, z
-    del om
+    # each in float64 from the operand; at the full width and at a request's
+    # (split over p, where cuBLAS may sum k in another order), each under the
+    # reference's element rule
+    def k1_laplace(nf, xk, what):
+        om = draw_omega(SEED, nf, P, sigma=sigma, kernel="laplace", device=dev)
+        w = xk.shape[1]
+        cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+        sig_k = rff.rff(xk, om, counters=cnt)
+        drawn, recomputed, redrawn = cnt.tolist()
+        if drawn or redrawn or not recomputed:
+            raise AssertionError(f"K1 laplace {what}: counters {cnt.tolist()}, expected only "
+                                 "recomputed phases")
+        z = om.double() @ xk.double()
+        res = featurize_rule(f"K1 laplace {what}", sig_k, rff.rff_plain(xk, om),
+                             torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf))
+        del sig_k, z
+        res.update(ms=cuda_ms(torch, lambda: rff.rff(xk, om), 10),
+                   plain_ms=cuda_ms(torch, lambda: rff.rff_plain(xk, om), 10),
+                   recomputed_share=recomputed / (nf * w),
+                   slices=rff.split_plan(nf, P, w, sms=sms)["slices"])
+        log(f"[K1] laplace {what} p={P}: kernel {res['ms']:.4f} ms ({res['slices']} slices of "
+            f"p), plain {res['plain_ms']:.4f} ms, {100 * res['recomputed_share']:.2f} % of "
+            f"phases recomputed (kernel's count); {res}")
+        return res
+
+    report["K1"]["laplace"] = k1_laplace(1000, x, f"N=1000 n={n}")
+    report["K1"]["laplace"]["requests"] = {
+        f"N={nf} n={w}": k1_laplace(nf, xt[:, :w].contiguous(), f"N={nf} n={w}")
+        for nf, w in ((1000, 64), (1000, 300), (1000, 512), (4096, 300))}
     torch.cuda.synchronize()
 
     # ---- 4. fused Gram ----------------------------------------------------
@@ -3081,7 +3110,7 @@ def main() -> int:
 
     def fused_counts(fn, **kw):
         """One check launch with the featurize's counters: (Omega elements
-        drawn, phases recomputed as fp32's FMA chain, Omega elements that
+        drawn, phases recomputed in float64, Omega elements that
         recompute drew)."""
         cnt = torch.zeros(3, dtype=torch.int64, device=dev)
         fn(counters=cnt, **kw)
@@ -3132,20 +3161,20 @@ def main() -> int:
     report["K5"]["bit_identical_repeat"] = dict(k5_same, gated=True)
     report["K5"]["edges"] = gram_edges
 
-    def laplace_run(key, fn, plain, nf, draws, err, **kw):
-        """``key`` with Cauchy draws at the main shape: time, plain time,
-        the share of phases recomputed as fp32's FMA chain, and ``err`` of
-        the kernel's and plain's outputs (which gates them)."""
+    def laplace_run(key, fn, plain, nf, draws, err, cols=n, **kw):
+        """``key`` with Cauchy draws on ``cols`` columns: time, plain time,
+        the share of phases recomputed in float64, and ``err`` of the
+        kernel's and plain's outputs (which gates them)."""
         kw.update(n_features=nf, seed=SEED, sigma=sigma, rf_kernel="laplace")
         drawn, recomputed, redrawn = fused_counts(fn, **kw)
         res = dict(ms=cuda_ms(torch, lambda: fn(**kw), 3),
                    plain_ms=cuda_ms(torch, lambda: plain(**kw), 3),
-                   recomputed_share=recomputed / (nf * n * draws),
+                   recomputed_share=recomputed / (nf * cols * draws),
                    draws_per_omega_element=drawn / (nf * P * draws),
                    recompute_draws_per_omega_element=redrawn / (nf * P * draws),
                    **err(fn(**kw), plain(**kw)))
         report[key]["laplace"] = res
-        log(f"[{key}] laplace N={nf} S={draws} p={P} n={n}: kernel {res['ms']:.3f} ms, plain "
+        log(f"[{key}] laplace N={nf} S={draws} p={P} n={cols}: kernel {res['ms']:.3f} ms, plain "
             f"{res['plain_ms']:.3f} ms, {100 * res['recomputed_share']:.2f} % of phases "
             f"recomputed (Omega redrawn {res['recompute_draws_per_omega_element']:g}x per "
             f"element), from plain {res}")
@@ -3213,8 +3242,8 @@ def main() -> int:
                 f"{report[key]['bit_identical_repeat']})")
         del om
     report["K2"]["edges"] = operand_edges
-    # K2 with a Cauchy Omega at the data's sigma: about half the phases reach
-    # |z| >= 64 and are recomputed as fp32's FMA chain from the operand
+    # K2 with a Cauchy Omega at the data's sigma: every phase's terms may
+    # cancel past the gate, and each is recomputed in float64 from the operand
     nf = 1000
     om = draw_omega(SEED, nf, P, sigma=sigma, kernel="laplace", device=dev)
     res = operand_gram_check(x, om, f"N={nf} laplace", exact=True)
@@ -3276,16 +3305,26 @@ def main() -> int:
         f"drawn {draws_per:g}x per element (kernel's count; ceil(n / 1024) = {-(-n // 1024)}), "
         f"{recomputed} phases recomputed")
     del om
-    def k7_laplace_rule(k, plain):
-        om = prng.fused_omega_block_plain(SEED, nf, P, ensemble_index=1, sigma=sigma,
-                                          rf_kernel="laplace", device=dev)
-        z = om.double() @ x.double()
-        del om
-        return featurize_rule("K7 laplace", k, plain,
-                              torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf))
+    def k7_laplace_rule(xk):
+        def rule(k, plain):
+            om = prng.fused_omega_block_plain(SEED, nf, P, ensemble_index=1, sigma=sigma,
+                                              rf_kernel="laplace", device=dev)
+            z = om.double() @ xk.double()
+            del om
+            return featurize_rule(f"K7 laplace n={xk.shape[1]}", k, plain,
+                                  torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(nf))
+        return rule
 
-    laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1, k7_laplace_rule, x=x,
+    laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1, k7_laplace_rule(x), x=x,
                 ensemble_index=1)
+    # and at a request's 300 columns, where cuBLAS may sum k in another order
+    laplace = report["K7"]["laplace"]
+    xr = xt[:, :300].contiguous()
+    laplace_run("K7", rff.rff_fused, rff.rff_fused_plain, nf, 1, k7_laplace_rule(xr), x=xr,
+                ensemble_index=1, cols=300)
+    laplace["request_300"] = report["K7"]["laplace"]
+    report["K7"]["laplace"] = laplace
+    del xr
 
     def centered_check(sig, what, exact=False):
         """K8's gate, G/max within 1e-5 of plain, or, where plain itself is
@@ -3794,7 +3833,8 @@ def main() -> int:
     for rows, d in K10_TIMED:
         xq, uq = k10_rows(rows, d, rows + d)
         for tag, u_in in (("u", uq), ("u=None", None)):
-            names = device_ops(torch, lambda: QuantCodec(8).roundtrip(xq, u_in))
+            names = device_ops(torch, lambda: QuantCodec(8).roundtrip(xq, u_in),
+                               f"K10 round trip ({rows}, {d}) {tag}")
             k10_ops[f"{rows}x{d} {tag}"] = names
             if len(names) != 1:
                 raise AssertionError(f"K10 round trip ({rows}, {d}) {tag}: {len(names)} device "
@@ -3929,7 +3969,8 @@ def main() -> int:
     for k, d, e in K9_TIMED:
         v, seg, w = k9_inputs(k, d, e, 7, uniform_edges=True)
         plan = seg_k.membership_plan(seg.cpu().numpy(), e, dev)
-        names = device_ops(torch, lambda: hierarchy._sums_and_mass(v, w, plan, e))
+        names = device_ops(torch, lambda: hierarchy._sums_and_mass(v, w, plan, e),
+                           f"K9 merge ({k}, {d}) -> {e}")
         k9_ops[f"{k}x{d} -> {e}"] = names
         if len(names) != 1:
             raise AssertionError(f"K9 merge ({k}, {d}) -> {e}: {len(names)} device operations, "
@@ -3982,6 +4023,8 @@ def main() -> int:
         small=dict(shape=f"({K9_TIMED[1][0]}, {K9_TIMED[1][1]}) into {K9_TIMED[1][2]}",
                    **small_k9),
     )
+    for key in ("K9", "K10"):  # readings with no CUDA activity, taken again
+        report[key]["device_ops_empty_readings"] = list(DEVICE_OPS_EMPTY)
     counters["segment_reduce"] = seg_k.LAUNCHES
     torch.cuda.synchronize()
     log(f"[time] phases 8-9 (K10, K9) {time.perf_counter() - t_phase:.1f} s")
@@ -3991,6 +4034,7 @@ def main() -> int:
     from repro_torch.comm.netsim import TraceScenario
     from repro_torch.configs import fedrf_paper
     from repro_torch.federated import FedRFTCATrainer, ProtocolConfig, RoundPlan
+    from repro_torch.federated.engine import BatchedRoundEngine
     from repro_torch.robust import FaultConfig
     from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -4076,9 +4120,43 @@ def main() -> int:
         return tree_leaves(tr.tgt_params) + [
             leaf for i in range(tr.k) for leaf in tree_leaves(tr._src_param(i))]
 
-    def train_run(tag, sources, target, cfg=fed_cfg, device=dev, finite=True, **kw):
+    def leaf_err(tr, ref):
+        """max over leaves of |a - b| / max(1, max|b|), ``ref`` a list of leaves."""
+        return max(float((a.cpu() - b.cpu()).abs().max()) / max(1.0, float(b.abs().max()))
+                   for a, b in zip(params_of(tr), ref))
+
+    def qint8_parity(tr, ref):
+        """The card trainer ``tr`` against the CPU's leaves ``ref`` under the
+        repo's qint8 rule (tests/test_torch_federated.py): a qint8 bin can
+        flip where the two devices' payloads part by one rounding, so every
+        entry within one quantization step of its leaf and 99 % within
+        FED_LEAF_TOL of max(1, max|leaf|), unless all are within that."""
+        within, total, step_ok = 0, 0, True
+        for a, b in zip(params_of(tr), ref):
+            d = (a.cpu() - b).abs()
+            within += int((d <= FED_LEAF_TOL * max(1.0, float(b.abs().max()))).sum())
+            total += d.numel()
+            step_ok &= float(d.max()) <= max(float(b.abs().max()) / 127, FED_LEAF_TOL)
+        err = leaf_err(tr, ref)
+        return dict(max_leaf_err_over_max1_leaf=err, share_within_tol=within / total,
+                    ok=err <= FED_LEAF_TOL or (step_ok and within >= 0.99 * total))
+
+    def restore_start(tr, start, device):
+        """Give trainer ``tr`` the state checkpointed in ``start``; on the card
+        its channel draws come from the CPU's generator (the card's draws
+        other numbers)."""
+        tr.restore_state(start)
+        if torch.device(device).type == "cuda" and tr._engine.channel:
+            shim = SimpleNamespace(channel_seed=tr._engine.channel_seed,
+                                   device=torch.device("cpu"))
+            tr._engine.channel_uniforms = lambda *a: BatchedRoundEngine.channel_uniforms(
+                shim, *a).to(device)
+
+    def train_run(tag, sources, target, cfg=fed_cfg, device=dev, finite=True, start=None, **kw):
         """One trainer run; ``finite`` says whether its parameters must end
-        finite (True) or must not (False: the mean rule under NaN faults)."""
+        finite (True) or must not (False: the mean rule under NaN faults);
+        ``start`` (a checkpoint directory) gives the trainer its state
+        (:func:`restore_start`)."""
         for c in counters.values():
             for k in c:
                 c[k] = 0
@@ -4090,6 +4168,8 @@ def main() -> int:
         t0 = time.perf_counter()
         tr = FedRFTCATrainer(sources, target, cfg, ProtocolConfig(**{**fed_kw, **kw}),
                              device=device)
+        if start is not None:
+            restore_start(tr, start, device)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         acc_warm = tr.evaluate()
@@ -4234,6 +4314,58 @@ def main() -> int:
     cross["FL_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("FL")
     cross["FL_k9_launch_shapes"] = check_main_path_k9("FL")
     del tr_fl  # doms_fl stays for phase 13's AL
+    # FLC: FL's fleet from one start (a CPU warm-up, checkpointed) for a few
+    # rounds with T_C rounds among them, on the card twice and on the CPU, the
+    # card drawing the CPU's channel uniforms: both tiers' byte and message
+    # logs and the server ingress equal, every leaf under AC's qint8 rule, the
+    # target accuracy within one of the 400 target points; whether the two
+    # card runs agree bit for bit is reported
+    t_flc = time.perf_counter()
+    flc_kw = dict(engine="batched", topology=Topology.uniform(FL_K, FL_EDGES),
+                  client_chunk=FL_CHUNK, edge_codec="qint8", t_c=FLC_T_C, **wire_kw)
+    with tempfile.TemporaryDirectory() as flc_dir:
+        tr_ws = FedRFTCATrainer(doms_fl[:FL_K], doms_fl[FL_K], fed_cfg, ProtocolConfig(**{
+            **fed_kw, **flc_kw, "warmup_rounds": FLC_WARMUP}), device="cpu")
+        tr_ws.save_state(flc_dir, step=0)
+        del tr_ws
+        flc_run = dict(flc_kw, warmup_rounds=0, n_rounds=FLC_ROUNDS, start=flc_dir)
+        tr_flc, runs["FLC_card"] = train_run("FLC card", doms_fl[:FL_K], doms_fl[FL_K],
+                                             **flc_run)
+        first = [t.detach().cpu().clone() for t in params_of(tr_flc)]
+        del tr_flc
+        tr_flc, runs["FLC_card_again"] = train_run("FLC card again", doms_fl[:FL_K],
+                                                   doms_fl[FL_K], **flc_run)
+        tr_flp, runs["FLC_cpu"] = train_run("FLC cpu", doms_fl[:FL_K], doms_fl[FL_K],
+                                            device="cpu", **flc_run)
+    cross["FLC_card_runs_bit_for_bit"] = all(
+        torch.equal(a, b.cpu()) for a, b in zip(first, params_of(tr_flc)))
+    for key in ("bytes_by_kind", "messages_by_kind", "ingress_bytes", "edge_bytes_by_kind",
+                "edge_messages_by_kind"):
+        if runs["FLC_card"][key] != runs["FLC_cpu"][key]:
+            raise AssertionError(f"run FLC: {key} {runs['FLC_card'][key]} on the card, "
+                                 f"{runs['FLC_cpu'][key]} on the CPU")
+    flc = qint8_parity(tr_flc, params_of(tr_flp))
+    cross["FLC_card_vs_cpu"] = flc
+    if not flc["ok"]:
+        raise AssertionError(f"run FLC: card and CPU outside the qint8 rule: {flc}")
+    n_target = len(doms_fl[FL_K].y)
+    acc_points = abs(runs["FLC_card"]["acc_end"] - runs["FLC_cpu"]["acc_end"]) * n_target
+    cross["FLC_acc_points_apart"] = acc_points
+    if not acc_points <= 1.0 + 1e-6:
+        raise AssertionError(f"run FLC: target accuracy {runs['FLC_card']['acc_end']} on the "
+                             f"card, {runs['FLC_cpu']['acc_end']} on the CPU: "
+                             f"{acc_points:.2f} of {n_target} points apart")
+    if runs["FLC_card"]["k9_launches"] <= 0 or runs["FLC_card"]["k10_launches"] <= 0:
+        raise AssertionError(f"run FLC: K9 {runs['FLC_card']['k9_launches']}, K10 "
+                             f"{runs['FLC_card']['k10_launches']} launches")
+    cross["FLC_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("FLC card")
+    cross["FLC_k9_launch_shapes"] = check_main_path_k9("FLC card")
+    cross["FLC_seconds"] = time.perf_counter() - t_flc
+    log(f"[run FLC] card vs CPU from one start, {FLC_ROUNDS} rounds at T_C = {FLC_T_C}: logs and "
+        f"ingress equal, {flc}, accuracy {runs['FLC_card']['acc_end']:.4f} vs "
+        f"{runs['FLC_cpu']['acc_end']:.4f} ({acc_points:.2f} points apart); two card runs bit "
+        f"for bit: {cross['FLC_card_runs_bit_for_bit']}; {cross['FLC_seconds']:.1f} s")
+    del tr_flc, tr_flp, first
     fused_cfg = dataclasses.replace(fed_cfg, rff_impl="fused")
     short = dict(cfg=fused_cfg, engine="batched", warmup_rounds=5, n_rounds=5, t_c=2)
     tr_sc, runs["S_card"] = train_run("S card", doms5[:4], doms5[4], **short)
@@ -4740,11 +4872,7 @@ def main() -> int:
         f"{runs['L']['phase_12_s']:.1f} s")
 
     # ---- 13. the async runtime (fedsim) through AsyncScheduler.run ----------
-    import tempfile
-    from types import SimpleNamespace
-
     from repro_torch.comm.netsim import LinkModel, LinkScenario
-    from repro_torch.federated.engine import BatchedRoundEngine
     from repro_torch.fedsim import AsyncConfig, AsyncScheduler, markov_trace
 
     t_phase = time.perf_counter()
@@ -4753,11 +4881,6 @@ def main() -> int:
 
     def history_rows(hist):
         return [{k: v for k, v in h.to_dict().items() if k != "acc"} for h in hist]
-
-    def leaf_err(tr, ref):
-        """max over leaves of |a - b| / max(1, max|b|), ``ref`` a list of leaves."""
-        return max(float((a.cpu() - b.cpu()).abs().max()) / max(1.0, float(b.abs().max()))
-                   for a, b in zip(params_of(tr), ref))
 
     def async_run(tag, sources, target, acfg, *, flushes, cfg=fed_cfg, device=dev, start=None,
                   links=None, availability=None, edge_links=None, **kw):
@@ -4778,12 +4901,7 @@ def main() -> int:
         tr = FedRFTCATrainer(sources, target, cfg, ProtocolConfig(**{**fed_kw, **kw}),
                              device=device)
         if start is not None:
-            tr.restore_state(start)
-            if on_card and tr._engine.channel:
-                shim = SimpleNamespace(channel_seed=tr._engine.channel_seed,
-                                       device=torch.device("cpu"))
-                tr._engine.channel_uniforms = lambda *a: BatchedRoundEngine.channel_uniforms(
-                    shim, *a).to(device)
+            restore_start(tr, start, device)
         if on_card:
             torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
@@ -4916,23 +5034,12 @@ def main() -> int:
     del tr_fc, tr_fp, hist_fc, hist_fp
     if history_rows(hist_acc) != history_rows(hist_acp):
         raise AssertionError("run AC: the card's and the CPU's histories differ")
-    ac_err = leaf_err(tr_acc, params_of(tr_acp))
-    # a qint8 bin can flip where the card's and the CPU's payloads part by one
-    # rounding (tests/test_torch_federated.py's qint8 parity rule): then every
-    # entry must be within one quantization step of its leaf and 99 % within
-    # FED_LEAF_TOL of max(1, max|leaf|)
-    within, total, step_ok = 0, 0, True
-    for a, b in zip(params_of(tr_acc), params_of(tr_acp)):
-        d = (a.cpu() - b).abs()
-        within += int((d <= FED_LEAF_TOL * max(1.0, float(b.abs().max()))).sum())
-        total += d.numel()
-        step_ok &= float(d.max()) <= max(float(b.abs().max()) / 127, FED_LEAF_TOL)
-    cross["AC_card_vs_cpu_max_leaf_err_over_max1_leaf"] = ac_err
-    cross["AC_card_vs_cpu_share_within_tol"] = within / total
+    ac = qint8_parity(tr_acc, params_of(tr_acp))
+    cross["AC_card_vs_cpu_max_leaf_err_over_max1_leaf"] = ac["max_leaf_err_over_max1_leaf"]
+    cross["AC_card_vs_cpu_share_within_tol"] = ac["share_within_tol"]
     cross["AC_history_rows_equal"] = True
-    if not (ac_err <= FED_LEAF_TOL or (step_ok and within >= 0.99 * total)):
-        raise AssertionError(f"run AC: card and CPU differ by {ac_err} of max(1, max|leaf|), "
-                             f"{within} of {total} entries within {FED_LEAF_TOL}")
+    if not ac["ok"]:
+        raise AssertionError(f"run AC: card and CPU outside the qint8 rule: {ac}")
     cross["AC_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AC card")
     del tr_acc, tr_acp, hist_acc, hist_acp
     # AC-mat: AC again with the default materialized Omega (draw_omega), which
@@ -4951,18 +5058,11 @@ def main() -> int:
         raise AssertionError("run AC-mat: the card's and the CPU's Omega differ")
     if history_rows(hist_mc) != history_rows(hist_mp):
         raise AssertionError("run AC-mat: the card's and the CPU's histories differ")
-    mat_err = leaf_err(tr_mc, params_of(tr_mp))
-    within, total, step_ok = 0, 0, True
-    for a, b in zip(params_of(tr_mc), params_of(tr_mp)):
-        d = (a.cpu() - b).abs()
-        within += int((d <= FED_LEAF_TOL * max(1.0, float(b.abs().max()))).sum())
-        total += d.numel()
-        step_ok &= float(d.max()) <= max(float(b.abs().max()) / 127, FED_LEAF_TOL)
-    cross["AC_mat_card_vs_cpu_max_leaf_err_over_max1_leaf"] = mat_err
-    cross["AC_mat_card_vs_cpu_share_within_tol"] = within / total
-    if not (mat_err <= FED_LEAF_TOL or (step_ok and within >= 0.99 * total)):
-        raise AssertionError(f"run AC-mat: card and CPU differ by {mat_err} of max(1, "
-                             f"max|leaf|), {within} of {total} entries within {FED_LEAF_TOL}")
+    mat = qint8_parity(tr_mc, params_of(tr_mp))
+    cross["AC_mat_card_vs_cpu_max_leaf_err_over_max1_leaf"] = mat["max_leaf_err_over_max1_leaf"]
+    cross["AC_mat_card_vs_cpu_share_within_tol"] = mat["share_within_tol"]
+    if not mat["ok"]:
+        raise AssertionError(f"run AC-mat: card and CPU outside the qint8 rule: {mat}")
     cross["AC_mat_k10_launch_shapes_bit_for_bit"] = check_main_path_k10("AC-mat card")
     del tr_mc, tr_mp, hist_mc, hist_mp
     # AL: FL's fleet asynchronous, one buffer of 16 per edge, merged edge
@@ -4998,10 +5098,10 @@ def main() -> int:
     torch.cuda.synchronize()
     runs["AL"]["phase_13_s"] = time.perf_counter() - t_phase
     log(f"[time] phase 13 (AD, AQ, AC, AL) {runs['AL']['phase_13_s']:.1f} s")
-    log(f"[cross] AD vs H batched {ad_err:.3g}, AC card vs CPU {ac_err:.3g} ("
-        f"{cross['AC_card_vs_cpu_share_within_tol']:.6f} of entries within {FED_LEAF_TOL}), "
-        f"AC over float32 {ac_f32_err:.3g}, AC-mat {mat_err:.3g} ("
-        f"{cross['AC_mat_card_vs_cpu_share_within_tol']:.6f} within)")
+    log(f"[cross] AD vs H batched {ad_err:.3g}, AC card vs CPU "
+        f"{ac['max_leaf_err_over_max1_leaf']:.3g} ({ac['share_within_tol']:.6f} of entries "
+        f"within {FED_LEAF_TOL}), AC over float32 {ac_f32_err:.3g}, AC-mat "
+        f"{mat['max_leaf_err_over_max1_leaf']:.3g} ({mat['share_within_tol']:.6f} within)")
 
     # ---- 14. the aligner server (serve) and the telemetry (obs) -------------
     serve_runs, serve_cross = serve_phase(torch, dev, doms, counters, dict(

@@ -8,7 +8,7 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
   seed_fused  the seed-fused featurize (K7, N = 4096) and streamed Gram (K5,
               N = 1000, S = 1) with Gaussian and Cauchy (``laplace``) draws,
               and K6 (N = 4096, S = 4) with Gaussian draws.  With Cauchy
-              draws the featurize recomputes the phases as fp32's FMA chain.
+              draws the featurize recomputes the phases in float64.
   operand     the operand-Omega streamed Gram (K2 at N = 1000, one chunk; K3
               at N = 4096, two chunks; Omega from ``draw_omega``, and K2 also
               with a Cauchy Omega) and the centered Gram (K8 at 2N = 2000 and
@@ -21,6 +21,27 @@ The data is ``chip_smoke.py``'s (``make_domains(seed=0)``, p = 2048, n =
               N = 1000 on all columns with a Cauchy Omega (``draw_omega``'s
               laplace), each beside ``torch.matmul(Omega, X)``.
   all         seed_fused, operand and k1 on one copy of the data.
+  cauchy      the featurize's recompute: K1 with a Cauchy Omega
+              (``draw_omega``'s laplace) at N = 1000 on 64, 300, 512 and all
+              3612 columns and at N = 4096 on 300 and 3612, K7 with Cauchy
+              draws (N = 4096) on 300 and 3612, K5 (N = 1000, S = 1) and K2
+              (N = 1000) with Cauchy draws or Omega; beside them the same
+              paths with Gaussian Omega (K1 at 3612 columns, K7, K5, K6 at N
+              = 4096, S = 4, K2), which recompute nothing.  Each path's
+              counters (``counters=``: Omega drawn, phases recomputed, Omega
+              the recompute drew) and a digest of its outputs (the first 16
+              hex digits of their bytes' SHA-256), to hold two checkouts'
+              outputs bit for bit.
+  edge        the reference's element rule on the Cauchy featurize
+              (``chip_smoke.py``'s ``featurize_rule``: within 2e-5 of plain,
+              or, where plain is past 2e-5 from the float64 answer, no
+              farther from it): K1 (``draw_omega``'s laplace, N = 1000) on
+              64, 300, 512 and 3612 columns and K7 (N = 4096, draws 0 and 1)
+              on 300 and 3612.  For the kernel's output and for the float64
+              answer rounded to nearest fp32: the elements past 2e-5 of plain
+              where plain is within 2e-5 of the float64 answer, and those
+              where both are past and the output is farther; and the
+              kernel's largest distance from the float64 answer.
   split       the Grams whose k is split across blocks (K2 and K5 at N =
               1000, K8 at 2N = 2000) under ``torch.profiler``
               (``device_profile.profile_calls``): each call's device time
@@ -72,6 +93,8 @@ one card.
     python3 scripts/time_kernels.py operand
     python3 scripts/time_kernels.py k1
     python3 scripts/time_kernels.py all
+    python3 scripts/time_kernels.py cauchy
+    python3 scripts/time_kernels.py edge
     python3 scripts/time_kernels.py split
     python3 scripts/time_kernels.py bf16
     python3 scripts/time_kernels.py k11b
@@ -153,6 +176,93 @@ def k1(cs, torch, x, ell, sigma, out) -> None:
             out[f"K1_{nf}_{w}_library_ms"] = cs.cuda_ms(torch, lambda: torch.matmul(om, xk), 20)
     om = draw_omega(cs.SEED, 1000, cs.P, sigma=sigma, kernel="laplace", device=dev)
     out["K1_laplace_ms"] = cs.cuda_ms(torch, lambda: rff.rff(x, om), 10)
+
+
+def cauchy(cs, torch, x, ell, sigma, out) -> None:
+    import hashlib
+
+    from repro_torch.core.rff import draw_omega
+    from repro_torch.kernels import rff
+    from repro_torch.kernels import rff_gram_stream as gram
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev, full = x.device, x.shape[1]
+    xt = x[:, cs.N_S:]
+
+    def record(key, fn, reps):
+        cnt = torch.zeros(3, dtype=torch.int64, device=dev)
+        res = fn(cnt)
+        h = hashlib.sha256()
+        for t in res if isinstance(res, tuple) else (res,):
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        out[f"{key}_counters"] = cnt.tolist()
+        out[f"{key}_digest"] = h.hexdigest()[:16]
+        out[f"{key}_ms"] = cs.cuda_ms(torch, lambda: fn(None), reps)
+
+    for kind in ("laplace", "gauss"):
+        widths = {1000: (64, 300, 512, full), 4096: (300, full)} if kind == "laplace" else {
+            1000: (full,), 4096: (full,)}
+        for nf, ws in widths.items():
+            om = draw_omega(cs.SEED, nf, cs.P, sigma=sigma, kernel=kind, device=dev)
+            for w in ws:
+                xk = x if w == full else xt[:, :w].contiguous()
+                record(f"K1_{kind}_{nf}_{w}",
+                       lambda c, xk=xk, om=om: rff.rff(xk, om, counters=c), 10)
+            if nf == 1000:
+                record(f"K2_{kind}", lambda c, om=om: gram.rff_gram_stream(x, om, ell, counters=c),
+                       5)
+            del om
+        for w in ((300, full) if kind == "laplace" else (full,)):
+            xk = x if w == full else xt[:, :w].contiguous()
+            kw = dict(n_features=4096, seed=cs.SEED, ensemble_index=1, sigma=sigma,
+                      rf_kernel=kind)
+            record(f"K7_{kind}_{w}", lambda c, xk=xk, kw=kw: rff.rff_fused(xk, counters=c, **kw),
+                   5)
+        kw = dict(n_features=1000, seed=cs.SEED, ensemble=1, sigma=sigma, rf_kernel=kind)
+        record(f"K5_{kind}", lambda c: gram.rff_gram_stream_fused(x, ell, counters=c, **kw), 3)
+    kw = dict(n_features=4096, seed=cs.SEED, ensemble=4, sigma=sigma)
+    record("K6_gauss", lambda c: gram.rff_gram_stream_fused(x, ell, counters=c, **kw), 3)
+
+
+def edge(cs, torch, x, ell, sigma, out) -> None:
+    from repro_torch.core.rff import draw_omega
+    from repro_torch.kernels import prng, rff
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev, full = x.device, x.shape[1]
+    xt = x[:, cs.N_S:]
+
+    def outside(k, plain, exact):
+        within = (k - plain).abs() <= 2e-5
+        d_k, d_p = (k.double() - exact).abs(), (plain.double() - exact).abs()
+        off = d_p > 2e-5
+        return [int((~within & ~off).sum()), int((~within & off & (d_k > d_p)).sum())]
+
+    def rule(key, om, xk, k, plain):
+        z = om.double() @ xk.double()
+        exact = torch.cat([torch.cos(z), torch.sin(z)]) * rff.inv_sqrt(om.shape[0])
+        del z
+        out[f"{key}_kernel_outside"] = outside(k, plain, exact)
+        out[f"{key}_nearest_outside"] = outside(exact.float(), plain, exact)
+        out[f"{key}_kernel_vs_exact"] = float((k.double() - exact).abs().max())
+
+    om = draw_omega(cs.SEED, 1000, cs.P, sigma=sigma, kernel="laplace", device=dev)
+    for w in (64, 300, 512, full):
+        xk = x if w == full else xt[:, :w].contiguous()
+        rule(f"K1_laplace_1000_{w}", om, xk, rff.rff(xk, om), rff.rff_plain(xk, om))
+    del om
+    for e in (0, 1):
+        kw = dict(n_features=4096, seed=cs.SEED, ensemble_index=e, sigma=sigma,
+                  rf_kernel="laplace")
+        om = prng.fused_omega_block_plain(cs.SEED, 4096, cs.P, ensemble_index=e, sigma=sigma,
+                                          rf_kernel="laplace", device=dev)
+        for w in (300, full):
+            xk = x if w == full else xt[:, :w].contiguous()
+            rule(f"K7_laplace_e{e}_{w}", om, xk, rff.rff_fused(xk, **kw),
+                 rff.rff_fused_plain(xk, **kw))
+        del om
 
 
 def split(cs, torch, x, ell, sigma, out) -> None:
@@ -355,8 +465,8 @@ def k11b(cs, torch, out) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "all", "split", "bf16",
-                                       "k11b", "fleet", "fl"))
+    ap.add_argument("family", choices=("seed_fused", "operand", "k1", "all", "cauchy", "edge",
+                                       "split", "bf16", "k11b", "fleet", "fl"))
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -381,8 +491,8 @@ def main() -> int:
                      device=dev)
     ell = ell_vector(cs.N_S, cs.N_T, device=dev)
     sigma = median_sigma(x)
-    families = {"seed_fused": seed_fused, "operand": operand, "k1": k1, "split": split,
-                "bf16": bf16}
+    families = {"seed_fused": seed_fused, "operand": operand, "k1": k1, "cauchy": cauchy,
+                "edge": edge, "split": split, "bf16": bf16}
     for name in ("seed_fused", "operand", "k1") if args.family == "all" else (args.family,):
         families[name](cs, torch, x, ell, sigma, out)
     print(json.dumps(out))

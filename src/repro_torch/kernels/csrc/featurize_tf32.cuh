@@ -70,30 +70,46 @@
 //     consecutive columns; columns at or past n_valid are written as 0 (a
 //     masked sample, not cos(0) = 1), features at or past nf are not written.
 //   - Phases the split products may round past the gate are recomputed there
-//     as fp32's sequential FMA chain over k, the plain version's sgemm order:
-//     phases of |z| >= 64, where one ULP of z moves cos by >= 4e-6 and the
-//     split products round differently (on Cauchy draws with phases up to ~1e4
-//     even the float64 phase rounded once is 2.8e-5 from plain in G_H, past
-//     the 2e-5 gate), and phases whose terms are large, where a phase under
-//     64 summed from Cauchy terms of ~1e4 cancels: the split products round
-//     at ~2^-20 of sum_k |omega_fk x_kc| where fp32's chain rounds at 2^-24.
+//     in float64: summed in float64 from the fp32 operands (each product
+//     exact; the tile on the FP64 tensor cores, 4 k a step, the finishing
+//     pass as FMAs over k in order), cos and sin taken in float64 and scaled
+//     in float64, then rounded to one of the two fp32 values beside the
+//     result: the one on the side of the same feature from fp32's sequential
+//     FMA chain over k (cos and sin in fp32, scaled, as plain takes them).
+//     The result is within one fp32 ULP of the float64 answer, so no farther
+//     from it than plain's fp32 sum in any k order (cuBLAS picks its order by
+//     shape; the chain alone matched it at 3612 columns and lay 1e-2 from
+//     float64 at 300).  The side matters only at the reference's 2e-5 edge:
+//     where plain lies just inside 2e-5 of the float64 answer, the float64
+//     answer rounded to nearest can fall just past 2e-5 of plain (7 of K7's
+//     14.8 M Cauchy features at 3612 columns on an H100), and rounding toward
+//     the chain keeps it inside wherever plain sums in the chain's order.
+//     The phases taken:
+//     |z| >= 64, where one ULP of z moves cos by >= 4e-6 and the split
+//     products round differently, and phases whose terms are large, where a
+//     phase under 64 summed from Cauchy terms of ~1e4 cancels: the split
+//     products round at ~2^-20 of sum_k |omega_fk x_kc|.
 //     That sum is bounded by |omega_f|_2 |x_c|_2, from norms the kernel takes
 //     on the way (the producers square each Omega element they draw or split
 //     into per-row slots, the consumers each X element they split), and a
-//     phase takes the chain where 2^-20 |omega_f| |x_c| scale exceeds a
+//     phase is recomputed where 2^-20 |omega_f| |x_c| scale exceeds a
 //     quarter of the 2e-5 gate (FT_CANCEL).  Gaussian draws at the
 //     median-heuristic sigma stay below both (the bound under two thirds of
 //     the threshold at the smoke's widths); Cauchy draws exceed the bound in
 //     every phase (tests/test_torch_split_tf32_numerics.py).  A CTA with
-//     any such phase runs one FFMA pass over its whole 128 x 128 tile and
-//     keeps the chain's value where the rule asks.  The pass is the main
-//     loop again in fp32: two
-//     buffers of 32 k, X by TMA, Omega redrawn once per cluster (each CTA
-//     draws its share of the rows and pushes it to the others by bulk
-//     copies), the consumers running the FMAs 8 x 8 outputs a thread; the
-//     cluster takes it when any of its CTAs has such a phase.  A chain
-//     per element would redraw each Omega element and reload X for every
-//     warp that needs it.
+//     any such phase recomputes its whole 128 x 128 tile and keeps the
+//     result where the rule asks, in two passes, each the main loop again
+//     on fp32 operands: two buffers of 32 k, X by TMA, Omega redrawn once
+//     per cluster and pass (each CTA draws its share of the rows and pushes
+//     it to the others by bulk copies), first fp32's chain (8 x 8 outputs a
+//     thread, 64 registers), then the float64 sums (mma m8n8k4, a warp's
+//     32 x 64 outputs in 128 registers a thread; the two do not fit one
+//     pass without spills, and FMAs in float64 took ~2.5x the chain's time,
+//     a float-to-double conversion per operand use at 16 a cycle); the
+//     cluster takes them when any of its CTAs has such a phase.  A sum per
+//     element would redraw each Omega element and reload X for every warp
+//     that needs it.  A kept phase reaches the output loop as the chain (in
+//     the phases) and its float64 sum as two fp32 parts, a byte marking it.
 //     An operand Omega is loaded there by TMA as in the main loop.
 //   - Split over p (operand Omega, K1 at a transform request's width): where
 //     the output tiles are fewer than the SMs (300 columns at N = 1000 are
@@ -105,13 +121,14 @@
 //     first feature block).  A finishing pass adds the slices in slice order
 //     (no atomics: the sum does not depend on the order the CTAs ran in),
 //     recomputes from the whole sum and the whole norms, by the epilogue's
-//     rule, as fp32's FMA chain over all of p (a slice's partial phase does
-//     not say whether the whole phase reaches 64), then takes cos and sin as
-//     the epilogue does.
+//     rule, over all of p as the epilogue recomputes (a slice's partial
+//     phase does not say whether the whole phase reaches 64), then takes cos
+//     and sin as the epilogue does.
 //   - With a counter array, the kernel adds the Omega elements its producers
 //     drew, the phases it recomputed and the Omega elements the recompute
-//     drew (chip_smoke.py reads the draws per element and the recomputed
-//     share from them); an operand Omega adds to the phases only.
+//     drew in both its passes (chip_smoke.py reads the draws per element and
+//     the recomputed share from them); an operand Omega adds to the phases
+//     only.
 #pragma once
 #include <cstdint>
 #include <cuda.h>
@@ -139,7 +156,7 @@ constexpr int FT_XBOX_BYTES = FT_BK * 32 * 4;                // one TMA box: 32 
 constexpr int FT_X_BYTES = (FT_COLS / 32) * FT_XBOX_BYTES;   // 16 KB
 constexpr int FT_STAGE_BYTES = 2 * FT_OM_BYTES + FT_X_BYTES;  // 48 KB
 constexpr int FT_OUT_LD = FT_COLS + 4;  // epilogue rows: 4 words apart mod 32 banks
-constexpr int FT_RK = 32;  // k a step of the epilogue's FFMA recompute
+constexpr int FT_RK = 32;  // k a step of the epilogue's recompute
 constexpr int FT_RK_BYTES = FT_RK * FT_FEATS * 4;  // one Omega or X buffer of a step
 // after the ring: its full and empty barriers, the recompute's two full and
 // two empty barriers, the recompute flag, the operand path's landed barriers
@@ -150,31 +167,61 @@ static_assert(16 * FT_STAGES + 32 + 16 + 8 * FT_STAGES <= FT_BARS_BYTES, "the ba
 // splitting an operand), the rows' squared norms and the columns' (this
 // CTA's samples)
 constexpr int FT_SLOTS = 16;
-constexpr int FT_NORMS = FT_STAGES * FT_STAGE_BYTES + FT_BARS_BYTES;
-constexpr int FT_SMEM = 1024 + FT_NORMS + (FT_FEATS * FT_SLOTS + FT_FEATS + FT_COLS) * 4;
 static_assert(FT_STAGE_BYTES % 1024 == 0, "stages must keep the swizzle phase");
 static_assert(FT_FEATS == FT_COLS, "the recompute stages Omega and X tiles in one loop");
-// the recompute's buffers follow the phases: Omega [2], 128 feature rows of
-// 32 k laid out as the ring's (128-byte swizzled), then X [2] as TMA lands
-// it (4 boxes of 32 samples, 128-byte swizzled, 1024-aligned)
+// The epilogue reuses the ring.  The phases first ([feature][sample],
+// FT_OUT_LD apart; fp32's chain where the recompute keeps it), then the
+// recompute's buffers: Omega [2], 128 feature rows of 32 k laid out as the
+// ring's (128-byte swizzled), then X [2] as TMA lands it (4 boxes of 32
+// samples, 128-byte swizzled, 1024-aligned); once both passes are done the
+// buffers hold the kept phases' float64 sums' high fp32 parts
+// ([feature][sample], FT_COLS apart).  Past them, written while the second
+// pass streams through the buffers, the low parts ([feature][sample],
+// FT_OUT_LD apart) and a byte an element marking the kept ones
+// ([feature][sample], FT_COLS apart).
 constexpr int FT_RC_OM = (FT_FEATS * FT_OUT_LD * 4 + 1023) / 1024 * 1024;
 constexpr int FT_RC_X = FT_RC_OM + 2 * FT_RK_BYTES;
-static_assert(FT_RC_X + 2 * FT_RK_BYTES <= FT_STAGES * FT_STAGE_BYTES,
-              "the epilogue's phases and the recompute's buffers fit the ring");
+constexpr int FT_RC_HI = FT_RC_OM;
+constexpr int FT_RC_LO = FT_RC_X + 2 * FT_RK_BYTES;
+constexpr int FT_RC_MARK = FT_RC_LO + FT_FEATS * FT_OUT_LD * 4;
+static_assert(FT_RC_HI + FT_FEATS * FT_COLS * 4 <= FT_RC_LO, "the high parts fit the buffers");
 static_assert(FT_RK == FT_BK && FT_RK_BYTES == FT_X_BYTES, "the recompute's X k-tile is a stage's");
+constexpr int FT_RING_BYTES = FT_STAGES * FT_STAGE_BYTES;
+constexpr int FT_EPI_BYTES = FT_RC_MARK + FT_FEATS * FT_COLS;
+constexpr int FT_SHARED_BYTES = FT_RING_BYTES > FT_EPI_BYTES ? FT_RING_BYTES : FT_EPI_BYTES;
+constexpr int FT_NORMS = FT_SHARED_BYTES + FT_BARS_BYTES;
+constexpr int FT_SMEM = 1024 + FT_NORMS + (FT_FEATS * FT_SLOTS + FT_FEATS + FT_COLS) * 4;
+static_assert(FT_SHARED_BYTES % 8 == 0 && FT_SMEM <= 227 * 1024, "the shared memory fits a CTA");
 
-// phases at least this large are recomputed in the epilogue as fp32's
-// sequential FMA chain (below)
+// phases at least this large are recomputed in the epilogue in float64
+// (below)
 constexpr float FT_EXACT_PHASE = 64.0f;
 // and phases whose terms may cancel past the gate: those with |omega_f|_2
 // |x_c|_2 scale > FT_CANCEL, where the split products' 2^-20 of
 // sum_k |omega_fk x_kc| <= |omega_f| |x_c| could reach a quarter of 2e-5
 constexpr float FT_CANCEL = 5e-6f * 1048576.0f;
 
-// whether the epilogue's rule takes the FMA chain at a valid phase z with
-// row and column squared norms rn, cn; lim2 = (FT_CANCEL / scale)^2
+// whether the epilogue's rule recomputes a valid phase z with row and
+// column squared norms rn, cn; lim2 = (FT_CANCEL / scale)^2
 __device__ __forceinline__ bool ft_exact(float z, float rn, float cn, float lim2) {
   return fabsf(z) >= FT_EXACT_PHASE || rn * cn > lim2;
+}
+
+// d += a b on the FP64 tensor cores: one 8 x 8 x 4 product a warp (A row
+// major, lane l holding A[l / 4][l % 4]; B column major, B[l % 4][l / 4];
+// D[l / 4][2 (l % 4) + i] in d_i)
+__device__ __forceinline__ void ft_dmma(double& d0, double& d1, double a, double b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d0), "+d"(d1)
+               : "d"(a), "d"(b));
+}
+
+// a recomputed feature: y (cos or sin of the float64 phase, times the scale,
+// in float64) rounded to the fp32 value beside it on the side of h (the
+// same feature from fp32's chain, rounded as plain rounds it)
+__device__ __forceinline__ float ft_toward(double y, float h) {
+  const double hd = h;
+  return hd > y ? __double2float_ru(y) : hd < y ? __double2float_rd(y) : __double2float_rn(y);
 }
 
 struct FtArgs {
@@ -209,7 +256,7 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
   const uint32_t raw = hop::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* sb = smem_raw + (base - raw);  // generic pointer to `base`
-  const uint32_t bars = base + FT_STAGES * FT_STAGE_BYTES;
+  const uint32_t bars = base + FT_SHARED_BYTES;
   auto om_hi = [&](int s) { return base + s * FT_STAGE_BYTES; };
   auto om_lo = [&](int s) { return base + s * FT_STAGE_BYTES + FT_OM_BYTES; };
   auto xs = [&](int s) { return base + s * FT_STAGE_BYTES + 2 * FT_OM_BYTES; };
@@ -325,16 +372,17 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       hop::cluster_sync();  // the epilogue reuses the ring (as below)
       hop::cluster_sync();  // the consumers of every CTA have flagged large phases
       if (hop::ld_cluster_u32(hop::mapa(flag, 0))) {
-        // the recompute's X and Omega k-tiles, fp32, by TMA as in the main loop
+        // the recompute's X and Omega k-tiles, fp32, by TMA as in the main
+        // loop, once for each of its two passes
         if (tp == 0) {
           const int n_st = (a.p + FT_RK - 1) / FT_RK;
 #pragma unroll 1
-          for (int st = 0; st < n_st; ++st) {
+          for (int st = 0; st < 2 * n_st; ++st) {
             const int b = st & 1;
             hop::mbar_wait_cluster(rc_empty(b), ((st >> 1) & 1) ^ 1);
             hop::fence_proxy_async();  // the consumers' reads of the buffer come first
             hop::mbar_expect_tx(rc_full(b), FT_X_BYTES + FT_RK_BYTES);
-            load(rc_x(b), rc_om(b), rc_full(b), st * FT_RK);
+            load(rc_x(b), rc_om(b), rc_full(b), (st % n_st) * FT_RK);
           }
         }
         hop::cluster_sync();  // no copy into or out of a CTA that has exited
@@ -421,15 +469,15 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
       hop::cluster_sync();  // the consumers of every CTA have flagged large phases
       if (hop::ld_cluster_u32(hop::mapa(flag, 0))) {
         // the recompute's Omega k-tiles, fp32, drawn and pushed as the main
-        // loop's are; X by TMA
+        // loop's are, once for each of its two passes; X by TMA
         const uint32_t remote_fp32 = (FT_FEATS - (r_hi - r_lo)) * 128u;
         const int n_st = (a.p + FT_RK - 1) / FT_RK;
         uint32_t redrawn = 0;
 #pragma unroll 1
-        for (int st = 0; st < n_st; ++st) {
+        for (int st = 0; st < 2 * n_st; ++st) {
           const int b = st & 1;
           hop::mbar_wait_cluster(rc_empty(b), ((st >> 1) & 1) ^ 1);
-          const int k0 = st * FT_RK;
+          const int k0 = (st % n_st) * FT_RK;
           if (tp == 0) {
             hop::fence_proxy_async();  // the consumers' reads of the buffer come first
             hop::mbar_expect_tx_only(rc_full(b), FT_X_BYTES + remote_fp32);
@@ -594,94 +642,179 @@ featurize_tf32_kernel(const __grid_constant__ CUtensorMap tx,
     if (__any_sync(0xffffffffu, big) && lane == 0) hop::red_or_cluster(hop::mapa(flag, 0), 1u);
     hop::cluster_sync();  // the phases in shared memory; the cluster's flag
     const int64_t dofs = int64_t(blockIdx.z) * a.draw_stride;
-    if (hop::ld_cluster_u32(hop::mapa(flag, 0))) {
+    const bool recompute = hop::ld_cluster_u32(hop::mapa(flag, 0));
+    const float* zhi = reinterpret_cast<const float*>(sb + FT_RC_HI);  // once both passes are done
+    float* zlo = reinterpret_cast<float*>(sb + FT_RC_LO);
+    uint8_t* kept = sb + FT_RC_MARK;
+    if (recompute) {
       // one ULP of a phase |z| >= 64 moves cos by >= 64 2^-24, a phase of
       // large terms cancels, and the split products with the tensor cores'
-      // truncating additions round differently from fp32: recompute the tile
-      // as fp32's FMA chain over k in order (the plain version's sgemm) and
-      // keep it where ft_exact says.
+      // truncating additions round differently from fp32: recompute the
+      // phases ft_exact takes in float64, FMAs over k in order from the fp32
+      // operands.  The output is the fp32 value beside the float64 feature
+      // on the side of fp32's sequential FMA chain: within one fp32 ULP of
+      // the float64 answer, and on the side of plain where plain sums in that
+      // order, as cuBLAS does at the full width, so an element whose plain
+      // value lies just inside 2e-5 of the float64 answer stays within 2e-5
+      // of it (the reference's rule; the float64 answer rounded to nearest
+      // fell past that on 7 of K7's 14.8 M Cauchy features at 3612 columns).
+      // The tile streams twice: the chain (64 registers a thread), then the
+      // float64 sums on the FP64 tensor cores (128).
       // Thread (tf, tc) owns features 4 tf + {0..3, 64..67} and samples
       // 4 tc + {0..3, 64..67}
       const int tf = u / 16, tc = u % 16;
       const int n_st = (a.p + FT_RK - 1) / FT_RK;
-      float r[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) r[i][j] = 0.f;
-#pragma unroll 1
-      for (int st = 0; st < n_st; ++st) {
+      // stage st of the two passes' stream: the body on its buffers (Omega;
+      // X sample c at k: box c / 32, row k, 16-byte chunk (c % 32) / 4 ^ k %
+      // 8), then buffer b released in every CTA of the cluster once the
+      // warpgroup is done reading it, before the async proxy writes it again
+      // (thread r signals CTA r)
+      auto stage = [&](int st, auto&& body) {
         const int b = st & 1;
         hop::mbar_wait(rc_full(b), (st >> 1) & 1);
-        const uint8_t* om_b = sb + (rc_om(b) - base);
-        // X sample c at k: box c / 32, row k, 16-byte chunk (c % 32) / 4 ^ k % 8
-        const uint8_t* x_b = sb + (rc_x(b) - base) + (tc / 8) * FT_XBOX_BYTES;
-#pragma unroll 2
-        for (int kq = 0; kq < FT_RK / 4; ++kq) {
-          // Omega (feature, 4 kq .. 4 kq + 3) is one 16-byte chunk
-          float4 om4[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            om4[i] = *reinterpret_cast<const float4*>(
-                om_b + hop::sw128_f32(4 * tf + (i & 3) + 64 * (i >> 2), 4 * kq));
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int kk = 4 * kq + q;
-            const int xo = kk * 128 + (((tc % 8) ^ (kk % 8)) * 16);
-            const float4 v0 = *reinterpret_cast<const float4*>(x_b + xo);
-            const float4 v1 = *reinterpret_cast<const float4*>(x_b + 2 * FT_XBOX_BYTES + xo);
-            const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const float wi =
-                  q == 0 ? om4[i].x : q == 1 ? om4[i].y : q == 2 ? om4[i].z : om4[i].w;
-#pragma unroll
-              for (int j = 0; j < 8; ++j) r[i][j] = fmaf(wi, v[j], r[i][j]);
-            }
-          }
-        }
-        // the warpgroup is done reading buffer b (before the async proxy
-        // writes it again): release it in every CTA of the cluster (thread r
-        // signals CTA r)
+        body(sb + (rc_om(b) - base), sb + (rc_x(b) - base));
         hop::fence_proxy_async();
         hop::named_sync(8 + w, 128);
         if (t < static_cast<int>(ncl)) hop::mbar_arrive_cluster(hop::mapa(rc_empty(b), t));
-      }
-      hop::cluster_sync();  // no copy into or out of a CTA that has exited
+      };
+      auto x_at = [&](const uint8_t* x_b, int kk, int half) {  // samples 4 tc + {0..3} + 64 half
+        return *reinterpret_cast<const float4*>(x_b + (tc / 8 + 2 * half) * FT_XBOX_BYTES +
+                                                kk * 128 + (((tc % 8) ^ (kk % 8)) * 16));
+      };
       uint32_t taken = 0;
+      {
+        // pass 1: fp32's FMA chain
+        float r[8][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int fl = 4 * tf + (i & 3) + 64 * (i >> 2), cl = 4 * tc + (j & 3) + 64 * (j >> 2);
-          float& z = zt[fl * FT_OUT_LD + cl];
-          if (f0 + fl < a.nf && col0 + cl < a.n_valid && ft_exact(z, rn[fl], cn[cl], lim2)) {
-            z = r[i][j];
-            ++taken;
+          for (int j = 0; j < 8; ++j) r[i][j] = 0.f;
+#pragma unroll 1
+        for (int st = 0; st < n_st; ++st)
+          stage(st, [&](const uint8_t* om_b, const uint8_t* x_b) {
+#pragma unroll 2
+            for (int kq = 0; kq < FT_RK / 4; ++kq) {
+              // Omega (feature, 4 kq .. 4 kq + 3) is one 16-byte chunk
+              float4 om4[8];
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+                om4[i] = *reinterpret_cast<const float4*>(
+                    om_b + hop::sw128_f32(4 * tf + (i & 3) + 64 * (i >> 2), 4 * kq));
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                const float4 v0 = x_at(x_b, 4 * kq + q, 0), v1 = x_at(x_b, 4 * kq + q, 1);
+                const float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                  const float wi =
+                      q == 0 ? om4[i].x : q == 1 ? om4[i].y : q == 2 ? om4[i].z : om4[i].w;
+#pragma unroll
+                  for (int j = 0; j < 8; ++j) r[i][j] = fmaf(wi, v[j], r[i][j]);
+                }
+              }
+            }
+          });
+        // the chain in place of the phases ft_exact takes, and their marks
+        // (the phases and marks lie outside the buffers the next pass streams
+        // through)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int fl = 4 * tf + (i & 3) + 64 * (i >> 2),
+                      cl = 4 * tc + (j & 3) + 64 * (j >> 2);
+            float& z = zt[fl * FT_OUT_LD + cl];
+            const bool take =
+                f0 + fl < a.nf && col0 + cl < a.n_valid && ft_exact(z, rn[fl], cn[cl], lim2);
+            if (take) z = r[i][j];
+            kept[fl * FT_COLS + cl] = take;
+            taken += take;
           }
-        }
+      }
+      {
+        // pass 2: the float64 sums, 4 k a step on the FP64 tensor cores.  Warp
+        // v of the consumers owns features fw .. fw + 31 and samples cw .. cw
+        // + 63: 4 x 8 products of 8 x 8, two accumulators a lane each.  A
+        // lane loads Omega (feature fw + 8 i + gq, k) and X (k, sample cw + 8
+        // j + gq) at k = 4 step + tq, once each, as float64.
+        const int v = w * 4 + (t / 32);
+        const int fw = 32 * (v % 4), cw = 64 * (v / 4);
+        double d[4][8][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) d[i][j][0] = d[i][j][1] = 0.0;
+#pragma unroll 1
+        for (int st = n_st; st < 2 * n_st; ++st)
+          stage(st, [&](const uint8_t* om_b, const uint8_t* x_b) {
+#pragma unroll 2
+            for (int step = 0; step < FT_RK / 4; ++step) {
+              const int kk = 4 * step + tq;
+              double am[4], bm[8];
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                am[i] = *reinterpret_cast<const float*>(om_b + hop::sw128_f32(fw + 8 * i + gq, kk));
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int c = cw + 8 * j + gq;
+                bm[j] = *reinterpret_cast<const float*>(
+                    x_b + (c / 32) * FT_XBOX_BYTES + hop::sw128_f32(kk, c % 32));
+              }
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 8; ++j) ft_dmma(d[i][j][0], d[i][j][1], am[i], bm[j]);
+            }
+          });
+        // no copy into or out of a CTA that has exited, and none into its
+        // buffers: they take the kept sums' high fp32 parts (hi + lo within
+        // 2^-48 of the float64 sum)
+        hop::cluster_sync();
+        float* hi = reinterpret_cast<float*>(sb + FT_RC_HI);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int fl = fw + 8 * i + gq, cl = cw + 8 * j + 2 * tq + e;
+              if (kept[fl * FT_COLS + cl]) {
+                const float h = static_cast<float>(d[i][j][e]);
+                hi[fl * FT_COLS + cl] = h;
+                zlo[fl * FT_OUT_LD + cl] = static_cast<float>(d[i][j][e] - static_cast<double>(h));
+              }
+            }
+      }
       if (a.stats) {
         taken = __reduce_add_sync(0xffffffffu, taken);
         if (lane == 0) atomicAdd(&a.stats[1], (unsigned long long)taken);
       }
       hop::named_sync(2, 256);
     }
+    const double scale_d = a.scale;
 #pragma unroll 1
     for (int idx = u; idx < FT_FEATS * FT_COLS; idx += 256) {
       // a warp: 32 consecutive columns of one feature row
-      const int f = f0 + idx / FT_COLS;
-      const int c = col0 + idx % FT_COLS;
+      const int fl = idx / FT_COLS, cl = idx % FT_COLS;
+      const int f = f0 + fl;
+      const int c = col0 + cl;
       if (f >= a.nf || c >= a.ncols_out) continue;
-      const float z = zt[(idx / FT_COLS) * FT_OUT_LD + idx % FT_COLS];
+      const float z = zt[fl * FT_OUT_LD + cl];
       if (a.part) {
         a.part[(int64_t(blockIdx.z) * a.nf + f) * a.ldo + c] = z;
         continue;
       }
       float sv = 0.f, cv = 0.f;
       if (c < a.n_valid) {
-        sincosf(z, &sv, &cv);
+        sincosf(z, &sv, &cv);  // z: the chain, where kept
         sv *= a.scale;
         cv *= a.scale;
+        if (recompute && kept[idx]) {  // cos and sin in float64, rounded toward the chain's
+          double sd, cd;
+          sincos(static_cast<double>(zhi[idx]) + zlo[fl * FT_OUT_LD + cl], &sd, &cd);
+          sv = ft_toward(sd * scale_d, sv);
+          cv = ft_toward(cd * scale_d, cv);
+        }
       }
       a.out_c[dofs + int64_t(f) * a.ldo + c] = cv;
       a.out_s[dofs + int64_t(f) * a.ldo + c] = sv;
@@ -731,10 +864,11 @@ inline cudaError_t launch_featurize_tf32_kernel(const CUtensorMap& tx, const CUt
 // The finishing pass of a split over p: one warp per (feature row, 32
 // consecutive columns), 8 rows a block.  The slices' phase sums and squared
 // norms are added in slice order; a phase that ft_exact takes is recomputed
-// from the operands as fp32's sequential FMA chain over all of p (the
-// epilogue's rule, the same chain), Omega's row read as a broadcast and X's
-// rows coalesced, by every lane of a warp that has such a phase (the others
-// skip the chain); then cos and sin, columns past n_valid written as 0.
+// from the operands over all of p as the epilogue recomputes it (float64
+// FMAs over k in order, fp32's chain beside them, cos and sin in float64
+// rounded toward the chain's), Omega's row read as a broadcast and X's rows
+// coalesced, by every lane of a warp that has such a phase (the others skip
+// the sums); then cos and sin, columns past n_valid written as 0.
 __global__ void __launch_bounds__(256)
 featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float* __restrict__ x,
                         int64_t ldx, int slices, const FtArgs a) {
@@ -785,13 +919,18 @@ featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float
   const float lim = FT_CANCEL / a.scale;
   const bool big = valid && ft_exact(z, rsq, csq, lim * lim);
   const uint32_t bigs = __ballot_sync(0xffffffffu, big);
+  double r = 0.0;  // the float64 sum, and fp32's chain beside it
   if (bigs) {
     const float* w = om + int64_t(f) * ld_om;
     const float* xc = x + a.x_col0 + (valid ? c : 0);
-    float r = 0.f;
+    float chain = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < a.p; ++k) r = fmaf(w[k], xc[int64_t(k) * ldx], r);
-    if (big) z = r;
+    for (int k = 0; k < a.p; ++k) {
+      const float wk = w[k], xk = xc[int64_t(k) * ldx];
+      r = fma(static_cast<double>(wk), static_cast<double>(xk), r);
+      chain = fmaf(wk, xk, chain);
+    }
+    if (big) z = chain;
     if (a.stats && threadIdx.x % 32 == 0) atomicAdd(&a.stats[1], (unsigned long long)__popc(bigs));
   }
   if (in) {
@@ -800,6 +939,12 @@ featurize_finish_kernel(const float* __restrict__ om, int64_t ld_om, const float
       sincosf(z, &sv, &cv);
       sv *= a.scale;
       cv *= a.scale;
+      if (big) {  // as the epilogue: float64, rounded toward the chain's
+        double sd, cd;
+        sincos(r, &sd, &cd);
+        sv = ft_toward(sd * static_cast<double>(a.scale), sv);
+        cv = ft_toward(cd * static_cast<double>(a.scale), cv);
+      }
     }
     a.out_c[at] = cv;
     a.out_s[at] = sv;

@@ -3,10 +3,11 @@
 // Replaces src/repro/kernels/rff.py:48 (rff_pallas, _rff_kernel).  The
 // operand featurize of featurize_tf32.cuh, the one K2/K3 run: the product
 // over p as three tf32 wgmma products (fp32-accurate; the reference's bound
-// is 2e-5), Omega loaded by TMA, phases of |z| >= 64 recomputed as fp32's FMA
-// chain, the cos/sin epilogue fused, so the (N, n) phase matrix never reaches
-// device memory.  Bound: operations, 3 x 2 N p n FLOP at the tf32 rate,
-// against (N p + p n + 2 N n) * 4 bytes.  At a transform request's width
+// is 2e-5), Omega loaded by TMA, phases of |z| >= 64 or of large cancelling
+// terms recomputed in float64, the cos/sin epilogue fused, so the (N, n)
+// phase matrix never reaches device memory.  Bound: operations, 3 x 2 N p n
+// FLOP at the tf32 rate, against (N p + p n + 2 N n) * 4 bytes.  At a
+// transform request's width
 // (64-512 columns) the output tiles are too few to fill the card, so the
 // wrapper splits the k-tiles of p into slices (rff.split_plan): the slices'
 // phase sums go to a workspace and a finishing pass adds them in order and

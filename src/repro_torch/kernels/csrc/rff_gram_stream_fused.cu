@@ -15,7 +15,7 @@
 // Per chunk of bc sample columns the host launches, in order:
 //   1. featurize on the tensor cores (featurize_tf32.cuh: three tf32
 //      products a product, phases of |z| >= 64 or of large cancelling terms
-//      recomputed as fp32's FMA chain): rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
+//      recomputed in float64): rt_fused_featurize draws Omega_e in the kernel (FusedOmega,
 //      threefry K4; once per 1024 columns of the chunk), rt_operand_featurize
 //      loads it from the (N, p) operand by TMA.  Either writes the chunk's
 //      (nf, S bc) cos and sin slabs into a workspace reused by every chunk;

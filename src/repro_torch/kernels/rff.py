@@ -162,11 +162,11 @@ def counter_ptr(counters: torch.Tensor | None) -> int | None:
     """The device pointer of a tensor-core featurize's counters, or None.
 
     ``counters`` is a CUDA int64 tensor of 3, to which the kernel adds the
-    Omega elements its producers drew, the phases it recomputed as fp32's FMA
-    chain (|z| >= 64, or terms whose bound |omega_f| |x_c| says they may
+    Omega elements its producers drew, the phases it recomputed in float64
+    (|z| >= 64, or terms whose bound |omega_f| |x_c| says they may
     cancel past the gate: ``csrc/featurize_tf32.cuh``'s ``ft_exact``) and the
-    Omega elements that recompute drew (with an Omega operand, the phases
-    only)."""
+    Omega elements that recompute drew in its two passes (with an Omega
+    operand, the phases only)."""
     if counters is None:
         return None
     if counters.dtype != torch.int64 or tuple(counters.shape) != (3,) or not counters.is_cuda:

@@ -322,8 +322,8 @@ def fleet_doms():
     return doms[:4], doms[4]
 
 
-def _plans(kind, rounds):
-    ids = list(range(4))
+def _plans(kind, rounds, k=4):
+    ids = list(range(k))
     if kind == "full":
         rows = [(ids, ids, ids)] * rounds
     else:  # one moments participant per edge of [[0, 1], [2, 3]], full W/C
@@ -333,7 +333,7 @@ def _plans(kind, rounds):
 
 
 def _pair(sources, target, plans, jkw, tkw, warmup=1, **kw):
-    jsc, tsc = _plans(plans, kw.get("n_rounds", 4))
+    jsc, tsc = _plans(plans, kw.get("n_rounds", 4), len(sources))
     jt = JTrainer(sources, target, JCFG, JProto(warmup_rounds=0, scenario=jsc, **jkw, **kw))
     tt = TTrainer(sources, target, TCFG, TProto(warmup_rounds=0, scenario=tsc, **tkw, **kw),
                   device="cpu")
@@ -391,6 +391,46 @@ def test_two_tier_wire_edge_qint8_matches_reference(fleet_doms):
     assert _trainer_err(jt, tt) < LEAF_TOL
     assert tt.edge_transport.log.bytes_by_kind == jt.edge_transport.log.bytes_by_kind
     assert tt.ingress_bytes == jt.ingress_bytes and tt.comm.total == jt.comm.total
+
+
+def test_two_tier_qint8_on_both_tiers_matches_reference():
+    """The fleet cell's path (FL in chip_smoke.py) at a small size: K = 16
+    over ``Topology.uniform(16, 4)``, wire qint8 on tier 1 and qint8 on the
+    edge uplinks, chunks of 8 clients, two rounds with a T_C round, the port
+    fed the reference's uniforms.  Both tiers' logs and the ingress equal
+    the reference's; the leaves hold the repo's qint8 parity rule (every
+    entry within one quantization step, at least 99 % within 1e-4: XLA
+    computes a scale as absmax * (1/qmax), the port as absmax / qmax, so a
+    bin can flip)."""
+    doms = make_domains(17, 40, shift=0.5, seed=4, dim=8, n_classes=3)
+    kw = dict(n_rounds=2, t_c=2, batch_size=16, seed=0, transport="wire", codec="qint8",
+              edge_codec="qint8", client_chunk=8)
+    jt, tt = _pair(doms[:16], doms[16], "full", dict(topology=JTopology.uniform(16, 4)),
+                   dict(topology=Topology.uniform(16, 4)), **kw)
+    assert tt._engine.channel and tt._engine.edge_channel
+    paths = set()
+    uniforms = _reference_uniforms(kw["seed"])
+
+    def recording(chan_key, path, n_rows, shape):
+        paths.add(path[:1])
+        return uniforms(chan_key, path, n_rows, shape)
+
+    tt._engine.channel_uniforms = recording
+    jt.train()
+    tt.train()
+    assert {(1,), (2,), (3,), (4,), (5,), (6,)} <= paths  # both tiers, the T_C round's leaves
+    step = max(float(np.abs(np.asarray(leaf)).max()) / 127 for leaf in
+               jax.tree_util.tree_leaves((jt.tgt_params["w_rf"], jt.tgt_params["classifier"])))
+    diffs = np.concatenate([
+        np.abs(np.asarray(a) - b.detach().numpy()).ravel()
+        for a, b in zip(jax.tree_util.tree_leaves((jt.tgt_params, jt._src_stack)),
+                        tree_leaves((tt.tgt_params, tt._src_stack)))])
+    assert diffs.max() <= step and np.mean(diffs <= LEAF_TOL) >= 0.99
+    assert (tt.comm.bytes_by_kind, tt.comm.messages_by_kind) == (jt.comm.bytes_by_kind,
+                                                                 jt.comm.messages_by_kind)
+    assert tt.ingress_bytes == jt.ingress_bytes
+    assert tt.edge_transport.log.bytes_by_kind == jt.edge_transport.log.bytes_by_kind
+    assert tt.edge_transport.log.messages_by_kind == jt.edge_transport.log.messages_by_kind
 
 
 def test_port_singleton_equals_port_flat(fleet_doms):

@@ -11,8 +11,10 @@ first (``lo hi``, ``hi lo``, then ``hi hi``).  Each such addition rounds
 toward zero, as the tensor cores' fp32 accumulation does (on an H100, K6's
 G_H came out 2.1e-5 from plain before the fold below, where rounding to
 nearest would give ~5e-7).  The featurize computes ``Z^T = X^T Omega^T``
-that way, recomputes phases of |z| >= 64 as fp32's FMA chain over k in
-order, and takes cos/sin; the Gram takes ``C C^T``, ``C S^T`` and
+that way, recomputes phases of |z| >= 64 (and those whose terms may
+cancel) in float64, rounding cos and sin to the fp32 value on the side of
+fp32's FMA chain over k, and takes cos/sin of the rest; the Gram takes
+``C C^T``, ``C S^T`` and
 ``S S^T`` over the chunk's columns, each draw's block padded to a whole
 k-step as the workspace is, each row of its first operand less that
 draw's mean (added back as ``a (B 1)^T``).  The operand path (K2/K3) is
@@ -36,8 +38,10 @@ truncations of one accumulator over a chunk's k of 2048 come to ~1e-5 of a
 positive diagonal, half the gate; and on Cauchy phases up to ~1e4
 (``tests/test_torch_cuda.py``'s laplace Gram cases, Omega drawn or an
 operand) no product that rounds
-otherwise than fp32's FMA chain holds the gate, the float64 phase rounded
-once included, so such phases are recomputed as that chain; and at phases
+otherwise than fp32's FMA chain holds 2e-5 of plain, the float64 phase
+rounded once included, so such phases are recomputed, and in float64,
+which holds the reference's float64 rule against plain summed in any k
+order where fp32's chain does not; and at phases
 under ~0.2 the unshifted Gram lands farther from the float64 answer than
 plain, the shifted one closer; and on rows whose mean is far above their
 spread the centered Gram holds 1e-5 only with both operands shifted and the
@@ -130,6 +134,36 @@ def fma_chain(om: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def f64_phases(om: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """om (N, p) @ x (p, n) as the featurize's recompute sums it: float64
+    FMAs over k in order from the fp32 operands (each product exact in
+    float64, so an FMA is a multiply and an add)."""
+    acc = torch.zeros((om.shape[0], x.shape[1]), dtype=torch.float64)
+    for k in range(om.shape[1]):
+        acc = acc + om[:, k:k + 1].double() * x[k:k + 1].double()
+    return acc
+
+
+def toward(y: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """float64 y rounded to the fp32 value beside it on the side of fp32 h
+    (``featurize_tf32.cuh``'s ``ft_toward``; to nearest where h equals y)."""
+    f = y.float()
+    up = torch.where(f.double() >= y, f, torch.nextafter(f, torch.full_like(f, float("inf"))))
+    down = torch.where(f.double() <= y, f, torch.nextafter(f, torch.full_like(f, -float("inf"))))
+    hd = h.double()
+    return torch.where(hd > y, up, torch.where(hd < y, down, f))
+
+
+def recomputed_features(om: torch.Tensor, x: torch.Tensor, scale: float, chain=None):
+    """(C, S) of every phase as the featurize recomputes it: the float64 sum
+    (:func:`f64_phases`), cos and sin in float64 times the scale, rounded
+    toward the same features from fp32's FMA chain (``chain``: its phases,
+    if already taken), which cos and sin take in fp32 as plain does."""
+    zc = fma_chain(om, x) if chain is None else chain
+    z64 = f64_phases(om, x)
+    return tuple(toward(f(z64) * scale, f(zc) * scale) for f in (torch.cos, torch.sin))
+
+
 FOLD = 4  # both kernels: a stage of 32 of k, 4 k-steps
 
 
@@ -152,22 +186,29 @@ def slice_phases(x, om, slices, parts=3, fold=FOLD):
 
 
 def featurize_model(x, om, scale, parts=3, exact_phase=EXACT_PHASE, fold=FOLD, slices=1,
-                    cancel=True, chain=None):
+                    cancel=True, chain="f64"):
     """(C, S) of one draw: Z^T = X^T Omega^T on the modelled tensor cores,
     folded every stage, phases of at least ``exact_phase`` and (``cancel``)
-    those :func:`cancels` flags recomputed as the FMA chain (``chain``: that
-    chain, if already taken).  ``slices`` > 1: split over p (K1 at a
-    request's width), the slices' phase sums added in slice order in fp32,
-    then the recompute from the whole sum, as the finishing pass takes it."""
+    those :func:`cancels` flags recomputed.  ``chain`` is the recompute:
+    ``"f64"`` the kernels' (:func:`recomputed_features`), ``"f32"`` fp32's
+    FMA chain alone (:func:`fma_chain`, plain's order at the full width on
+    the card), or the chain's phases, if already taken.  ``slices`` > 1:
+    split over p (K1 at a request's width), the slices' phase sums added in
+    slice order in fp32, then the recompute from the whole sum, as the
+    finishing pass takes it."""
     parts_z = slice_phases(x, om, slices, parts, fold)
     z = parts_z[0]
     for zs in parts_z[1:]:
         z = z + zs
-    if exact_phase is not None:
-        take = z.abs() >= exact_phase
-        if cancel:
-            take |= cancels(om, x, scale)
-        z = torch.where(take, fma_chain(om, x) if chain is None else chain, z)
+    if exact_phase is None:
+        return torch.cos(z) * scale, torch.sin(z) * scale
+    take = z.abs() >= exact_phase
+    if cancel:
+        take |= cancels(om, x, scale)
+    if isinstance(chain, str) and chain == "f64":
+        return tuple(torch.where(take, r, f(z) * scale) for r, f in
+                     zip(recomputed_features(om, x, scale), (torch.cos, torch.sin)))
+    z = torch.where(take, fma_chain(om, x) if isinstance(chain, str) else chain, z)
     return torch.cos(z) * scale, torch.sin(z) * scale
 
 
@@ -179,15 +220,17 @@ def fused_gram_model(x, ell, *, n_features, seed, ensemble, sigma, rf_kernel, **
     return gram_model(x, ell, oms, tgram.feature_scale(n_features, ensemble), **model_kw)
 
 
-def gram_model(x, ell, oms, scale, parts=3, fold=FOLD, exact_phase=EXACT_PHASE, shift=True):
+def gram_model(x, ell, oms, scale, parts=3, fold=FOLD, exact_phase=EXACT_PHASE, shift=True,
+               chain="f64"):
     """The five outputs of the streamed Gram over the draws ``oms`` (one
     Omega for the operand path) with both products modelled, the Gram's
-    first operand shifted by its rows' means (``shift``)."""
+    first operand shifted by its rows' means (``shift``), the featurize's
+    recompute ``chain`` (:func:`featurize_model`)."""
     ensemble = len(oms)
     pad = (-x.shape[1]) % KSTEP
     cs, ss, mc, ms = [], [], [], []
     for om in oms:
-        c, s = featurize_model(x, om, scale, parts, exact_phase)
+        c, s = featurize_model(x, om, scale, parts, exact_phase, chain=chain)
         mc += [c @ ell, c.sum(dim=1)]
         ms += [s @ ell, s.sum(dim=1)]
         cs.append(torch.nn.functional.pad(c, (0, pad)))
@@ -223,6 +266,45 @@ def _x(p, n, seed, scale):
 
 def _ell(n):
     return np.array(jkm.ell_vector(n // 2, n - n // 2), np.float32)
+
+
+def _exact_features(x, om, scale):
+    """[cos; sin] of the float64 phases of the fp32 operands, times the scale."""
+    z = om.double() @ torch.as_tensor(x).double()
+    return torch.cat([torch.cos(z), torch.sin(z)]) * scale
+
+
+def _within_rule(k, plain, exact) -> bool:
+    """The reference's gate on a feature map element by element
+    (``chip_smoke.py``'s ``featurize_rule``): within 2e-5 of plain, or, where
+    plain is past 2e-5 from the float64 answer, no farther from it."""
+    k, plain = (torch.as_tensor(np.array(t)) for t in (k, plain))  # copies: Pallas's are read-only
+    d_k, d_p = (k.double() - exact).abs(), (plain.double() - exact).abs()
+    return bool((((k - plain).abs() <= ATOL) | ((d_p > ATOL) & (d_k <= d_p))).all())
+
+
+def _gram_exact(x, ell, oms, scale):
+    """(G_H, u) in float64 from the float64 phases of the draws ``oms``."""
+    xd, ld = x.double(), ell.double()
+    cs = [torch.cos(om.double() @ xd) * scale for om in oms]
+    ss = [torch.sin(om.double() @ xd) * scale for om in oms]
+    mom = [torch.stack([m for b in blocks for m in (b @ ld, b.sum(dim=1))], dim=1)
+           for blocks in (cs, ss)]
+    c, s = torch.cat(cs, dim=1), torch.cat(ss, dim=1)
+    return assemble_streamed_gram_ensemble(c @ c.T, c @ s.T, s @ s.T, *mom, n=x.shape[1],
+                                           ensemble=len(oms))
+
+
+def _gram_within_rule(m, plain, exact) -> bool:
+    """``chip_smoke.py``'s Gram gate on (G_H, u) pairs: G_H / max|G_H| and u
+    within 2e-5 of plain, or, on a metric past that, plain past 2e-5 from
+    the float64 answer and ``m`` no farther from it."""
+    def errs(a, ref):
+        a0, a1, r0, r1 = (np.asarray(t, np.float64) for t in (*a, *ref))
+        return np.abs(a0 - r0).max() / np.abs(r0).max(), np.abs(a1 - r1).max()
+
+    return all(mp <= ATOL or (px > ATOL and mx <= px)
+               for mp, mx, px in zip(errs(m, plain), errs(m, exact), errs(plain, exact)))
 
 
 def _gram_err(g_ref, u_ref, g, u):
@@ -272,15 +354,22 @@ def test_split_over_p_holds_the_gate(nf, p, n, sigma, kind, xs, slices):
     """K1 at a request's width: each slice's folded phase sums added in
     slice order, phases of |z| >= 64 recomputed from the whole sum, hold the
     gate against plain and the reference's K1 (interpret mode) at any number
-    of slices (8 is capped by the k-tiles: 2 at p = 40, 4 at p = 128)."""
+    of slices (8 is capped by the k-tiles: 2 at p = 40, 4 at p = 128).  On
+    Cauchy phases, which the recompute takes in float64, the gate is the
+    reference's rule element by element (plain's fp32 sums are past 2e-5
+    of the float64 answer there)."""
     x = _x(p, n, seed=nf + p, scale=xs)
     xt = torch.from_numpy(x)
     om = draw_omega(7, nf, p, sigma=sigma, kernel=kind, device="cpu")
     model = torch.cat(featurize_model(xt, om, tkrff.inv_sqrt(nf), slices=slices)).numpy()
     plain = tkrff.rff_plain(xt, om).numpy()
     pallas = np.asarray(jops.rff(jnp.asarray(x), jnp.asarray(om.numpy()), interpret=True))
+    exact = _exact_features(xt, om, tkrff.inv_sqrt(nf))
     for other in (plain, pallas):
-        assert np.abs(model - other).max() <= ATOL
+        if kind == "laplace":
+            assert _within_rule(model, other, exact)
+        else:
+            assert np.abs(model - other).max() <= ATOL
 
 
 @pytest.mark.parametrize("nf,p,n,xs,slices", [(200, 40, 700, 1.0, 2), (200, 256, 300, 0.05, 8)])
@@ -289,7 +378,10 @@ def test_split_recomputes_from_the_whole_phase(nf, p, n, xs, slices):
     FMA chain: on Cauchy phases some phases of |z| >= 64 have no slice whose
     partial sum reaches 64, and some partial sums past 64 add up to less.
     Recomputing each slice's partial sum as its own chain where it reaches 64,
-    before the sum, misses the gate; the recompute from the whole sum holds it."""
+    before the sum, misses the gate; the recompute from the whole sum holds it.
+    The recompute is modelled as fp32's chain alone, which the gate against
+    plain resolves here; what the test shows is the decision, and the
+    kernels' float64 recompute takes the same phases."""
     x = torch.from_numpy(_x(p, n, seed=nf + p, scale=xs))
     om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device="cpu")
     plain = tkrff.rff_plain(x, om)
@@ -307,7 +399,7 @@ def test_split_recomputes_from_the_whole_phase(nf, p, n, xs, slices):
         z = torch.where(z.abs() >= EXACT_PHASE, fma_chain(om[:, k0:k0 + kps], x[k0:k0 + kps]), z)
         per_slice = z if per_slice is None else per_slice + z
     before = torch.cat([torch.cos(per_slice), torch.sin(per_slice)]) * scale
-    after = torch.cat(featurize_model(x, om, scale, slices=slices))
+    after = torch.cat(featurize_model(x, om, scale, slices=slices, chain="f32"))
     assert float((after - plain).abs().max()) <= ATOL < float((before - plain).abs().max())
 
 
@@ -349,6 +441,42 @@ def _office_like(n_s=2817, n_t=795, dim=2048, shift=0.8, seed=0):
         y = rng.integers(0, 5, size=n)
         cols.append((protos[y] + 0.6 * rng.normal(size=(n, dim))) * scale + offset)
     return torch.from_numpy(np.concatenate(cols).T.astype(np.float32))
+
+
+def _sliced_chain(om, x, slices):
+    """om @ x summed as plain may sum it: k in ``slices`` equal slices, each
+    fp32's FMA chain, the slices' sums added in slice order."""
+    kps = om.shape[1] // slices
+    parts = [fma_chain(om[:, k0:k0 + kps], x[k0:k0 + kps]) for k0 in range(0, om.shape[1], kps)]
+    z = parts[0]
+    for part in parts[1:]:
+        z = z + part
+    return z
+
+
+def test_float64_recompute_holds_the_rule_in_every_k_order():
+    """Why the recompute sums in float64: K1 at a request's width with a
+    Cauchy Omega at the data's sigma (:func:`_office_like`, 512 target
+    columns; each column's sums are its own, so they cover 64-512; 64
+    features of N = 1000, p = 2048).  Every phase is recomputed.  Plain's
+    fp32 sum takes its k order from the library (cuBLAS picks it by shape):
+    sequential, or 2, 4, 8 or 16 slices added in order.  fp32's FMA chain,
+    which is plain in sequential order, breaks the reference's rule against
+    some sliced order; the float64 recompute, rounded toward the chain, holds
+    it against every order."""
+    full = _office_like()
+    x = full[:, 2817:2817 + 512].contiguous()
+    om = draw_omega(0, 1000, 2048, sigma=median_sigma(full), kernel="laplace", device="cpu")[:64]
+    scale = tkrff.inv_sqrt(1000)
+    assert bool(cancels(om, x, scale).all())
+    exact = _exact_features(x, om, scale)
+    zc = fma_chain(om, x)
+    plains = [torch.cat([torch.cos(z), torch.sin(z)]) * scale
+              for z in (zc, *(_sliced_chain(om, x, s) for s in (2, 4, 8, 16)))]
+    chain = plains[0]
+    recomputed = torch.cat(recomputed_features(om, x, scale, chain=zc))
+    assert not all(_within_rule(chain, plain, exact) for plain in plains[1:])
+    assert all(_within_rule(recomputed, plain, exact) for plain in plains)
 
 
 def test_cancellation_bound_spares_gaussian_phases():
@@ -442,7 +570,10 @@ def test_large_phases_take_the_fma_chain():
     """The card test's laplace Gram case: unscaled X and Cauchy draws at
     sigma 4 give phases up to ~1e4, where one ULP of z moves cos by ~1e-3.
     The split products alone, and even the float64 phase rounded once, land
-    beyond the gate from plain; recomputing |z| >= 64 as the FMA chain holds it."""
+    beyond the gate from plain; recomputing |z| >= 64 as the FMA chain holds
+    it.  The kernels' float64 recompute holds the Gram's float64 rule: where
+    it is past the gate from plain, plain is past it from the float64
+    answer and the recompute no farther."""
     nf, ens, n = 200, 2, 700
     x = torch.from_numpy(np.random.default_rng(nf).normal(size=(40, n)).astype(np.float32))
     ell = torch.from_numpy(_ell(n))
@@ -455,8 +586,13 @@ def test_large_phases_take_the_fma_chain():
             *fused_gram_model(x, ell, **kw, **model_kw), n=n, ensemble=ens)
         return _gram_err(g_p.numpy(), u_p.numpy(), g_m.numpy(), u_m.numpy())
 
-    assert err() <= ATOL / 5
+    assert err(chain="f32") <= ATOL / 5
     assert err(exact_phase=None) > ATOL
+    oms = [fused_omega_block_plain(5, nf, 40, ensemble_index=e, sigma=4.0, rf_kernel="laplace",
+                                   device="cpu") for e in range(ens)]
+    model = assemble_streamed_gram_ensemble(*fused_gram_model(x, ell, **kw), n=n, ensemble=ens)
+    assert _gram_within_rule(model, (g_p, u_p),
+                             _gram_exact(x, ell, oms, tgram.feature_scale(nf, ens)))
     # the float64 phase rounded once, with exact Gram products
     scale = tgram.feature_scale(nf, ens)
     blocks = []
@@ -538,7 +674,8 @@ def test_split_operand_gram_takes_the_fma_chain_on_large_phases():
     unscaled X, as the card's laplace operand case: phases up to ~1e4, 11 %
     of them at |z| >= 64.  Recomputed from the operand as fp32's FMA chain
     they hold the gate against plain and the reference's kernels (untiled
-    and tiled, interpret mode); the split products alone miss it."""
+    and tiled, interpret mode); the split products alone miss it.  The
+    kernels' float64 recompute holds the Gram's float64 rule against both."""
     nf, p, n = 200, 40, 700
     x, ell = _x(p, n, seed=nf, scale=1.0), _ell(n)
     om = draw_omega(5, nf, p, sigma=4.0, kernel="laplace", device="cpu")
@@ -546,13 +683,17 @@ def test_split_operand_gram_takes_the_fma_chain_on_large_phases():
     scale = tgram.feature_scale(nf, 1)
     g_p, u_p = assemble_streamed_gram_ensemble(*tgram.rff_gram_stream_plain(xt, om, et), n=n,
                                                ensemble=1)
-    g_m, u_m = assemble_streamed_gram_ensemble(*gram_model(xt, et, [om], scale), n=n,
-                                               ensemble=1)
+    g_m, u_m = assemble_streamed_gram_ensemble(*gram_model(xt, et, [om], scale, chain="f32"),
+                                               n=n, ensemble=1)
     assert _gram_err(g_p, u_p, g_m, u_m) <= ATOL / 5
+    model = assemble_streamed_gram_ensemble(*gram_model(xt, et, [om], scale), n=n, ensemble=1)
+    exact = _gram_exact(xt, et, [om], scale)
+    assert _gram_within_rule(model, (g_p, u_p), exact)
     for tile in (0, 128):
         g_j, u_j = jops.rff_gram_stream(jnp.asarray(x), jnp.asarray(om.numpy()),
                                         jnp.asarray(ell), block=64, tile=tile, interpret=True)
         assert _gram_err(g_j, u_j, g_m, u_m) <= ATOL / 5
+        assert _gram_within_rule(model, (g_j, u_j), exact)
     g_s, u_s = assemble_streamed_gram_ensemble(
         *gram_model(xt, et, [om], scale, exact_phase=None), n=n, ensemble=1)
     assert _gram_err(g_p, u_p, g_s, u_s) > ATOL
